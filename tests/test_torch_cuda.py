@@ -1,0 +1,133 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+These tests need an NVIDIA GPU with the CUDA toolkit (the kernels build
+with nvcc at first use) and skip elsewhere.  ``tests/conftest.py``
+imports JAX, which the card machine lacks, so run them there with
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+``chip_smoke.py`` covers the main configuration at its full size; these
+cover the other shapes the main path can give the kernels (tier-1 and
+tier-2 windows, no reduction, degenerate penalties, overflows, raw
+bytes).  Integer outputs: exact equality.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from wfa_tpu import AdaptiveReductionOption, Penalties
+from wfa_tpu.datagen import generate_pairs
+
+pytestmark = pytest.mark.cuda
+
+ADAPTIVE = AdaptiveReductionOption(10, 50, 1)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _pairs(n, length, err, seed, raw=False):
+    pairs = generate_pairs(n, length, err, seed=seed)
+    # length differences and a far-off terminal diagonal
+    pairs[0] = (pairs[0][0], pairs[0][0][: length // 2])
+    pairs[1] = (pairs[1][0][: length // 3], pairs[1][0])
+    if raw:
+        pairs[2] = (b"NNACGTXACGT" + pairs[2][0], b"NACGTXACGGT" + pairs[2][1])
+    return pairs
+
+
+CASES = {
+    "tier0": (Penalties(4, 6, 2), ADAPTIVE, 128, 640, 300, 0.05, False),
+    "tier1": (Penalties(4, 6, 2), ADAPTIVE, 512, 1920, 300, 0.1, False),
+    "tier2": (Penalties(4, 6, 2), ADAPTIVE, 1152, 2500, 500, 0.2, False),
+    "no_reduce": (Penalties(4, 6, 2), None, 768, 1200, 300, 0.05, False),
+    "degenerate": (Penalties(2, 3, 1), ADAPTIVE, 128, 512, 300, 0.05, False),
+    "wide_penalties": (Penalties(9, 13, 5), ADAPTIVE, 256, 1024, 200, 0.05,
+                       False),
+    "overflow": (Penalties(4, 6, 2), ADAPTIVE, 128, 80, 300, 0.05, False),
+    "raw_bytes": (Penalties(4, 6, 2), ADAPTIVE, 128, 640, 300, 0.05, True),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_kernels_match_plain(card, case):
+    from wfa_tpu_torch import engine as te
+    from wfa_tpu_torch.device_backtrace import (device_backtrace,
+                                                device_backtrace_plain)
+    from wfa_tpu_torch.kernel_engine import run_batch
+
+    pen, ad, k_win, s_cap, length, err, raw = CASES[case]
+    cfg = te.EngineConfig(penalties=pen, adaptive=ad, k_win=k_win,
+                          s_cap=s_cap)
+    packed = te._pack_all(_pairs(24, length, err, 7, raw), k_win)
+    assert (packed[8] is None) == raw
+    qb, tbuf, qlen, tlen, toff, Lq, Ltb = te.inputs_from_packed(packed, card)
+    args = (qb, tbuf, qlen, tlen, toff)
+    ref = te.run_batch_plain(*args, cfg=cfg, Lq=Lq, Ltb=Ltb)
+    got = run_batch(*args, cfg=cfg, Lq=Lq, Ltb=Ltb)
+    for a, b in zip(ref[:4], got[:4]):
+        assert torch.equal(a, b)
+    ok = ref[1] & ~ref[2]
+    if case == "overflow":
+        assert ref[2].any() and ok.any()
+    for b in torch.nonzero(ok).flatten().tolist():
+        f = int(ref[0][b])
+        assert torch.equal(ref[4][:, :f + 1, b], got[4][:, :f + 1, b]), b
+
+    shift, _ = te._token_plan(s_cap, pen, Lq, Ltb)
+    bt_args = (got[4], got[3], -toff, got[0], tlen - qlen, qlen, tlen, ok)
+    kw = dict(penalties=pen, S=s_cap, K=k_win, token_shift=shift,
+              split_ext_codes=True)
+    for a, b in zip(device_backtrace_plain(*bt_args, **kw),
+                    device_backtrace(*bt_args, **kw)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_align_full2_card_matches_cpu(card):
+    """The whole device part of the main path: the byte streams from the
+    kernels equal those from the plain versions."""
+    from wfa_tpu_torch import engine as te
+
+    cfg = te.EngineConfig(penalties=Penalties(4, 6, 2), adaptive=ADAPTIVE,
+                          k_win=128, s_cap=640)
+    pairs = _pairs(64, 400, 0.05, 11)
+    _, _, qlen, tlen, toff, Lq, Ltb, qp, tp = te._pack_all(pairs, 128)
+    seq = torch.from_numpy(np.concatenate([qp, tp], axis=1))
+    lens = torch.from_numpy(np.stack([qlen, tlen, toff], axis=1))
+    cpu = te.align_full2(seq, lens, cfg=cfg, B=len(pairs), Lq=Lq, Ltb=Ltb,
+                         packed=True)
+    gpu = te.align_full2(seq.to(card), lens.to(card), cfg=cfg, B=len(pairs),
+                         Lq=Lq, Ltb=Ltb, packed=True)
+    for key in ("mtb", "lg"):
+        assert torch.equal(cpu[key], gpu[key].cpu()), key
+
+
+def test_wrappers_check_their_inputs(card):
+    from wfa_tpu_torch import engine as te
+    from wfa_tpu_torch.kernel_engine import run_batch
+
+    cfg = te.EngineConfig(penalties=Penalties(4, 6, 2), adaptive=ADAPTIVE)
+    ins = te.inputs_from_packed(te._pack_all(_pairs(4, 100, 0.05, 3), 128),
+                                card)
+    qb, tbuf, qlen, tlen, toff, Lq, Ltb = ins
+    with pytest.raises(TypeError):
+        run_batch(qb, tbuf, qlen.long(), tlen, toff, cfg=cfg, Lq=Lq, Ltb=Ltb)
+    with pytest.raises(ValueError):
+        run_batch(qb, tbuf[:, ::2], qlen, tlen, toff, cfg=cfg, Lq=Lq,
+                  Ltb=Ltb // 2)
+    with pytest.raises(ValueError):
+        run_batch(qb, tbuf.cpu(), qlen, tlen, toff, cfg=cfg, Lq=Lq, Ltb=Ltb)
+    # band slots over the default shared-memory limit: the launch fails
+    # and the wrapper raises the CUDA error
+    huge = te.EngineConfig(penalties=Penalties(5000, 6, 2), adaptive=ADAPTIVE)
+    with pytest.raises(RuntimeError):
+        run_batch(qb, tbuf, qlen, tlen, toff, cfg=huge, Lq=Lq, Ltb=Ltb)
+    # the error does not stick to the context
+    assert torch.equal(run_batch(*ins[:5], cfg=cfg, Lq=Lq, Ltb=Ltb)[0],
+                       te.run_batch_plain(*ins[:5], cfg=cfg, Lq=Lq,
+                                          Ltb=Ltb)[0])

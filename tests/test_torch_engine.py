@@ -1,0 +1,213 @@
+"""PyTorch port vs the JAX package: the engine's stages on one packed batch.
+
+The same numpy-packed batch (``wfa_tpu.engine.BatchAligner._pack_all``)
+goes through each JAX function and its ``wfa_tpu_torch`` counterpart on
+the CPU, where the port's kernel wrappers run their plain PyTorch
+versions.  Every comparison is integer: the tolerance is exact equality.
+"""
+
+import random
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from wfa_tpu import AdaptiveReductionOption, Options, Penalties
+from wfa_tpu.engine import BatchAligner as JaxBatchAligner
+from wfa_tpu.engine import (_align_full2, _run_batch, _seed_rows,
+                            _stop_tables, _unpack2)
+from wfa_tpu.pallas_engine import pallas_run_batch
+from wfa_tpu_torch import engine as te
+from wfa_tpu_torch.kernel_engine import run_batch
+
+from test_pallas_engine import random_pairs
+
+torch.set_num_threads(2)
+
+ADAPTIVE = AdaptiveReductionOption(10, 50, 1)
+
+
+def _batch(seed, n=12, max_len=80, penalties=Penalties(4, 6, 2),
+           adaptive=ADAPTIVE, k_win=128, s_cap=128, raw=False):
+    pairs = random_pairs(random.Random(seed), n, max_len)
+    if raw:  # a non-ACGT byte forces the raw (unpacked) upload
+        pairs[1] = (b"ACGTNNACGTACGGT", b"ACGTNACGTTACGGT")
+    jb = JaxBatchAligner(penalties, Options(True), adaptive, k_win=k_win,
+                         s_cap=s_cap, engine="jax")
+    return pairs, jb, jb._pack_all(pairs)
+
+
+def _jax_args(packed):
+    qb, tbuf, qlen, tlen, toff = (jnp.asarray(a) for a in packed[:5])
+    return qb, tbuf, qlen, tlen, toff
+
+
+@pytest.mark.parametrize("raw", [False, True], ids=["packed", "raw"])
+def test_engine_inputs_match_jax(raw):
+    """_unpack2, _seed_rows and _stop_tables (words and fsa)."""
+    pairs, jb, packed = _batch(11, raw=raw)
+    qb, tbuf, qlen, tlen, toff, Lq, Ltb, qp, tp = packed
+    K = jb.cfg.k_win
+    ins = te.inputs_from_packed(packed, "cpu")
+    jargs = _jax_args(packed)
+    for mismatch in (4, 0):
+        jseeds = _seed_rows(*jargs, mismatch=mismatch, global_alignment=True,
+                            K=K, Lq=Lq, Ltb=Ltb)
+        tseeds = te._seed_rows(*ins[:5], mismatch=mismatch, K=K, Ltb=Ltb)
+        for js, ts in zip(jseeds, tseeds):
+            for a, b in zip(js, ts):
+                assert np.array_equal(np.asarray(a), b.numpy())
+    jw, jf = _stop_tables(*jargs, K, Lq, Ltb)
+    tw, tf = te._stop_tables(*ins[:5], K, Lq, Ltb)
+    assert np.array_equal(np.asarray(jw), tw.numpy())
+    assert np.array_equal(np.asarray(jf), tf.numpy())
+    if raw:
+        assert tp is None
+        return
+    for pk, L, lo, hi in ((qp, Lq, np.zeros_like(qlen), qlen),
+                          (tp, Ltb, toff, toff + tlen)):
+        j = _unpack2(jnp.asarray(pk), L, jnp.asarray(lo), jnp.asarray(hi))
+        t = te._unpack2(torch.from_numpy(pk), L, torch.from_numpy(lo),
+                        torch.from_numpy(hi))
+        assert np.array_equal(np.asarray(j), t.numpy())
+
+
+def test_clz32_matches_lax():
+    from jax import lax
+
+    rng = np.random.default_rng(0)
+    words = rng.integers(-(1 << 31), 1 << 31, size=4096, dtype=np.int64)
+    words = np.concatenate([words, [0, -1, 1, -(1 << 31), (1 << 31) - 1]])
+    words = words.astype(np.int32)
+    assert np.array_equal(np.asarray(lax.clz(jnp.asarray(words))),
+                          te._clz32(torch.from_numpy(words)).numpy())
+
+
+@pytest.mark.parametrize("penalties,adaptive,s_cap", [
+    (Penalties(4, 6, 2), ADAPTIVE, 128),
+    (Penalties(4, 6, 2), None, 128),
+    (Penalties(2, 3, 1), ADAPTIVE, 128),
+    (Penalties(4, 6, 2), ADAPTIVE, 48),  # score-cap overflows
+], ids=["adaptive", "plain", "degenerate", "overflow"])
+def test_run_batch_plain_matches_lockstep(penalties, adaptive, s_cap):
+    """run_batch_plain equals wfa_tpu.engine._run_batch on the whole
+    final_s, done, overflow and aux."""
+    pairs, jb, packed = _batch(21, penalties=penalties, adaptive=adaptive,
+                               s_cap=s_cap)
+    Lq, Ltb = packed[5], packed[6]
+    st = _run_batch(*_jax_args(packed), cfg=jb.cfg, B=len(pairs), Lq=Lq,
+                    Ltb=Ltb)
+    ins = te.inputs_from_packed(packed, "cpu")
+    final_s, done, overflow, term_cell, aux = te.run_batch_plain(
+        *ins[:5], cfg=te.config_from_jax(jb.cfg), Lq=Lq, Ltb=Ltb)
+    assert np.array_equal(np.asarray(st.final_s), final_s.numpy())
+    assert np.array_equal(np.asarray(st.done), done.numpy())
+    assert np.array_equal(np.asarray(st.overflow), overflow.numpy())
+    jaux = np.stack([np.asarray(st.aux_m), np.asarray(st.aux_i),
+                     np.asarray(st.aux_d)])
+    assert np.array_equal(jaux, aux.numpy())
+    # term_cell is the stored M cell at (final_s, Ak)
+    j_ak = (packed[3] - packed[2]) + packed[4]
+    hist = np.asarray(st.hist_m)
+    ok = done.numpy()
+    b = np.arange(len(pairs))[ok]
+    assert np.array_equal(hist[final_s.numpy()[ok], b, j_ak[ok]],
+                          term_cell.numpy()[ok])
+    if s_cap < 128:
+        assert overflow.any() and (~overflow).any()
+
+
+def test_run_batch_plain_matches_pallas_interpret():
+    """run_batch_plain equals the Pallas kernel (interpret mode) on every
+    pair it reports done and not overflowed: final_s, term_cell and the
+    aux rows 0..final_s ([3, S, K, Bp] int16 -> [3, S, B, K] int32)."""
+    pairs, jb, packed = _batch(31, n=8, max_len=60)
+    Lq, Ltb = packed[5], packed[6]
+    B = len(pairs)
+    final_p, done_p, ovf_p, term_p, aux_p, _, _, _ = pallas_run_batch(
+        *_jax_args(packed), cfg=jb.cfg, B=B, Lq=Lq, Ltb=Ltb, interpret=True)
+    ins = te.inputs_from_packed(packed, "cpu")
+    final_s, done, overflow, term_cell, aux = run_batch(
+        *ins[:5], cfg=te.config_from_jax(jb.cfg), Lq=Lq, Ltb=Ltb)
+    ok = np.asarray(done_p) & ~np.asarray(ovf_p)
+    assert ok.all()
+    assert np.array_equal(np.asarray(final_p)[ok], final_s.numpy()[ok])
+    assert np.array_equal(np.asarray(term_p)[ok], term_cell.numpy()[ok])
+    paux = np.transpose(np.asarray(aux_p)[..., :B], (0, 1, 3, 2)).astype(
+        np.int32)
+    taux = aux.numpy()
+    for b in np.flatnonzero(ok):
+        f = int(final_s[b])
+        assert np.array_equal(paux[:, :f + 1, b], taux[:, :f + 1, b]), b
+
+
+@pytest.mark.parametrize("raw", [False, True], ids=["packed", "raw"])
+def test_align_full2_bytes_match_jax(raw):
+    """align_full2's "mtb" and "lg" streams are byte-equal to
+    wfa_tpu.engine._align_full2(engine="jax", flat=True)."""
+    pairs, jb, packed = _batch(41, raw=raw, n=14)
+    qb, tbuf, qlen, tlen, toff, Lq, Ltb, qp, tp = packed
+    is_packed = tp is not None
+    assert is_packed != raw
+    seq = np.concatenate([qp if is_packed else qb, tp if is_packed else tbuf],
+                         axis=1)
+    lens = np.stack([qlen, tlen, toff], axis=1).astype(np.int32)
+    jout = _align_full2(jnp.asarray(seq), jnp.asarray(lens), cfg=jb.cfg,
+                        B=len(pairs), Lq=Lq, Ltb=Ltb, engine="jax",
+                        packed=is_packed, flat=True)
+    tout = te.align_full2(torch.from_numpy(seq), torch.from_numpy(lens),
+                          cfg=te.config_from_jax(jb.cfg), B=len(pairs),
+                          Lq=Lq, Ltb=Ltb, packed=is_packed)
+    for key in ("mtb", "lg"):
+        a, b = np.asarray(jout[key]), tout[key].numpy()
+        assert a.dtype == b.dtype and a.shape == b.shape, key
+        assert np.array_equal(a, b), key
+
+
+def test_config_from_jax_rejects_unported_modes():
+    import dataclasses
+
+    from wfa_tpu.engine import EngineConfig
+
+    cfg = EngineConfig(penalties=Penalties(4, 6, 2), adaptive=ADAPTIVE)
+    assert te.config_from_jax(cfg) == te.EngineConfig(
+        penalties=Penalties(4, 6, 2), adaptive=ADAPTIVE)
+    for change in ({"w_win": 32}, {"v_win": 256}, {"aux_kw": 128},
+                   {"prefix": True}, {"global_alignment": False}):
+        with pytest.raises(NotImplementedError):
+            te.config_from_jax(dataclasses.replace(cfg, **change))
+
+
+def test_window_origin_and_direct_pack_match_jax():
+    """window_origin equals the JAX one and the packed toff is -k0; the
+    direct pack (no raw rows) uploads the same bytes."""
+    from wfa_tpu import native
+    from wfa_tpu.engine import window_origin
+
+    pairs, jb, packed = _batch(51)
+    qlen, tlen, toff = packed[2:5]
+    for q, t, o in zip(qlen, tlen, toff):
+        k0 = te.window_origin(int(q), int(t), 128, True)
+        assert k0 == window_origin(int(q), int(t), 128, True) == -int(o)
+    direct = te._pack_all(pairs, 128, need_raw=False)
+    # the native packer packs straight from the strings, without raw rows
+    assert (direct[0] is None) == (native.lib is not None)
+    for a, b in zip(direct[2:], packed[2:]):
+        assert np.array_equal(a, b)
+    for a, b in zip(te._pack_all(pairs, 128), packed):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("raw", [False, True], ids=["packed", "raw"])
+def test_numpy_pack_matches_jax(raw, monkeypatch):
+    """Without the native packer (no C toolchain), the numpy pack gives
+    the same rows and uploads."""
+    from wfa_tpu import native
+
+    pairs, jb, packed = _batch(61, raw=raw)
+    monkeypatch.setattr(native, "lib", None)
+    ours = te._pack_all(pairs, 128)
+    assert (ours[8] is None) == raw
+    for a, b in zip(ours, packed):
+        assert np.array_equal(a, b)

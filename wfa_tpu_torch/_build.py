@@ -1,0 +1,115 @@
+"""Build and bind the port's CUDA kernels (``csrc/*.cu``).
+
+At first use, ``nvcc`` compiles every source into one shared library
+with a plain C interface for Hopper (``sm_90a``), in
+``wfa_tpu_torch/build/`` (git-ignored), and ``ctypes`` loads it.  The
+library name carries a hash of the sources, so an edited kernel
+rebuilds.  Each C entry launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`launch` raises when that is not 0.
+Nothing here runs at import time: the CPU tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# C entry points: every pointer and the stream are c_void_p, every
+# scalar a c_int (ctypes would otherwise cut a pointer to 32 bits)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    # qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S, K, x, oe, e, reduce_on,
+    # min_wf_len, max_dist_diff, win, out, aux, stream
+    "wfa_score_loop": [_P] * 5 + [_I] * 11 + [_P] * 4,
+    # aux, start_cell, k0, start_s, start_k, qlen, tlen, active0, B, S, K,
+    # x, oe, e, it_cap, token_shift, split, tok0, buf, tail, stream
+    "wfa_backtrace": [_P] * 8 + [_I] * 9 + [_P] * 4,
+}
+
+_lib = None
+build_seconds = None  # wall time of the nvcc run (None: loaded cached)
+build_log = ""  # nvcc's output (ptxas register / spill report)
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only "
+                           "where the CUDA toolkit is installed")
+    return path
+
+
+def library() -> ctypes.CDLL:
+    """The kernel library, built on the first call."""
+    global _lib, build_seconds, build_log
+    if _lib is not None:
+        return _lib
+    sources = sorted(SRC_DIR.glob("*.cu"))
+    digest = hashlib.sha256()
+    for path in sorted(SRC_DIR.glob("*.cu*")):
+        digest.update(path.name.encode() + path.read_bytes())
+    so = BUILD_DIR / f"libwfa_kernels_{digest.hexdigest()[:16]}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        build_seconds = time.perf_counter() - t0
+        build_log = r.stdout + r.stderr
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{build_log}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def stream_ptr(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def check_inputs(fn: str, device: torch.device, **tensors) -> None:
+    """Raise unless every (tensor, dtype, shape) lies on ``device`` with
+    that dtype and shape and is contiguous."""
+    if device.type != "cuda":
+        raise ValueError(f"{fn}: expected CUDA tensors, got {device}")
+    for name, (t, dtype, shape) in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{fn}: {name} on {t.device}, expected {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{fn}: {name} is {t.dtype}, expected {dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(
+                f"{fn}: {name} has shape {tuple(t.shape)}, expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} is not contiguous")
+
+
+def launch(name: str, *args) -> None:
+    """Call the C entry ``name``; tensors pass as device pointers.  Raises
+    if the launch reported a CUDA error."""
+    argv = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
+            else a for a in args]
+    err = getattr(library(), name)(*argv)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")

@@ -1,0 +1,454 @@
+// Kernel K1: the global WFA score loop, one thread block per pair.
+//
+// Replaces the TPU kernel wfa_tpu/pallas_engine.py::_kernel (95-956), in
+// its default global mode, as launched by pallas_run_batch (959-1159).
+// For each pair it runs the reference's loop extend -> termination ->
+// wf-adaptive reduce -> next (wfa.go:228-251) and bakes the backtrace aux
+// (offset0 << 3 | tag per cell) as it goes.  Outputs per pair: final_s,
+// done, overflow, term_cell (the raw M cell at (final_s, Ak)), and the
+// aux rows 0..final_s of aux[3, S, B, K] in the lockstep engine's
+// pair-major layout.  Rows above final_s are not written.
+//
+// Design for the card, not block by block from the Pallas code:
+//  * One block per pair.  Threads stride over the K diagonals; band
+//    bounds, dmin, first_good / last_mark / last_good and the Ak cell
+//    come from block reductions.  With no shared table window every
+//    pair's result is independent of the rest of the batch, so a
+//    per-pair loop is exact (the lockstep engine stops a pair at done or
+//    overflow too).
+//  * Extension compares the sequence bytes directly, q[v+i] == t[h+i]
+//    within v < qlen, h < tlen, like the reference's LCP walk
+//    (wfa.go:411-435).  The TPU's stop tables exist because gathers are
+//    slow there; the plain version keeps them, so the two check each
+//    other.
+//  * The circular wavefront windows (WM = max(x, o+e) + 1 rows of M,
+//    WE = e + 1 rows each of I and D) live in a global scratch tensor,
+//    which serves any K; the band slots live in shared memory.
+//
+// What bounds it: each step is a short chain of dependent L1/L2 reads
+// and block barriers per pair; K = 128 diagonals give one cell per
+// thread, and 2048 pairs fill the card's 132 SMs with ~16 blocks each.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kBig = 1 << 30;
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kInsOpen = 1, kInsExt = 2, kDelOpen = 3, kDelExt = 4;
+constexpr int kMismatch = 5, kMatch = 6;
+
+// Block-wide minimum of N values at once (a maximum passes its negation;
+// all values lie in [-kBig, kBig]).  Every thread gets the results.
+template <int N>
+__device__ __forceinline__ void block_min(int (&v)[N], int* red) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v[i] = min(v[i], __shfl_xor_sync(0xffffffffu, v[i], off));
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();  // red may still be read by the previous reduction
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) red[i * kWarps + warp] = v[i];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    int m = red[i * kWarps];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) m = min(m, red[i * kWarps + w]);
+    v[i] = m;
+  }
+}
+
+// The reference's ascending Delete loop over k in [dl, dh] applied to a
+// band [lo, hi] (wfa_wavefront.go:171-183 via wfa.go:526-535): the new
+// band and the zeroed range [zlo, zhi] (empty when zlo > zhi).
+__device__ __forceinline__ void delete_range_asc(int dl, int dh, int lo,
+                                                 int hi, int& nlo, int& nhi,
+                                                 int& zlo, int& zhi) {
+  bool nonempty = dl <= dh && lo <= dh && hi >= dl;
+  bool hi_in = hi <= dh;
+  nlo = (nonempty && lo >= dl) ? (hi_in ? hi : dh + 1) : lo;
+  nhi = nonempty ? (hi_in ? hi - 1 : hi) : hi;
+  zlo = nonempty ? max(dl, lo) : 1;
+  zhi = nonempty ? min(dh, hi) : 0;
+}
+
+struct Band {
+  int* lo;
+  int* hi;
+  int* ex;
+};
+
+// Source read of next() (KRange + GetAfterDiff, wfa_component.go:91-167):
+// the offset at window column jj of the row `row`, or 0 when absent.
+__device__ __forceinline__ bool src(const int32_t* row, bool present, int lo,
+                                    int hi, int k0, int K, int jj, int& val) {
+  val = 0;
+  if (!present || jj < 0 || jj >= K) return false;
+  int kk = k0 + jj;
+  int c = row[jj];
+  if (kk < lo || kk > hi || c <= 0) return false;
+  val = c >> 3;
+  return true;
+}
+
+__global__ void __launch_bounds__(kThreads) score_loop_kernel(
+    const uint8_t* __restrict__ qb, const uint8_t* __restrict__ tbuf,
+    const int32_t* __restrict__ qlen, const int32_t* __restrict__ tlen,
+    const int32_t* __restrict__ toff, int B, int Lq, int Ltb, int S, int K,
+    int x, int oe, int e, int reduce_on, int min_wf_len, int max_dist_diff,
+    int32_t* __restrict__ win, int32_t* __restrict__ out,
+    int32_t* __restrict__ aux) {
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int WM = max(x, oe) + 1, WE = e + 1;
+  extern __shared__ int smem[];
+  int* red = smem;  // 8 * kWarps reduction slots
+  Band mb{smem + 8 * kWarps, smem + 8 * kWarps + WM,
+          smem + 8 * kWarps + 2 * WM};
+  int* base_ie = smem + 8 * kWarps + 3 * WM;
+  Band ib{base_ie, base_ie + WE, base_ie + 2 * WE};
+  Band db{base_ie + 3 * WE, base_ie + 4 * WE, base_ie + 5 * WE};
+  __shared__ int sh_cell_ak;
+
+  const int ql = qlen[b], tl = tlen[b], tof = toff[b];
+  const int k0 = -tof, Ak = tl - ql, jak = Ak - k0;
+  int32_t* Mw = win + (int64_t)b * (WM + 2 * WE) * K;
+  int32_t* Iw = Mw + (int64_t)WM * K;
+  int32_t* Dw = Iw + (int64_t)WE * K;
+  auto aux_row = [&](int comp, int s) {
+    return aux + ((int64_t)(comp * S + s) * B + b) * K;
+  };
+
+  // the window must hold the seed diagonal 0 and the terminal one
+  bool overflow = Ak < k0 || Ak >= k0 + K || 0 < k0 || 0 >= k0 + K;
+  const uint8_t* q = qb + (int64_t)b * Lq;
+  const uint8_t* t = tbuf + (int64_t)b * Ltb + tof;  // t[h], valid if !overflow
+  bool eq00 = false;
+  if (!overflow) {
+    eq00 = q[0] == t[0];
+    // a mismatch seed beyond the score cap can never be reached
+    if (!eq00 && x >= S && x > 0) overflow = true;
+  }
+  if (overflow) {
+    if (tid == 0) {
+      out[b] = 0;
+      out[B + b] = 0;
+      out[2 * B + b] = 1;
+      out[3 * B + b] = 0;
+    }
+    return;
+  }
+
+  // ---- seeding (wfa.go:143-184): one cell, diagonal 0 at offset 1
+  const int j0 = -k0;
+  const int cell0 = (1 << 3) | (eq00 ? kMatch : kMismatch);
+  const int seed_row = (eq00 || x == 0) ? 0 : x;
+  for (int i = tid; i < WM * K; i += kThreads) Mw[i] = 0;
+  for (int i = tid; i < WE * K; i += kThreads) Iw[i] = Dw[i] = 0;
+  __syncthreads();
+  if (tid == 0) {
+    Mw[seed_row * K + j0] = cell0;
+    for (int r = 0; r < WM; ++r) {
+      mb.lo[r] = r == seed_row ? 0 : kBig;
+      mb.hi[r] = r == seed_row ? 0 : -kBig;
+      mb.ex[r] = r == seed_row;
+    }
+    for (int r = 0; r < WE; ++r) {
+      ib.lo[r] = db.lo[r] = kBig;
+      ib.hi[r] = db.hi[r] = -kBig;
+      ib.ex[r] = db.ex[r] = 0;
+    }
+  }
+  // aux row 0: seed cells have no sources, so their aux is the tag bits
+  for (int j = tid; j < K; j += kThreads) {
+    aux_row(0, 0)[j] = (seed_row == 0 && j == j0) ? (cell0 & 7) : 0;
+    aux_row(1, 0)[j] = 0;
+    aux_row(2, 0)[j] = 0;
+  }
+  __syncthreads();
+
+  bool done = false;
+  int final_s = 0, term_cell = 0;
+  for (int s = 0; s < S - 1; ++s) {
+    const int sm = s % WM, se = s % WE;
+    const int lo_ms = mb.lo[sm], hi_ms = mb.hi[sm];
+    const bool ex_ms = mb.ex[sm] != 0;
+    int32_t* row_m = Mw + (int64_t)sm * K;
+
+    // ---------------- extend (wfa.go:381-458) ----------------
+    for (int j = tid; j < K; j += kThreads) {
+      int cell = row_m[j];
+      int k = k0 + j;
+      if (ex_ms && cell > 0 && k >= lo_ms && k <= hi_ms) {
+        int h0 = cell >> 3, v0 = h0 - k;
+        if (v0 > 0 && v0 < ql && h0 < tl) {
+          int lim = min(ql - v0, tl - h0);
+          int n = 0;
+          while (n < lim && q[v0 + n] == t[h0 + n]) ++n;
+          if (n > 0) {
+            cell += n << 3;
+            row_m[j] = cell;
+          }
+        }
+      }
+      if (j == jak) sh_cell_ak = cell;
+    }
+    __syncthreads();
+
+    // ---------------- termination (wfa.go:235-239) ----------------
+    const int cell_ak = sh_cell_ak;
+    if (ex_ms && Ak >= lo_ms && Ak <= hi_ms && cell_ak > 0 &&
+        (cell_ak >> 3) >= tl) {
+      done = true;
+      final_s = s;
+      term_cell = cell_ak;
+      break;
+    }
+
+    // ---------------- reduce (wfa.go:461-540) ----------------
+    if (reduce_on && ex_ms && hi_ms - lo_ms + 1 >= min_wf_len) {
+      // dmin over the in-bounds cells
+      int r1[1] = {kBig};
+      for (int j = tid; j < K; j += kThreads) {
+        int cell = row_m[j], k = k0 + j;
+        int hs = cell >> 3, vs = hs - k;
+        if (cell > 0 && k >= lo_ms && k <= hi_ms && vs >= 0 && vs < ql &&
+            hs < tl)
+          r1[0] = min(r1[0], max(tl - hs, ql - vs));
+      }
+      block_min(r1, red);
+      const int dmin = r1[0];
+      // marked cells lag dmin by more than max_dist_diff
+      auto classify = [&](int j, bool& marked, bool& good) {
+        int cell = row_m[j], k = k0 + j;
+        int hs = cell >> 3, vs = hs - k;
+        bool okd = cell > 0 && k >= lo_ms && k <= hi_ms && vs >= 0 &&
+                   vs < ql && hs < tl;
+        int dist = max(tl - hs, ql - vs);
+        marked = okd && dist - dmin > max_dist_diff;
+        good = okd && !marked;
+      };
+      int r3[3] = {kBig, kBig, kBig};  // first_good, -last_good, -any_marked
+      for (int j = tid; j < K; j += kThreads) {
+        bool marked, good;
+        classify(j, marked, good);
+        if (good) {
+          r3[0] = min(r3[0], j);
+          r3[1] = min(r3[1], -j);
+        }
+        if (marked) r3[2] = -1;
+      }
+      block_min(r3, red);
+      const int first_good = r3[0];
+      const int last_good = r3[1] == kBig ? -kBig : -r3[1];
+      const bool any_good = first_good < kBig, any_marked = r3[2] == -1;
+      int r4[1] = {kBig};  // -last_mark below first_good
+      for (int j = tid; j < K && j < first_good; j += kThreads) {
+        bool marked, good;
+        classify(j, marked, good);
+        if (marked) r4[0] = min(r4[0], -j);
+      }
+      block_min(r4, red);
+      const int new_lo = r4[0] < kBig ? k0 - r4[0] + 1 : lo_ms;
+      const int new_hi = (any_marked && any_good) ? k0 + last_good : hi_ms;
+
+      // co-deletion from I and D (wfa.go:526-535): two ascending Delete
+      // sweeps, [lo, new_lo) then (new_hi, hi]
+      int nlo[2], nhi[2], z[2][4];
+      bool gate[2];
+      Band cb[2] = {ib, db};
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        gate[c] = cb[c].ex[se] != 0;
+        int l1, h1;
+        delete_range_asc(lo_ms, new_lo - 1, cb[c].lo[se], cb[c].hi[se], l1,
+                         h1, z[c][0], z[c][1]);
+        delete_range_asc(new_hi + 1, hi_ms, l1, h1, nlo[c], nhi[c], z[c][2],
+                         z[c][3]);
+      }
+      int32_t* aux_m = aux_row(0, s);
+      for (int j = tid; j < K; j += kThreads) {
+        int k = k0 + j;
+        int cell = row_m[j];
+        if (cell > 0 && k >= lo_ms && k <= hi_ms && (k < new_lo || k > new_hi)) {
+          row_m[j] = 0;
+          aux_m[j] = 0;  // aux mirrors cell existence
+        }
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          if (gate[c] && ((k >= z[c][0] && k <= z[c][1]) ||
+                          (k >= z[c][2] && k <= z[c][3]))) {
+            (c == 0 ? Iw : Dw)[(int64_t)se * K + j] = 0;
+            aux_row(1 + c, s)[j] = 0;
+          }
+        }
+      }
+      __syncthreads();  // every thread has read the band slots
+      if (tid == 0) {
+        mb.lo[sm] = new_lo;
+        mb.hi[sm] = new_hi;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          if (gate[c]) {
+            cb[c].lo[se] = nlo[c];
+            cb[c].hi[se] = nhi[c];
+          }
+        }
+      }
+      __syncthreads();
+    }
+
+    // ---------------- next (wfa.go:549-700) ----------------
+    const int s2 = s + 1;
+    // KRange of each source with the reference's (0, 0) fallback
+    // (wfa_component.go:91); a zero penalty step reads the row being
+    // written, which does not exist yet
+    const bool p_x = x >= 1 && x <= s2 && mb.ex[(s2 - x) % WM];
+    const bool p_o = oe >= 1 && oe <= s2 && mb.ex[(s2 - oe) % WM];
+    const bool p_i = e >= 1 && e <= s2 && ib.ex[(s2 - e) % WE];
+    const bool p_d = e >= 1 && e <= s2 && db.ex[(s2 - e) % WE];
+    const int sx = p_x ? (s2 - x) % WM : 0, so = p_o ? (s2 - oe) % WM : 0;
+    const int sie = p_i ? (s2 - e) % WE : 0, sde = p_d ? (s2 - e) % WE : 0;
+    const int lo_x = p_x ? mb.lo[sx] : 0, hi_x = p_x ? mb.hi[sx] : 0;
+    const int lo_o = p_o ? mb.lo[so] : 0, hi_o = p_o ? mb.hi[so] : 0;
+    const int lo_ie = p_i ? ib.lo[sie] : 0, hi_ie = p_i ? ib.hi[sie] : 0;
+    const int lo_de = p_d ? db.lo[sde] : 0, hi_de = p_d ? db.hi[sde] : 0;
+    const int hi_n = min(tl - 1, max(max(hi_x, hi_o), max(hi_ie, hi_de)) + 1);
+    const int lo_n =
+        max(-(ql - 1), min(min(lo_x, lo_o), min(lo_ie, lo_de)) - 1);
+    // the fixed window must hold the new band
+    if (lo_n < k0 || hi_n >= k0 + K) {
+      overflow = true;
+      break;
+    }
+    const int32_t* mo_row = Mw + (int64_t)so * K;
+    const int32_t* mx_row = Mw + (int64_t)sx * K;
+    const int32_t* ie_row = Iw + (int64_t)sie * K;
+    const int32_t* de_row = Dw + (int64_t)sde * K;
+    const int s2m = s2 % WM, s2e = s2 % WE;
+    const bool at_seed = x > 0 && s2 == x;  // the seed row x pre-exists
+    int32_t* m_new = Mw + (int64_t)s2m * K;
+    int32_t* i_new = Iw + (int64_t)s2e * K;
+    int32_t* d_new = Dw + (int64_t)s2e * K;
+    int32_t* am_new = aux_row(0, s2);
+    int32_t* ai_new = aux_row(1, s2);
+    int32_t* ad_new = aux_row(2, s2);
+    // band reductions: min k and -max k of the written I, D, M cells
+    int rb[6] = {kBig, kBig, kBig, kBig, kBig, kBig};
+    for (int j = tid; j < K; j += kThreads) {
+      const int k = k0 + j;
+      // insertion (wfa.go:578-608): sources at k-1
+      int v1i, v2i;
+      bool fmi = src(mo_row, p_o, mb.lo[so], mb.hi[so], k0, K, j - 1, v1i);
+      bool fii = src(ie_row, p_i, ib.lo[sie], ib.hi[sie], k0, K, j - 1, v2i);
+      // pre-invalidation snapshot: the backtrace recomputes offsets from
+      // raw stored cells without the bound invalidation (wfa.go:757-827)
+      const int isk_nb = (fmi || fii) ? max(v1i, v2i) + 1 : 0;
+      if (fmi && v1i > tl) fmi = false, v1i = 0;
+      if (fii && v2i > tl) fii = false, v2i = 0;
+      const int Isk = max(v1i, v2i) + 1;
+      const bool upd_i = fmi || fii;
+      const int tag_i = (fmi && v1i >= v2i) ? kInsOpen : kInsExt;
+      // deletion (wfa.go:612-643): sources at k+1
+      int v1d, v2d;
+      bool fmd = src(mo_row, p_o, mb.lo[so], mb.hi[so], k0, K, j + 1, v1d);
+      bool fdd = src(de_row, p_d, db.lo[sde], db.hi[sde], k0, K, j + 1, v2d);
+      const int dsk_nb = (fmd || fdd) ? max(v1d, v2d) : 0;
+      const bool any_id_nb = fmi || fii || fmd || fdd;
+      if (fmd && v1d - k > ql) fmd = false, v1d = 0;
+      if (fdd && v2d - k > ql) fdd = false, v2d = 0;
+      const int Dsk = max(v1d, v2d);
+      const bool upd_d = fmd || fdd;
+      const int tag_d = (fmd && v1d >= v2d) ? kDelOpen : kDelExt;
+      // mismatch / M with the reference tie-breaking (wfa.go:648-698)
+      int v1x;
+      bool fmx = src(mx_row, p_x, mb.lo[sx], mb.hi[sx], k0, K, j, v1x);
+      const int off_def_nb =
+          (any_id_nb || fmx) ? max(max(isk_nb, dsk_nb), v1x + 1) : 0;
+      if (fmx && (v1x > tl || v1x - k > ql)) fmx = false, v1x = 0;
+      const int Msk = max(max(upd_i ? Isk : 0, upd_d ? Dsk : 0), v1x + 1);
+      const int tag_m = (fmx && Msk == v1x + 1)
+                            ? kMismatch
+                            : ((upd_i && Msk == Isk) ? tag_i : tag_d);
+      const bool band = k >= lo_n && k <= hi_n;
+      const bool wr_i = upd_i && band, wr_d = upd_d && band;
+      const bool wr_m = (upd_i || upd_d || fmx) && band;
+      // aux: each cell's backtrace branch is selected by its own tag
+      const int aux_m_val = tag_m == kInsExt
+                                ? isk_nb
+                                : (tag_m == kDelExt ? dsk_nb : off_def_nb);
+      const int row_m_old = at_seed ? m_new[j] : 0;
+      i_new[j] = wr_i ? (Isk << 3) | tag_i : 0;
+      d_new[j] = wr_d ? (Dsk << 3) | tag_d : 0;
+      m_new[j] = wr_m ? (Msk << 3) | tag_m : row_m_old;
+      ai_new[j] = wr_i ? ((tag_i == kInsExt ? isk_nb : off_def_nb) << 3) | tag_i
+                       : 0;
+      ad_new[j] = wr_d ? ((tag_d == kDelExt ? dsk_nb : off_def_nb) << 3) | tag_d
+                       : 0;
+      am_new[j] = wr_m ? (aux_m_val << 3) | tag_m : (row_m_old & 7);
+      if (wr_i) rb[0] = min(rb[0], k), rb[1] = min(rb[1], -k);
+      if (wr_d) rb[2] = min(rb[2], k), rb[3] = min(rb[3], -k);
+      if (wr_m) rb[4] = min(rb[4], k), rb[5] = min(rb[5], -k);
+    }
+    block_min(rb, red);
+    if (tid == 0) {
+      const bool any_i = rb[0] < kBig, any_d = rb[2] < kBig;
+      const bool any_m = rb[4] < kBig;
+      ib.lo[s2e] = any_i ? rb[0] : kBig;
+      ib.hi[s2e] = any_i ? -rb[1] : -kBig;
+      ib.ex[s2e] = any_i;
+      db.lo[s2e] = any_d ? rb[2] : kBig;
+      db.hi[s2e] = any_d ? -rb[3] : -kBig;
+      db.ex[s2e] = any_d;
+      const bool ex_old = at_seed && mb.ex[s2m] != 0;
+      int lo_m = any_m ? rb[4] : kBig, hi_m = any_m ? -rb[5] : -kBig;
+      if (ex_old) {
+        lo_m = min(lo_m, mb.lo[s2m]);
+        hi_m = max(hi_m, mb.hi[s2m]);
+      }
+      const bool keep = any_m || ex_old;
+      mb.lo[s2m] = keep ? lo_m : kBig;
+      mb.hi[s2m] = keep ? hi_m : -kBig;
+      mb.ex[s2m] = keep;
+    }
+    __syncthreads();
+  }
+
+  if (tid == 0) {
+    out[b] = final_s;
+    out[B + b] = done;
+    out[2 * B + b] = overflow || !done;
+    out[3 * B + b] = term_cell;
+  }
+}
+
+}  // namespace
+
+extern "C" int wfa_score_loop(const uint8_t* qb, const uint8_t* tbuf,
+                              const int32_t* qlen, const int32_t* tlen,
+                              const int32_t* toff, int B, int Lq, int Ltb,
+                              int S, int K, int x, int oe, int e,
+                              int reduce_on, int min_wf_len,
+                              int max_dist_diff, int32_t* win, int32_t* out,
+                              int32_t* aux, void* stream) {
+  // dynamic shared memory: the reduction slots and the band slots.  Over
+  // the 48 KB default (penalties near 4000) the launch fails and the
+  // error is returned.
+  const int WM = (x > oe ? x : oe) + 1, WE = e + 1;
+  const int smem = (8 * kWarps + 3 * WM + 6 * WE) * (int)sizeof(int);
+  if (B > 0) {
+    score_loop_kernel<<<B, kThreads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+        qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S, K, x, oe, e, reduce_on,
+        min_wf_len, max_dist_diff, win, out, aux);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

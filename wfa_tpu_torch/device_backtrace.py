@@ -1,0 +1,266 @@
+"""Device backtrace and token compaction, PyTorch port of
+:mod:`wfa_tpu.device_backtrace` (global alignment, one aux tensor).
+
+Kernel K2 (``csrc/backtrace.cu``, wrapper :func:`device_backtrace`)
+replaces the JAX package's ``device_backtrace`` ``lax.while_loop``
+(wfa_tpu/device_backtrace.py:276-547): one thread per pair chases the
+backtrace through the aux tensor ``int32[3, S, B, K]`` that the score loop
+baked (``offset0 << 3 | tag`` per cell), reading ONE aux cell per step and
+emitting op tokens ``code << token_shift | run`` into the same
+iteration-major slots.  :func:`device_backtrace_plain` is its plain PyTorch
+version: all pairs step in lockstep, one launch per op per step.
+
+Both are exact ports of the reference backtrace loop (wfa.go:703-983),
+with the deferred tag read of the stepped-into cell, the post-loop
+pending tag and the ``it < it_cap - 1`` stop.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from wfa_tpu.constants import (
+    T_DEL_EXT,
+    T_DEL_OPEN,
+    T_INS_EXT,
+    T_INS_OPEN,
+    T_MISMATCH,
+    TYPE_BITS,
+)
+
+CODE_M, CODE_X, CODE_I, CODE_D, CODE_H = 0, 1, 2, 3, 4
+# gap-extension codes of the edit-only token stream (decoders map 5 -> I,
+# 6 -> D): no match run can precede an extension step
+CODE_IE, CODE_DE = 5, 6
+# tag (0..7) -> op code; tags 1,2 -> I; 3,4 -> D; 5 -> X; 6 -> M
+_TAG2CODE = np.array([7, CODE_I, CODE_I, CODE_D, CODE_D, CODE_X, CODE_M, 7],
+                     dtype=np.int32)
+_TAG2CODE_SPLIT = np.array(
+    [7, CODE_I, CODE_IE, CODE_D, CODE_DE, CODE_X, CODE_M, 7], dtype=np.int32)
+
+COMP_M, COMP_I, COMP_D = 0, 1, 2
+
+
+def iter_capacity(s_cap: int, penalties) -> int:
+    """Upper bound on backtrace loop iterations: every step lowers the
+    score by at least min(mismatch, gap_ext) (wfa.go:884-909)."""
+    step = max(1, min(penalties.mismatch, penalties.gap_ext))
+    return s_cap // step + 4
+
+
+def _tok_dtype(token_shift: int):
+    return torch.int16 if token_shift <= 12 else torch.int32
+
+
+def device_backtrace_plain(
+    aux, start_cell, k0, start_s, start_k, qlen, tlen, active0, *,
+    penalties, S: int, K: int, token_shift: int,
+    split_ext_codes: bool = False,
+):
+    """Plain PyTorch version of kernel K2.
+
+    ``aux`` is int32[3, S, B, K]; ``start_cell`` the raw M cell at
+    (start_s, start_k).  Returns (tok0 [B], buf [it_cap, B, 2],
+    tail [B, 4]): op tokens in emission order tok0, buf[0], buf[1], ...,
+    tail, zero = empty slot, int16 when ``token_shift`` <= 12."""
+    dev = aux.device
+    B = qlen.shape[0]
+    i32 = torch.int32
+    x = penalties.mismatch
+    oe = penalties.gap_open + penalties.gap_ext
+    e = penalties.gap_ext
+    it_cap = iter_capacity(S, penalties)
+    tok_dtype = _tok_dtype(token_shift)
+    flat = aux.reshape(3 * S * B, K)
+    bidx = torch.arange(B, device=dev, dtype=torch.long)
+    code_tab = torch.as_tensor(
+        _TAG2CODE_SPLIT if split_ext_codes else _TAG2CODE, device=dev)
+    qlen, tlen, k0 = qlen.to(i32), tlen.to(i32), k0.to(i32)
+
+    def pack(code, n):
+        return (code << token_shift) | n
+
+    def read_aux(s, comp, k):
+        """(offset0, tag, found) of the aux cell at (s, comp, k)."""
+        j = k - k0
+        ok = (s >= 0) & (s < S) & (j >= 0) & (j < K)
+        row = (comp.long() * S + s.clamp(0, S - 1).long()) * B + bidx
+        cell = flat[row, j.clamp(0, K - 1).long()]
+        found = ok & (cell > 0)
+        cell = torch.where(found, cell, 0)
+        return cell >> TYPE_BITS, cell & ((1 << TYPE_BITS) - 1), found
+
+    # ---- start point (wfa.go:738-750); existence deliberately unchecked
+    tag = start_cell & ((1 << TYPE_BITS) - 1)
+    h = start_cell >> TYPE_BITS
+    v = h - start_k
+    buf = torch.zeros((it_cap, B, 2), dtype=tok_dtype, device=dev)
+    fl_i = h < tlen
+    fl_h = ~fl_i & (v < qlen)
+    tok0 = torch.where(
+        active0 & (fl_i | fl_h),
+        pack(torch.where(fl_i, CODE_I, CODE_H),
+             torch.clamp(torch.where(fl_i, tlen - h, qlen - v), min=0)),
+        0).to(tok_dtype)
+
+    alive = active0 & (v > 0) & (h > 0)
+    pfm = torch.ones(B, dtype=torch.bool, device=dev)  # previousFromM
+    s = start_s.to(i32)
+    k = start_k.to(i32)
+    comp = torch.full((B,), COMP_M, dtype=i32, device=dev)
+    pending = torch.zeros(B, dtype=torch.bool, device=dev)
+    it = 0
+    while bool(alive.any()):
+        # ONE aux read: the tag of the cell stepped into last iteration
+        # (wfa.go:915-920, deferred) and this cell's offset0
+        offset0, tag_new, tag_ok = read_aux(s, comp, k)
+        alive = alive & ~(pending & ~tag_ok)
+        tag = torch.where(pending & tag_ok, tag_new, tag)
+        is_ie = tag == T_INS_EXT
+        is_de = tag == T_DEL_EXT
+        # offset0 == 0 covers the from-itself break and the offset0 == 0
+        # break (wfa.go:819-827)
+        cont = alive & (offset0 != 0)
+
+        # traceback matches (wfa.go:832-869)
+        nmatch = h - offset0
+        emit1 = cont & pfm & (nmatch > 0)
+        tok_m = torch.where(emit1, pack(CODE_M, nmatch.clamp(min=0)), 0)
+        upd_hv = cont & pfm
+        h = torch.where(upd_hv, offset0, h)
+        v = torch.where(upd_hv, h - k, v)
+        cont2 = cont & ~(upd_hv & ((h <= 0) | (v <= 0)))
+
+        # record the current op (wfa.go:871-874)
+        tok_op = torch.where(cont2, pack(code_tab[tag.long()], 1), 0)
+        buf[it] = torch.stack([tok_m, tok_op], dim=1).to(tok_dtype)
+
+        # step to the source cell (wfa.go:884-909)
+        is_mis = tag == T_MISMATCH
+        is_io = tag == T_INS_OPEN
+        is_do = tag == T_DEL_OPEN
+        step = cont2 & (is_mis | is_io | is_ie | is_do | is_de)
+        s_n = torch.where(is_mis, s - x,
+                          torch.where(is_io | is_do, s - oe, s - e))
+        k_n = k + torch.where(is_io | is_ie, -1,
+                              torch.where(is_do | is_de, 1, 0))
+        h_n = h + torch.where(is_mis | is_io | is_ie, -1, 0)
+        s = torch.where(step, s_n, s)
+        k = torch.where(step, k_n, k)
+        h = torch.where(step, h_n, h)
+        v = torch.where(step, h - k, v)
+        pfm = torch.where(step, ~(is_ie | is_de), pfm)
+        comp = torch.where(
+            step, torch.where(is_ie, COMP_I, torch.where(is_de, COMP_D, COMP_M)),
+            comp).to(i32)
+        pending = step
+        alive = step & (v > 0) & (h > 0) & (it < it_cap - 1)
+        it += 1
+
+    # a pair that stepped in its last iteration still owes the tag read;
+    # the reference updates the tag before its loop check (wfa.go:915-920)
+    _, tag_p, ok_p = read_aux(s, comp, k)
+    tag = torch.where(pending & ok_p, tag_p, tag)
+
+    # ---- the last one (wfa.go:930-968)
+    tl = active0 & (h > 0) & (v > 0)
+    nm = torch.minimum(h, v) - 1
+    e1 = tl & (nm > 0)
+    tok_a = torch.where(e1, pack(CODE_M, nm.clamp(min=0)), 0)
+    h = torch.where(e1, h - nm, h)
+    v = torch.where(e1, v - nm, v)
+    tok_b = torch.where(tl, pack(code_tab[tag.long()], 1), 0)
+    # leading flanks (wfa.go:970-976)
+    tok_c = torch.where(active0 & (v > 1), pack(CODE_H, (v - 1).clamp(min=0)), 0)
+    tok_d = torch.where(active0 & (h > 1), pack(CODE_I, (h - 1).clamp(min=0)), 0)
+    tail = torch.stack([tok_a, tok_b, tok_c, tok_d], dim=1).to(tok_dtype)
+    return tok0, buf, tail
+
+
+def device_backtrace(
+    aux, start_cell, k0, start_s, start_k, qlen, tlen, active0, *,
+    penalties, S: int, K: int, token_shift: int,
+    split_ext_codes: bool = False,
+):
+    """Kernel K2 (same contract as :func:`device_backtrace_plain`).
+
+    CUDA tensors launch ``wfa_backtrace`` (csrc/backtrace.cu) on the
+    current stream; CPU tensors take the plain version.  Bound on the
+    card by the latency of one dependent aux read per step (~it_cap
+    steps), which one thread per pair hides across the batch."""
+    if aux.device.type == "cpu":
+        return device_backtrace_plain(
+            aux, start_cell, k0, start_s, start_k, qlen, tlen, active0,
+            penalties=penalties, S=S, K=K, token_shift=token_shift,
+            split_ext_codes=split_ext_codes)
+    from ._build import check_inputs, launch, stream_ptr
+
+    B = qlen.shape[0]
+    i32 = torch.int32
+    check_inputs("device_backtrace", aux.device,
+                 aux=(aux, i32, (3, S, B, K)),
+                 start_cell=(start_cell, i32, (B,)), k0=(k0, i32, (B,)),
+                 start_s=(start_s, i32, (B,)), start_k=(start_k, i32, (B,)),
+                 qlen=(qlen, i32, (B,)), tlen=(tlen, i32, (B,)),
+                 active0=(active0, torch.bool, (B,)))
+    it_cap = iter_capacity(S, penalties)
+    tok_dtype = _tok_dtype(token_shift)
+    dev = aux.device
+    tok0 = torch.empty(B, dtype=tok_dtype, device=dev)
+    buf = torch.empty((it_cap, B, 2), dtype=tok_dtype, device=dev)
+    tail = torch.empty((B, 4), dtype=tok_dtype, device=dev)
+    p = penalties
+    launch("wfa_backtrace",
+           aux, start_cell, k0, start_s, start_k, qlen, tlen, active0,
+           ctypes.c_int(B), ctypes.c_int(S), ctypes.c_int(K),
+           ctypes.c_int(p.mismatch), ctypes.c_int(p.gap_open + p.gap_ext),
+           ctypes.c_int(p.gap_ext), ctypes.c_int(it_cap),
+           ctypes.c_int(token_shift), ctypes.c_int(int(split_ext_codes)),
+           tok0, buf, tail, stream_ptr(dev))
+    device_backtrace.launches += 1
+    return tok0, buf, tail
+
+
+device_backtrace.launches = 0
+
+
+def compact_tokens_flat_u8(tok0, buf, tail, token_shift: int,
+                           drop_m: bool = False):
+    """Cross-pair byte-stream token compaction, equal to the JAX
+    ``compact_tokens_flat_u8``: each token ships as one byte
+    ``code << 5 | run`` when run <= 31, else as the placeholder 224 plus
+    the full-width token in the second stream.  ``drop_m`` drops match
+    runs (the host rebuilds them).  The order is (pair, emission
+    position): a cumulative sum of the keep-mask gives each kept token
+    its slot, and one scatter places it.
+
+    Returns (bytes_flat uint8[B*NS], longs_flat [B*NS], n_tok int32[B],
+    n_long int32[B]), both flats dense prefixes with trailing zeros."""
+    B = tok0.shape[0]
+    toks = torch.cat(
+        [tok0[:, None], buf.permute(1, 0, 2).reshape(B, -1), tail],
+        dim=1).to(torch.int32)
+    NS = toks.shape[1]
+    flat = toks.reshape(B * NS)
+    nz = flat != 0
+    code = flat >> token_shift  # tokens are non-negative
+    if drop_m:
+        nz = nz & (code != CODE_M)
+    run = flat & ((1 << token_shift) - 1)
+    long = nz & (run > 31)
+    byte_plane = torch.where(long, 224, (code << 5) | run)
+
+    def compact(keep, vals, dtype):
+        dest = torch.where(keep, torch.cumsum(keep, 0) - 1, B * NS)
+        out = torch.zeros(B * NS + 1, dtype=dtype, device=flat.device)
+        out.scatter_(0, dest, vals.to(dtype))
+        return out[:-1]
+
+    bytes_flat = compact(nz, byte_plane, torch.uint8)
+    longs_flat = compact(long, flat, _tok_dtype(token_shift))
+    n_tok = nz.reshape(B, NS).sum(1, dtype=torch.int32)
+    n_long = long.reshape(B, NS).sum(1, dtype=torch.int32)
+    return bytes_flat, longs_flat, n_tok, n_long

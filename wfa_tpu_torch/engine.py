@@ -1,0 +1,793 @@
+"""Batched score-loop engine, PyTorch port of :mod:`wfa_tpu.engine`.
+
+The global-alignment main path: host pack -> upload -> ``_unpack2`` ->
+kernel K1 (``kernel_engine.run_batch``, the per-pair CUDA score loop) ->
+kernel K2 (``device_backtrace.device_backtrace``) -> token compaction ->
+meta bytes -> host decode in :class:`wfa_tpu.cigar.AlignmentResult`.
+
+``run_batch_plain`` is the plain PyTorch version of K1: a lockstep
+transcription of the JAX engine's ``_run_batch_impl`` that extends through
+the precomputed stop tables (``_stop_tables``), while K1 compares sequence
+bytes directly, so the two extension mechanisms check each other.
+
+Cells keep the reference encoding ``offset << 3 | tag`` (0 = absent), and
+every tensor that leaves a function has the JAX function's layout, so the
+tests compare the two packages value for value.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from wfa_tpu.cigar import AlignmentResult
+from wfa_tpu.constants import (
+    MAX_SEQ_LEN,
+    T_DEL_EXT,
+    T_DEL_OPEN,
+    T_INS_EXT,
+    T_INS_OPEN,
+    T_MATCH,
+    T_MISMATCH,
+    TYPE_BITS,
+    AdaptiveReductionOption,
+    EmptySeqError,
+    Options,
+    Penalties,
+    SeqTooLongError,
+)
+from wfa_tpu.oracle import Aligner as OracleAligner
+
+_BIG = 1 << 30
+_I32 = torch.int32
+
+# longest read of the ported path; longer reads need the long-read kernel
+# (ROADMAP.md queue 1, item 9)
+MAX_PORT_LEN = 4096
+SEMI_GLOBAL_NOT_PORTED = (
+    "semi-global alignment is not ported yet (ROADMAP.md queue 1, item 8)")
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    penalties: Penalties = Penalties()
+    global_alignment: bool = True
+    adaptive: Optional[AdaptiveReductionOption] = None
+    k_win: int = 128  # diagonal window width
+    s_cap: int = 256  # max score + 1
+
+    def __post_init__(self):
+        if not self.global_alignment:
+            raise NotImplementedError(SEMI_GLOBAL_NOT_PORTED)
+
+
+def config_from_jax(cfg) -> EngineConfig:
+    """The port's config for a :class:`wfa_tpu.engine.EngineConfig`
+    (read by attribute, so this module never imports JAX).  Raises
+    NotImplementedError for the JAX engine's modes the port lacks."""
+    for name in ("w_win", "v_win", "aux_kw"):
+        if getattr(cfg, name, None) is not None:
+            raise NotImplementedError(f"EngineConfig.{name} is not ported")
+    if getattr(cfg, "prefix", False):
+        raise NotImplementedError("EngineConfig.prefix is not ported")
+    return EngineConfig(
+        penalties=cfg.penalties, global_alignment=cfg.global_alignment,
+        adaptive=cfg.adaptive, k_win=cfg.k_win, s_cap=cfg.s_cap)
+
+
+def window_origin(qlen: int, tlen: int, k_win: int,
+                  global_alignment: bool) -> int:
+    """Fixed per-pair window origin k0 (column 0's diagonal)."""
+    if not global_alignment:
+        return -(qlen - 1)
+    ak = tlen - qlen
+    return ak // 2 - k_win // 2
+
+
+def _pad_len(n: int) -> int:
+    """Pad buffer lengths to coarse steps (same-bucket chunks share
+    shapes)."""
+    g = 128 if n <= 4096 else 2048
+    return ((n + g - 1) // g) * g
+
+
+# columns of the per-pair meta header of the "mtb" byte stream
+META_COLS = ("score", "overflow", "trim_len", "n_long")
+M_SCORE, M_OVF, M_TRIM, M_LONG = range(4)
+
+
+def _token_plan(s_cap: int, penalties, Lq: int, Ltb: int):
+    """(token_shift, compact): 16-bit tokens whenever run lengths fit 12
+    bits; compaction whenever the emission stream fits 2**16 slots."""
+    from .device_backtrace import iter_capacity
+
+    token_shift = 12 if max(Lq, Ltb) < (1 << 12) else 28
+    ns_stream = 2 * iter_capacity(s_cap, penalties) + 5
+    return token_shift, ns_stream <= (1 << 16)
+
+
+# ---------------------------------------------------------------------------
+# host pack and the tensors the tests hand to both packages
+
+_ACGT_LUT = np.full(256, 255, np.uint8)
+for _i, _b in enumerate(b"ACGT"):
+    _ACGT_LUT[_b] = _i
+_ACGT_LUT0 = _ACGT_LUT.copy()
+_ACGT_LUT0[0] = 0
+_ACGT_INV = np.array(list(b"ACGT"), np.uint8)
+
+
+def _pack2(arr: np.ndarray, lo: np.ndarray, hi: np.ndarray):
+    """2-bit-pack a byte matrix whose in-bounds ([lo, hi) per row) bytes
+    are pure ACGT (4 bases/byte, low pairs first); None when another
+    symbol is in bounds.  Pad bytes pack as code 0 and are re-zeroed by
+    ``_unpack2``'s masks."""
+    codes = _ACGT_LUT0[arr]
+    # per-row nonzero counts: a batch-wide sum could balance an in-bounds
+    # NUL in one row against out-of-bounds junk in another
+    row_nz = np.count_nonzero(arr, axis=1)
+    if not (np.array_equal(row_nz, np.clip(hi - lo, 0, None))
+            and int(codes.max(initial=0)) <= 3):
+        codes = _ACGT_LUT[arr]
+        pos = np.arange(arr.shape[1], dtype=np.int32)
+        inb = (pos >= lo[:, None]) & (pos < hi[:, None])
+        codes = np.where(inb, codes, 0)
+        if codes.max(initial=0) > 3:
+            return None
+    c = codes.reshape(arr.shape[0], -1, 4)
+    return (c[:, :, 0] | (c[:, :, 1] << 2) | (c[:, :, 2] << 4)
+            | (c[:, :, 3] << 6)).astype(np.uint8)
+
+
+def _pack_all(pairs: Sequence[Tuple[bytes, bytes]], k_win: int,
+              need_raw: bool = True):
+    """Padded row matrices and their 2-bit uploads for a global batch:
+    (qb, tbuf, qlen, tlen, toff, Lq, Ltb, qp, tp), the same tuple as
+    ``wfa_tpu.engine.BatchAligner._pack_all``.  qp/tp are None when the
+    batch has non-ACGT bytes; qb/tbuf are None when ``need_raw`` is False
+    and the native packer packed the batch directly."""
+    B = len(pairs)
+    qlen = np.fromiter((len(q) for q, _ in pairs), np.int32, B)
+    tlen = np.fromiter((len(t) for _, t in pairs), np.int32, B)
+    ak = tlen - qlen
+    # floor division on the host: C++ `/` would truncate toward zero
+    toff = (k_win // 2 - ak // 2).astype(np.int32)
+    Lq = _pad_len(int(qlen.max()))
+    Ltb = _pad_len(max(int((toff + tlen).max()), 1))
+
+    from wfa_tpu import native
+
+    qs = [q for q, _ in pairs]
+    ts = [t for _, t in pairs]
+    if native.lib is not None and not need_raw:
+        qp = native.pack_direct(qs, qlen, None, Lq)
+        tp = native.pack_direct(ts, tlen, toff, Ltb) if qp is not None else None
+        if tp is not None:
+            return None, None, qlen, tlen, toff, Lq, Ltb, qp, tp
+    if native.lib is not None:
+        qb, qp = native.build_and_pack(qs, qlen, None, Lq)
+        tbuf, tp = native.build_and_pack(ts, tlen, toff, Ltb)
+        if qp is None or tp is None:
+            qp = tp = None
+        return qb, tbuf, qlen, tlen, toff, Lq, Ltb, qp, tp
+    pad = b"\0" * (Ltb + 1)
+    qb = np.frombuffer(b"".join(q.ljust(Lq, b"\0") for q in qs),
+                       np.uint8).reshape(B, Lq)
+    # overflow pairs (toff < 0) get truncated rows; they are never read
+    tbuf = np.frombuffer(
+        b"".join((pad[:max(int(o), 0)] + t)[:Ltb].ljust(Ltb, b"\0")
+                 for o, t in zip(toff, ts)), np.uint8).reshape(B, Ltb)
+    qp = _pack2(qb, np.zeros_like(qlen), qlen)
+    tp = _pack2(tbuf, toff, toff + tlen) if qp is not None else None
+    if tp is None:
+        qp = None
+    return qb, tbuf, qlen, tlen, toff, Lq, Ltb, qp, tp
+
+
+def inputs_from_packed(packed, device) -> tuple:
+    """Tensors on ``device`` from a packed batch with its raw rows — the
+    7-tuple of ``wfa_tpu.engine.BatchAligner.pack_batch`` or the 9-tuple
+    of ``_pack_all`` (of either package): (qb uint8[B, Lq], tbuf
+    uint8[B, Ltb], qlen, tlen, toff int32[B], Lq, Ltb)."""
+    qb, tbuf, qlen, tlen, toff, Lq, Ltb = packed[:7]
+    dev = torch.device(device)
+    rows = [torch.as_tensor(np.ascontiguousarray(a), device=dev)
+            for a in (qb, tbuf)]
+    lens = [torch.as_tensor(np.asarray(a, np.int32), device=dev)
+            for a in (qlen, tlen, toff)]
+    return (*rows, *lens, int(Lq), int(Ltb))
+
+
+def _unpack2(pk: torch.Tensor, L: int, valid_lo: torch.Tensor,
+             valid_hi: torch.Tensor) -> torch.Tensor:
+    """Invert the 2-bit pack: uint8[B, L//4] -> uint8[B, L], zeroed
+    outside [valid_lo, valid_hi) per row."""
+    shifts = torch.arange(4, device=pk.device, dtype=torch.uint8) * 2
+    c = (pk[:, :, None] >> shifts) & 3
+    c = c.reshape(pk.shape[0], L).long()
+    base = torch.as_tensor(_ACGT_INV, device=pk.device)[c]
+    pos = torch.arange(L, device=pk.device, dtype=_I32)[None, :]
+    ok = (pos >= valid_lo[:, None]) & (pos < valid_hi[:, None])
+    return torch.where(ok, base, torch.zeros_like(base))
+
+
+# ---------------------------------------------------------------------------
+# the inputs of the score loop
+
+
+def _masked_min(vals, mask):
+    return torch.where(mask, vals, _BIG).amin(dim=-1)
+
+
+def _masked_max(vals, mask):
+    return torch.where(mask, vals, -_BIG).amax(dim=-1)
+
+
+def _seed_rows(qb, tbuf, qlen, tlen, toff, *, mismatch: int, K: int,
+               Ltb: int):
+    """Dense global seed rows for scores 0 and ``mismatch``
+    (wfa.go:143-184): ((row0, lo0, hi0, ex0), (rowx, lox, hix, exx)),
+    rows int32[B, K] in the fixed-origin window layout.  With
+    mismatch == 0 both seeds land in row0 and rowx is empty."""
+    B = qb.shape[0]
+    k0 = -toff.to(_I32)
+    iota = torch.arange(K, device=qb.device, dtype=_I32)[None, :]
+    ks = k0[:, None] + iota
+    col = toff.long().clamp(0, Ltb - 1)
+    t0 = tbuf[torch.arange(B, device=qb.device), col]
+    eq00 = qb[:, 0] == t0
+    tag0 = torch.where(eq00, T_MATCH, T_MISMATCH).to(_I32)
+    cell0 = ((1 << TYPE_BITS) | tag0)[:, None]
+    at_j0 = ks == 0
+    zero = torch.zeros((B, K), dtype=_I32, device=qb.device)
+    seed_eq = torch.where(at_j0 & eq00[:, None], cell0, zero)
+    seed_ne = torch.where(at_j0 & ~eq00[:, None], cell0, zero)
+    rows = ((seed_eq + seed_ne, zero) if mismatch == 0
+            else (seed_eq, seed_ne))
+    out = []
+    for row in rows:
+        any_set = (row > 0).any(dim=1)
+        lo = torch.where(any_set, _masked_min(ks, row > 0), _BIG)
+        hi = torch.where(any_set, _masked_max(ks, row > 0), -_BIG)
+        out.append((row, lo.to(_I32), hi.to(_I32), any_set))
+    return out[0], out[1]
+
+
+def _clz32(x: torch.Tensor) -> torch.Tensor:
+    """Count leading zeros of 32-bit words, bit-exact with ``lax.clz``.
+    ``x`` is int32 (a word with bit 31 set is negative and has clz 0) or
+    int64 holding a 32-bit pattern in [0, 2**32); clz(0) = 32."""
+    u = x.long() & 0xFFFFFFFF
+    n = torch.zeros_like(u)
+    for b in (16, 8, 4, 2, 1):
+        top_clear = u < (1 << (32 - b))
+        n = n + torch.where(top_clear, b, 0)
+        u = torch.where(top_clear, u << b, u)
+    return torch.where((x.long() & 0xFFFFFFFF) == 0, 32, n).to(_I32)
+
+
+def _stop_tables(qb, tbuf, qlen, tlen, toff, K: int, Lq: int, Ltb: int):
+    """Extension stop tables, equal to ``wfa_tpu.engine._stop_tables``.
+
+    stop[b, j, c] = 1 unless v = c - j and h = c - toff are in bounds and
+    q[v] == t[h]; a match run from column c is (first stop at or after
+    c) - c.  Returns words int32[B, K, Lw] (stop bits packed 32 per word,
+    big-endian within the word) and fsa int32[B, K, Lw] (the absolute
+    column of the first stop in any word after w).  ``q_sh`` is built by
+    indexing, not by the TPU's concat-and-shift doublings."""
+    B = qb.shape[0]
+    dev = qb.device
+    Lwc = (Ltb + 32) // 32  # >= 1 stop column beyond every toff + tlen
+    Lc = Lwc * 32
+    n = min(Lq, Lc)
+    qpad = torch.zeros((B, K + Lc), dtype=torch.uint8, device=dev)
+    qpad[:, K:K + n] = qb[:, :n]
+    cs = torch.arange(Lc, device=dev, dtype=_I32)
+    js = torch.arange(K, device=dev, dtype=_I32)
+    q_sh = qpad[:, (K + cs[None, :] - js[:, None]).long()]  # [B, K, Lc]
+    tpad = torch.zeros((B, Lc), dtype=torch.uint8, device=dev)
+    tpad[:, :Ltb] = tbuf
+    vs = (cs[None, :] - js[:, None])[None]
+    csb = cs[None, None, :]
+    valid = ((vs >= 0) & (vs < qlen[:, None, None])
+             & (csb >= toff[:, None, None])
+             & (csb < (toff + tlen)[:, None, None]))
+    stop = ~(valid & (q_sh == tpad[:, None, :]))
+    bits = stop.reshape(B, K, Lwc, 32).to(_I32)
+    # bits 30..0 sum exactly in int32; bit 31 is or-ed in as the sign bit
+    w31 = (1 << (30 - torch.arange(31, device=dev, dtype=_I32))).to(_I32)
+    words = (bits[..., 1:] * w31).sum(dim=-1, dtype=_I32)
+    sign = torch.tensor(-(1 << 31), dtype=_I32, device=dev)
+    words = torch.where(bits[..., 0] > 0, words | sign, words)
+    wpos = torch.where(
+        words != 0,
+        torch.arange(Lwc, device=dev, dtype=_I32) * 32 + _clz32(words),
+        _BIG).to(_I32)
+    suff = torch.flip(torch.cummin(torch.flip(wpos, [2]), dim=2).values, [2])
+    fsa = torch.cat([suff[..., 1:], torch.full_like(suff[..., :1], _BIG)],
+                    dim=-1)
+    return words, fsa
+
+
+def _delete_range_asc(dl, dh, lo, hi):
+    """Effect of the reference's ascending Delete loop over k in [dl, dh]
+    on a band [lo, hi] (wfa_wavefront.go:171-183 via wfa.go:526-535):
+    (new_lo, new_hi, zero_lo, zero_hi), zeroing [zero_lo, zero_hi]."""
+    nonempty = (dl <= dh) & (lo <= dh) & (hi >= dl)
+    z_lo = torch.maximum(dl, lo)
+    z_hi = torch.minimum(dh, hi)
+    case_chain = lo >= dl
+    hi_in = hi <= dh
+    new_lo_a = torch.where(hi_in, hi, dh + 1)
+    new_hi_a = torch.where(hi_in, hi - 1, hi)
+    new_lo = torch.where(nonempty & case_chain, new_lo_a, lo)
+    new_hi = torch.where(nonempty, new_hi_a, hi)
+    z_lo = torch.where(nonempty, z_lo, 1)
+    z_hi = torch.where(nonempty, z_hi, 0)
+    return new_lo, new_hi, z_lo, z_hi
+
+
+def _shift_km1(row):
+    """Value at diagonal k-1: column j-1 (zero fill)."""
+    return torch.cat([torch.zeros_like(row[:, :1]), row[:, :-1]], dim=1)
+
+
+def _shift_kp1(row):
+    """Value at diagonal k+1: column j+1 (zero fill)."""
+    return torch.cat([row[:, 1:], torch.zeros_like(row[:, :1])], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# the plain version of kernel K1
+
+
+def run_batch_plain(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig,
+                    Lq: int, Ltb: int):
+    """Plain PyTorch version of kernel K1: the global score loop of
+    ``wfa_tpu.engine._run_batch_impl`` (no ``w_win``/``v_win``), all pairs
+    in lockstep, one score per iteration.
+
+    Returns (final_s int32[B], done bool[B], overflow bool[B],
+    term_cell int32[B], aux int32[3, S, B, K]) where ``term_cell`` is the
+    raw M cell at (final_s, Ak) and ``aux`` is the backtrace aux
+    (``offset0 << 3 | tag`` per cell; components M, I, D)."""
+    p = cfg.penalties
+    x, oe, e = p.mismatch, p.gap_open + p.gap_ext, p.gap_ext
+    S, K = cfg.s_cap, cfg.k_win
+    reduce_on = cfg.adaptive is not None
+    dev = qb.device
+    B = qb.shape[0]
+    qlen, tlen, toff = qlen.to(_I32), tlen.to(_I32), toff.to(_I32)
+    k0 = -toff
+    words, fsa = _stop_tables(qb, tbuf, qlen, tlen, toff, K, Lq, Ltb)
+    Lw = words.shape[-1]
+    iota = torch.arange(K, device=dev, dtype=_I32)[None, :]
+    ks = k0[:, None] + iota
+    Ak = tlen - qlen
+    j_ak = (Ak - k0)[:, None]
+    ql, tl, tf = qlen[:, None], tlen[:, None], toff[:, None]
+
+    def zeros_sbk():
+        return torch.zeros((S, B, K), dtype=_I32, device=dev)
+
+    hist_m, hist_i, hist_d = zeros_sbk(), zeros_sbk(), zeros_sbk()
+    aux = torch.zeros((3, S, B, K), dtype=_I32, device=dev)
+    aux_m, aux_i, aux_d = aux[0], aux[1], aux[2]
+    lo_m, lo_i, lo_d = (torch.full((S, B), _BIG, dtype=_I32, device=dev)
+                        for _ in range(3))
+    hi_m, hi_i, hi_d = (torch.full((S, B), -_BIG, dtype=_I32, device=dev)
+                        for _ in range(3))
+    ex_m, ex_i, ex_d = (torch.zeros((S, B), dtype=torch.bool, device=dev)
+                        for _ in range(3))
+
+    # the window must hold the seed diagonal and the terminal one
+    overflow = (Ak < k0) | (Ak >= k0 + K) | (0 < k0) | (0 >= k0 + K)
+    (row0, lo0, hi0, ex0), (rowx, lox, hix, exx) = _seed_rows(
+        qb, tbuf, qlen, tlen, toff, mismatch=x, K=K, Ltb=Ltb)
+    hist_m[0], aux_m[0] = row0, row0 & 7  # seeds have no sources
+    lo_m[0], hi_m[0], ex_m[0] = lo0, hi0, ex0
+    if 0 < x < S:
+        hist_m[x], aux_m[x] = rowx, rowx & 7
+        lo_m[x], hi_m[x], ex_m[x] = lox, hix, exx
+    elif x >= S:
+        overflow = overflow | exx
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    final_s = torch.zeros(B, dtype=_I32, device=dev)
+    term_cell = torch.zeros(B, dtype=_I32, device=dev)
+    zB = torch.zeros(B, dtype=_I32, device=dev)
+
+    def krange(lo_c, hi_c, ex_c, s_cur, diff):
+        """KRange with the reference's (0, 0) fallback
+        (wfa_component.go:91)."""
+        if diff > s_cur:
+            return zB, zB
+        sp = min(s_cur - diff, S - 1)
+        return (torch.where(ex_c[sp], lo_c[sp], 0),
+                torch.where(ex_c[sp], hi_c[sp], 0))
+
+    def read_row(hist, lo_c, hi_c, ex_c, s_cur, diff):
+        """Source row at s_cur - diff and its found mask (GetAfterDiff,
+        wfa_component.go:158-167)."""
+        sp = min(max(s_cur - diff, 0), S - 1)
+        row = hist[sp]
+        found = ((ks >= lo_c[sp][:, None]) & (ks <= hi_c[sp][:, None])
+                 & (row > 0) & ex_c[sp][:, None] & (diff <= s_cur))
+        return torch.where(found, row >> TYPE_BITS, 0), found
+
+    for s in range(S - 1):
+        if not bool((~(done | overflow)).any()):
+            break
+        lo_ms, hi_ms, ex_ms = lo_m[s].clone(), hi_m[s].clone(), ex_m[s]
+
+        # ---------------- extend (wfa.go:381-458) ----------------
+        cell = hist_m[s]
+        h0 = cell >> TYPE_BITS
+        v0 = h0 - ks
+        act0 = ((cell > 0) & (ks >= lo_ms[:, None]) & (ks <= hi_ms[:, None])
+                & ex_ms[:, None] & ~done[:, None]
+                & (v0 > 0) & (v0 < ql) & (h0 < tl))
+        c0 = h0 + tf
+        w0 = (c0 >> 5).clamp(0, Lw - 1).long()[..., None]
+        word0 = torch.gather(words, 2, w0)[..., 0]
+        fsa0 = torch.gather(fsa, 2, w0)[..., 0]
+        vis = ((word0.long() & 0xFFFFFFFF) << (c0 & 31).long()) & 0xFFFFFFFF
+        n_ext = torch.where(vis != 0, _clz32(vis), fsa0 - c0)
+        n_ext = torch.where(act0, n_ext, 0)
+        row_m = torch.where(act0 & (n_ext > 0), cell + (n_ext << TYPE_BITS),
+                            cell)
+        hist_m[s] = row_m
+
+        # ---------------- termination (wfa.go:235-239) ----------------
+        cell_ak = torch.where(iota == j_ak, row_m, 0).sum(dim=1, dtype=_I32)
+        found_ak = ex_ms & (Ak >= lo_ms) & (Ak <= hi_ms) & (cell_ak > 0)
+        off_ak = torch.where(found_ak, cell_ak >> TYPE_BITS, 0)
+        newly = ~done & ex_ms & (off_ak >= tlen)
+        final_s = torch.where(newly, s, final_s)
+        term_cell = torch.where(newly, cell_ak, term_cell)
+        done = done | newly
+
+        # ---------------- reduce (wfa.go:461-540) ----------------
+        if reduce_on:
+            ad = cfg.adaptive
+            red = ex_ms & ~done & ((hi_ms - lo_ms + 1) >= ad.min_wf_len)
+            hs = row_m >> TYPE_BITS
+            vs = hs - ks
+            validc = (row_m > 0) & (ks >= lo_ms[:, None]) & (ks <= hi_ms[:, None])
+            okd = validc & ~((vs < 0) | (vs >= ql) | (hs >= tl))
+            dist = torch.maximum(tl - hs, ql - vs)
+            dmin = _masked_min(dist, okd)[:, None]
+            marked = okd & ((dist - dmin) > ad.max_dist_diff)
+            good = okd & ~marked
+            jj = iota.expand(B, K)
+            first_good = _masked_min(jj, good)[:, None]
+            last_mark = _masked_max(jj, marked & (jj < first_good))
+            any_marked = marked.any(dim=1)
+            any_good = good.any(dim=1)
+            last_good = _masked_max(jj, good)
+            new_lo = torch.where(last_mark > -_BIG, k0 + last_mark + 1, lo_ms)
+            new_hi = torch.where(any_marked & any_good, k0 + last_good, hi_ms)
+            new_lo = torch.where(red, new_lo, lo_ms)
+            new_hi = torch.where(red, new_hi, hi_ms)
+            zero_m = (validc & red[:, None]
+                      & ((ks < new_lo[:, None]) | (ks > new_hi[:, None])))
+            row_m = torch.where(zero_m, 0, row_m)
+            hist_m[s] = row_m
+            aux_m[s] = torch.where(row_m != 0, aux_m[s], 0)
+            lo_m[s], hi_m[s] = new_lo, new_hi
+
+            # co-deletion from I and D (wfa.go:526-535): two ascending
+            # Delete sweeps, [lo, _lo) then (_hi, hi]
+            for hist_c, aux_c, lo_c, hi_c, ex_c in (
+                    (hist_i, aux_i, lo_i, hi_i, ex_i),
+                    (hist_d, aux_d, lo_d, hi_d, ex_d)):
+                lo_cs, hi_cs = lo_c[s], hi_c[s]
+                gate = red & ex_c[s]
+                l1, h1, zl1, zh1 = _delete_range_asc(
+                    lo_ms, new_lo - 1, lo_cs, hi_cs)
+                l2, h2, zl2, zh2 = _delete_range_asc(new_hi + 1, hi_ms, l1, h1)
+                zero = gate[:, None] & (
+                    ((ks >= zl1[:, None]) & (ks <= zh1[:, None]))
+                    | ((ks >= zl2[:, None]) & (ks <= zh2[:, None])))
+                row = torch.where(zero, 0, hist_c[s])
+                hist_c[s] = row
+                aux_c[s] = torch.where(row != 0, aux_c[s], 0)
+                lo_c[s] = torch.where(gate, l2, lo_cs)
+                hi_c[s] = torch.where(gate, h2, hi_cs)
+
+        # ---------------- next (wfa.go:549-700) ----------------
+        s2 = s + 1
+        lo_x, hi_x = krange(lo_m, hi_m, ex_m, s2, x)
+        lo_o, hi_o = krange(lo_m, hi_m, ex_m, s2, oe)
+        lo_ie, hi_ie = krange(lo_i, hi_i, ex_i, s2, e)
+        lo_de, hi_de = krange(lo_d, hi_d, ex_d, s2, e)
+        hi_n = torch.minimum(tlen - 1, torch.maximum(
+            torch.maximum(hi_x, hi_o), torch.maximum(hi_ie, hi_de)) + 1)
+        lo_n = torch.maximum(-(qlen - 1), torch.minimum(
+            torch.minimum(lo_x, lo_o), torch.minimum(lo_ie, lo_de)) - 1)
+        overflow = overflow | (~done & ((lo_n < k0) | (hi_n >= k0 + K)))
+        live = (~done & ~overflow)[:, None]
+
+        moe, f_moe = read_row(hist_m, lo_m, hi_m, ex_m, s2, oe)
+        mx, f_mx = read_row(hist_m, lo_m, hi_m, ex_m, s2, x)
+        ie, f_ie = read_row(hist_i, lo_i, hi_i, ex_i, s2, e)
+        de, f_de = read_row(hist_d, lo_d, hi_d, ex_d, s2, e)
+
+        # insertion (wfa.go:578-608): sources at k-1
+        v1i, fmi = _shift_km1(moe), _shift_km1(f_moe)
+        v2i, fii = _shift_km1(ie), _shift_km1(f_ie)
+        # pre-invalidation snapshot: the backtrace recomputes offsets from
+        # raw stored cells without the bound invalidation (wfa.go:757-827)
+        isk_nb = torch.where(fmi | fii, torch.maximum(v1i, v2i) + 1, 0)
+        bad = fmi & (v1i > tl)
+        fmi, v1i = fmi & ~bad, torch.where(bad, 0, v1i)
+        bad = fii & (v2i > tl)
+        fii, v2i = fii & ~bad, torch.where(bad, 0, v2i)
+        Isk = torch.maximum(v1i, v2i) + 1
+        upd_i = fmi | fii
+        tag_i = torch.where(fmi & (v1i >= v2i), T_INS_OPEN, T_INS_EXT).to(_I32)
+
+        # deletion (wfa.go:612-643): sources at k+1
+        v1d, fmd = _shift_kp1(moe), _shift_kp1(f_moe)
+        v2d, fdd = _shift_kp1(de), _shift_kp1(f_de)
+        dsk_nb = torch.where(fmd | fdd, torch.maximum(v1d, v2d), 0)
+        any_id_nb = fmi | fii | fmd | fdd
+        bad = fmd & ((v1d - ks) > ql)
+        fmd, v1d = fmd & ~bad, torch.where(bad, 0, v1d)
+        bad = fdd & ((v2d - ks) > ql)
+        fdd, v2d = fdd & ~bad, torch.where(bad, 0, v2d)
+        Dsk = torch.maximum(v1d, v2d)
+        upd_d = fmd | fdd
+        tag_d = torch.where(fmd & (v1d >= v2d), T_DEL_OPEN, T_DEL_EXT).to(_I32)
+
+        # mismatch / M with the reference tie-breaking (wfa.go:648-698)
+        v1x, fmx = mx, f_mx
+        off_def_nb = torch.where(
+            any_id_nb | fmx,
+            torch.maximum(torch.maximum(isk_nb, dsk_nb), v1x + 1), 0)
+        bad = fmx & ((v1x > tl) | ((v1x - ks) > ql))
+        fmx, v1x = fmx & ~bad, torch.where(bad, 0, v1x)
+        Msk = torch.maximum(torch.maximum(torch.where(upd_i, Isk, 0),
+                                          torch.where(upd_d, Dsk, 0)),
+                            v1x + 1)
+        tag_m = torch.where(
+            fmx & (Msk == v1x + 1), T_MISMATCH,
+            torch.where(upd_i & (Msk == Isk), tag_i, tag_d)).to(_I32)
+        band = (ks >= lo_n[:, None]) & (ks <= hi_n[:, None]) & live
+        wr_i = upd_i & band
+        wr_d = upd_d & band
+        wr_m = (upd_i | upd_d | fmx) & band
+
+        row_i_new = torch.where(wr_i, (Isk << TYPE_BITS) | tag_i, 0)
+        row_d_new = torch.where(wr_d, (Dsk << TYPE_BITS) | tag_d, 0)
+        # aux: each cell's backtrace branch is selected by its own tag
+        aux_i_new = torch.where(
+            wr_i, (torch.where(tag_i == T_INS_EXT, isk_nb, off_def_nb)
+                   << TYPE_BITS) | tag_i, 0)
+        aux_d_new = torch.where(
+            wr_d, (torch.where(tag_d == T_DEL_EXT, dsk_nb, off_def_nb)
+                   << TYPE_BITS) | tag_d, 0)
+        aux_m_val = torch.where(
+            tag_m == T_INS_EXT, isk_nb,
+            torch.where(tag_m == T_DEL_EXT, dsk_nb, off_def_nb))
+
+        # the M row merges a pre-existing wavefront at s2 (the seed row x)
+        ex_m_old = ex_m[s2].clone()
+        lo_m_old, hi_m_old = lo_m[s2].clone(), hi_m[s2].clone()
+        row_m_old = hist_m[s2]
+        row_m_new = torch.where(wr_m, (Msk << TYPE_BITS) | tag_m, row_m_old)
+        aux_m_new = torch.where(wr_m, (aux_m_val << TYPE_BITS) | tag_m,
+                                aux_m[s2])
+        any_i, any_d, any_m = wr_i.any(1), wr_d.any(1), wr_m.any(1)
+        lo_m_n = torch.minimum(_masked_min(ks, wr_m),
+                               torch.where(ex_m_old, lo_m_old, _BIG))
+        hi_m_n = torch.maximum(_masked_max(ks, wr_m),
+                               torch.where(ex_m_old, hi_m_old, -_BIG))
+
+        frz = done | overflow
+        frzc = frz[:, None]
+        hist_i[s2] = torch.where(frzc, hist_i[s2], row_i_new)
+        hist_d[s2] = torch.where(frzc, hist_d[s2], row_d_new)
+        hist_m[s2] = torch.where(frzc, row_m_old, row_m_new)
+        aux_i[s2] = torch.where(frzc, aux_i[s2], aux_i_new)
+        aux_d[s2] = torch.where(frzc, aux_d[s2], aux_d_new)
+        aux_m[s2] = torch.where(frzc, aux_m[s2], aux_m_new)
+        for lo_c, hi_c, ex_c, any_c, lo_n_c, hi_n_c in (
+                (lo_i, hi_i, ex_i, any_i, _masked_min(ks, wr_i),
+                 _masked_max(ks, wr_i)),
+                (lo_d, hi_d, ex_d, any_d, _masked_min(ks, wr_d),
+                 _masked_max(ks, wr_d))):
+            lo_c[s2] = torch.where(frz, lo_c[s2],
+                                   torch.where(any_c, lo_n_c, _BIG))
+            hi_c[s2] = torch.where(frz, hi_c[s2],
+                                   torch.where(any_c, hi_n_c, -_BIG))
+            ex_c[s2] = torch.where(frz, ex_c[s2], any_c)
+        keep_m = any_m | ex_m_old
+        lo_m[s2] = torch.where(frz, lo_m_old, torch.where(keep_m, lo_m_n, _BIG))
+        hi_m[s2] = torch.where(frz, hi_m_old,
+                               torch.where(keep_m, hi_m_n, -_BIG))
+        ex_m[s2] = torch.where(frz, ex_m_old, keep_m)
+
+    overflow = overflow | ~done
+    return final_s, done, overflow, term_cell, aux
+
+
+# ---------------------------------------------------------------------------
+# backtrace, compaction and the byte stream the host decodes
+
+
+def _finish_outputs(aux, start_cell, k0, start_s, start_k, qlen, tlen, done,
+                    overflow, *, cfg: EngineConfig, Lq: int, Ltb: int):
+    """Backtrace (kernel K2), edit-only token compaction and the meta
+    header: ``{"mtb": uint8, "lg": int16/int32}``, byte-identical to the
+    ``compact and flat`` branch of ``wfa_tpu.engine._finish_outputs`` in
+    global mode, so ``wfa_tpu.cigar`` decodes it unchanged."""
+    from .device_backtrace import (compact_tokens_flat_u8, device_backtrace,
+                                   iter_capacity)
+
+    S, K = cfg.s_cap, cfg.k_win
+    token_shift, compact = _token_plan(S, cfg.penalties, Lq, Ltb)
+    if not compact:
+        raise NotImplementedError(
+            f"s_cap={S}: token streams over 2**16 slots are not ported")
+    tok0, buf, tail = device_backtrace(
+        aux, start_cell, k0, start_s, start_k, qlen, tlen, done & ~overflow,
+        penalties=cfg.penalties, S=S, K=K, token_shift=token_shift,
+        split_ext_codes=True)
+    # edit-only stream: match runs are dropped and rebuilt host-side
+    bytes_flat, longs_flat, n_tok, n_long = compact_tokens_flat_u8(
+        tok0, buf, tail, token_shift, drop_m=True)
+    meta = torch.stack([start_s.to(_I32), overflow.to(_I32), n_tok, n_long],
+                       dim=1)
+    ns_cap = 2 * iter_capacity(S, cfg.penalties) + 5
+    mb = 2 if max(Lq + Ltb, S, ns_cap) <= 32000 else 4
+    # little-endian bytes of each column; a logical shift, so widen first
+    # (torch's >> on int32 is arithmetic)
+    m64 = meta.long() & 0xFFFFFFFF
+    meta_bytes = torch.stack([(m64 >> (8 * i)) & 255 for i in range(mb)],
+                             dim=2).reshape(-1).to(torch.uint8)
+    return {"mtb": torch.cat([meta_bytes, bytes_flat]), "lg": longs_flat}
+
+
+def align_full2(seq, lens, *, cfg: EngineConfig, B: int, Lq: int, Ltb: int,
+                packed: bool = False):
+    """Full alignment of an uploaded batch, the port of
+    ``wfa_tpu.engine._align_full2(..., flat=True)``: ``seq`` is the query
+    and target byte matrices side by side (2-bit packed when ``packed``),
+    ``lens`` is int32[B, 3] (qlen, tlen, toff).  Score loop (K1) ->
+    backtrace (K2) -> compaction; returns ``{"mtb", "lg"}``."""
+    from .kernel_engine import run_batch
+
+    qw = Lq // 4 if packed else Lq
+    qb, tbuf = seq[:, :qw], seq[:, qw:]
+    qlen, tlen, toff = (lens[:, i].contiguous() for i in range(3))
+    if packed:
+        qb = _unpack2(qb, Lq, torch.zeros_like(qlen), qlen)
+        tbuf = _unpack2(tbuf, Ltb, toff, toff + tlen)
+    final_s, done, overflow, term_cell, aux = run_batch(
+        qb.contiguous(), tbuf.contiguous(), qlen, tlen, toff, cfg=cfg, Lq=Lq,
+        Ltb=Ltb)
+    return _finish_outputs(aux, term_cell, -toff, final_s, tlen - qlen, qlen,
+                           tlen, done, overflow, cfg=cfg, Lq=Lq, Ltb=Ltb)
+
+
+def decode_outputs(pairs, mtb: np.ndarray, lg: np.ndarray):
+    """Split a fetched ``{"mtb", "lg"}`` pair of streams into (meta
+    int32[B, 4], per-pair edit-token arrays), as
+    ``wfa_tpu.engine.BatchAligner.finish_small/finish_tokens`` do."""
+    B = len(pairs)
+    nm = len(META_COLS)
+    hd = mtb.shape[0] - lg.shape[0]
+    mb = hd // (nm * B)
+    mraw = mtb[:hd].reshape(B, nm, mb).astype(np.int64)
+    meta = sum(mraw[:, :, i] << (8 * i) for i in range(mb)).astype(np.int32)
+    ends = np.cumsum(meta[:, M_TRIM].astype(np.int64))
+    ends_l = np.cumsum(meta[:, M_LONG].astype(np.int64))
+    b = mtb[hd:hd + int(ends[-1])]
+    longs = lg[:int(ends_l[-1])]
+    # byte = code << 5 | run; placeholder bytes (224) take the long
+    # stream's tokens in order
+    shift = 12 if lg.dtype == np.int16 else 28
+    toks = (((b >> 5).astype(np.int32) << shift) | (b & 31)).astype(lg.dtype)
+    toks[b == 224] = longs
+    el = ends.tolist()
+    return meta, [toks[a:z] for a, z in zip([0] + el[:-1], el)]
+
+
+class DeviceResult(AlignmentResult):
+    """An :class:`AlignmentResult` made from a pair's edit-only token
+    stream, decoded lazily on first access like ``from_device`` results.
+    The base class's decode imports its op table from the JAX-bound
+    ``wfa_tpu.device_backtrace``; this one decodes the same stream with
+    the JAX-free ``_decode_edit_tokens`` alone."""
+
+    def process(self) -> None:
+        if self._processed or self._raw_tokens is None:
+            return super().process()
+        toks, q, t = self._raw_tokens
+        ops: List[Tuple[str, int]] = []
+        for op, n in self._decode_edit_tokens(toks, q, t):
+            if ops and ops[-1][0] == op:
+                ops[-1] = (op, ops[-1][1] + n)
+            else:
+                ops.append((op, n))
+        self._raw_tokens = None
+        self._ops = ops
+        self._processed = True
+        self._derive_from_ops()
+
+
+class BatchAligner:
+    """Batched global aligner on one device: pack -> K1 -> K2 -> decode.
+
+    Pairs whose band or score leaves the configured windows are aligned
+    by the exact host oracle (``fallback=True``) or returned as None, so
+    a pipeline can retry them with larger caps.
+    """
+
+    def __init__(self, penalties: Penalties = Penalties(),
+                 options: Options = Options(),
+                 adaptive: Optional[AdaptiveReductionOption] = None,
+                 k_win: int = 128, s_cap: int = 256, device="cpu") -> None:
+        if adaptive is not None and adaptive.min_wf_len == 0:
+            # constructor-path twin of the attach check (wfa.go:134-137)
+            raise ValueError("cutoff step should not be 0")
+        self.cfg = EngineConfig(penalties=penalties,
+                                global_alignment=options.global_alignment,
+                                adaptive=adaptive, k_win=k_win, s_cap=s_cap)
+        self.device = torch.device(device)
+        self._oracle = OracleAligner(penalties, options, adaptive)
+
+    def align_batch(self, pairs: Sequence[Tuple[bytes, bytes]],
+                    fallback: bool = True) -> List[Optional[AlignmentResult]]:
+        """Align a batch; results in input order.  Raises EmptySeqError /
+        SeqTooLongError on invalid pairs (wfa.go:204-209)."""
+        for q, t in pairs:
+            if len(q) == 0 or len(t) == 0:
+                raise EmptySeqError("wfa: invalid empty sequence")
+            if len(q) > MAX_SEQ_LEN or len(t) > MAX_SEQ_LEN:
+                raise SeqTooLongError(
+                    f"wfa: sequences longer than {MAX_SEQ_LEN} are not "
+                    "supported")
+        return self.finish_batch(self.submit_batch(pairs), fallback)
+
+    def submit_batch(self, pairs: Sequence[Tuple[bytes, bytes]]):
+        """Pack, upload and launch a batch; returns a handle for
+        :meth:`finish_batch`.  The launches are asynchronous."""
+        pairs = list(pairs)
+        longest = max(max(len(q), len(t)) for q, t in pairs)
+        if longest > MAX_PORT_LEN:
+            raise NotImplementedError(
+                f"reads longer than {MAX_PORT_LEN} are not ported yet "
+                "(ROADMAP.md queue 1, item 9)")
+        qb, tbuf, qlen, tlen, toff, Lq, Ltb, qp, tp = _pack_all(
+            pairs, self.cfg.k_win, need_raw=False)
+        packed = tp is not None
+        seq = np.concatenate([qp if packed else qb, tp if packed else tbuf],
+                             axis=1)
+        lens = np.stack([qlen, tlen, toff], axis=1).astype(np.int32)
+        dev = self.device
+        out = align_full2(torch.from_numpy(seq).to(dev),
+                          torch.from_numpy(lens).to(dev), cfg=self.cfg,
+                          B=len(pairs), Lq=Lq, Ltb=Ltb, packed=packed)
+        return pairs, out
+
+    def finish_batch(self, handle, fallback: bool = True
+                     ) -> List[Optional[AlignmentResult]]:
+        """Fetch a submitted batch and build its results (op decoding is
+        lazy, on first access)."""
+        pairs, out = handle
+        meta, toks = decode_outputs(pairs, out["mtb"].cpu().numpy(),
+                                    out["lg"].cpu().numpy())
+        results: List[Optional[AlignmentResult]] = []
+        oracle = self._oracle
+        for (q, t), score, ovf, tk in zip(pairs, meta[:, M_SCORE].tolist(),
+                                          meta[:, M_OVF].tolist(), toks):
+            if ovf:
+                results.append(oracle.align(q, t) if fallback else None)
+            else:
+                results.append(DeviceResult.from_device(True, score,
+                                                        (tk, q, t)))
+        return results

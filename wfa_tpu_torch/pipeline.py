@@ -1,0 +1,186 @@
+"""Alignment pipeline: length buckets and the tiered window retry, the
+PyTorch port of :mod:`wfa_tpu.pipeline` for global alignment.
+
+Pairs are grouped into length classes and run through the batched
+engine with economical window caps; pairs whose band or score overflows
+retry with larger caps (tiers 0-2), and the rest fall to the exact host
+oracle.  Results come back in input order and equal the oracle's
+whichever tier served them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from wfa_tpu.cigar import AlignmentResult
+from wfa_tpu.constants import (MAX_SEQ_LEN, AdaptiveReductionOption,
+                               EmptySeqError, Options, Penalties,
+                               SeqTooLongError)
+from wfa_tpu.io import bucket_pairs
+from wfa_tpu.oracle import Aligner as OracleAligner
+
+from .device_backtrace import iter_capacity
+from .engine import SEMI_GLOBAL_NOT_PORTED, BatchAligner, EngineConfig
+from .kernel_engine import scratch_ints
+
+
+def _round_up(n: int, mult: int) -> int:
+    return ((n + mult - 1) // mult) * mult
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    penalties: Penalties = Penalties()
+    options: Options = Options()
+    adaptive: Optional[AdaptiveReductionOption] = None
+    batch_size: int = 512
+    # base score cap (tier 0) and diagonal window
+    s_cap_base: int = 256
+    k_win_base: int = 128
+    device: str = "cpu"
+    # device memory one batch may allocate (the pipeline keeps up to two
+    # batches in flight); bounds the batch size where s_cap * k_win grows
+    mem_budget: int = 16 << 30
+
+
+def batch_bytes_per_pair(cfg: EngineConfig, longest: int) -> int:
+    """Device bytes one pair of a batch allocates on the main path: the
+    int32 aux [3, S, K] cells and window scratch of K1, the token buffers
+    and compaction temporaries of K2 (~40 B per emission slot), and the
+    sequence rows."""
+    ns = 2 * iter_capacity(cfg.s_cap, cfg.penalties) + 5
+    return (12 * cfg.s_cap * cfg.k_win + 4 * scratch_ints(cfg) + 40 * ns
+            + 4 * (2 * longest + cfg.k_win))
+
+
+class AlignmentPipeline:
+    """Aligns arbitrary lists of pairs at batch throughput."""
+
+    def __init__(self, cfg: PipelineConfig) -> None:
+        if not cfg.options.global_alignment:
+            raise NotImplementedError(SEMI_GLOBAL_NOT_PORTED)
+        self.cfg = cfg
+        self._oracle = OracleAligner(cfg.penalties, cfg.options, cfg.adaptive)
+        self._engines: Dict[Tuple[int, int], BatchAligner] = {}
+        # adaptive score-cap memory: bucket class -> max final score seen
+        # in the most recent align_all that completed pairs there
+        self._score_memory: Dict[Tuple[int, int], int] = {}
+        # pairs served per tier in the last align_all ("oracle": the final
+        # exact fallback)
+        self.served: Dict[object, int] = {}
+
+    def _tier_caps(self, lq: int, lt: int, tier: int, skey=None):
+        """(k_win, s_cap, b_cap) for a bucket class and tier.  ``skey``
+        names the bucket for the adaptive score-cap memory."""
+        cfg = self.cfg
+        full_span = _round_up(lq + lt - 1 + 2, 128)
+        longest = max(lq, lt)
+        if cfg.adaptive is not None:
+            # wf-adaptive trims the band to ~2 * max_dist_diff around the
+            # optimal path, whose diagonal drifts like a random walk
+            band = 2 * (cfg.adaptive.max_dist_diff + 2)
+            drift = int(0.75 * longest ** 0.5)
+            k_win = min(full_span,
+                        _round_up(max(cfg.k_win_base, band + drift), 128))
+            if tier == 1:
+                k_win = min(full_span, 4 * k_win)
+            elif tier == 2:
+                k_win = full_span
+        else:
+            k_win = full_span
+        p = cfg.penalties
+        worst = (p.mismatch * longest + p.gap_open
+                 + p.gap_ext * (abs(lq - lt) + 1) + 2)
+        # score ladder: ~0.29 * l at 5% error, ~0.53 * l at 10%
+        s1 = max(cfg.s_cap_base, _round_up(int(longest * 0.55), 128))
+        smax = self._score_memory.get(skey) if skey is not None else None
+        if smax is not None:
+            # fitted cap: observed maximum + 20% headroom, quantized
+            s1 = max(cfg.s_cap_base, _round_up(int(smax * 1.2) + 16, 128))
+        s_cap = (s1, 3 * s1, _round_up(worst + 2, 8))[tier]
+        s_cap = min(s_cap, _round_up(worst + 2, 8))
+        # one pair's aux must fit the budget
+        s_cap = max(8, min(s_cap, (cfg.mem_budget // (12 * k_win)) // 8 * 8))
+        per_pair = batch_bytes_per_pair(
+            EngineConfig(penalties=p, adaptive=cfg.adaptive, k_win=k_win,
+                         s_cap=s_cap), longest)
+        b_cap = max(1, min(8192, cfg.mem_budget // per_pair))
+        return k_win, s_cap, b_cap
+
+    def _engine(self, k_win: int, s_cap: int) -> BatchAligner:
+        eng = self._engines.get((k_win, s_cap))
+        if eng is None:
+            eng = BatchAligner(self.cfg.penalties, self.cfg.options,
+                               self.cfg.adaptive, k_win=k_win, s_cap=s_cap,
+                               device=self.cfg.device)
+            self._engines[(k_win, s_cap)] = eng
+        return eng
+
+    def align_all(self, pairs: Sequence[Tuple[bytes, bytes]]
+                  ) -> List[AlignmentResult]:
+        """Align pairs, returning results in input order."""
+        pairs = list(pairs)
+        results: List[Optional[AlignmentResult]] = [None] * len(pairs)
+        # per-pair input guards: invalid pairs become error-carrying
+        # results, the rest proceed (wfa.go:204-209)
+        valid = []
+        for i, (q, t) in enumerate(pairs):
+            if len(q) == 0 or len(t) == 0:
+                results[i] = AlignmentResult.failed(
+                    EmptySeqError("wfa: invalid empty sequence"))
+            elif len(q) > MAX_SEQ_LEN or len(t) > MAX_SEQ_LEN:
+                results[i] = AlignmentResult.failed(SeqTooLongError(
+                    f"wfa: sequences longer than {MAX_SEQ_LEN} are not "
+                    "supported"))
+            else:
+                valid.append((i, (q, t)))
+
+        served: Dict[object, int] = {0: 0, 1: 0, 2: 0, "oracle": 0}
+        pending = bucket_pairs(valid)
+        prev_caps = {}  # bucket -> previous tier's caps
+        score_seen = {}  # bucket -> max final score observed this call
+        for tier in (0, 1, 2):
+            nxt = {key: [] for key in pending}
+            for key, items in pending.items():
+                if not items:
+                    continue
+                lq_max = max(len(p[0]) for _, p in items)
+                lt_max = max(len(p[1]) for _, p in items)
+                caps = self._tier_caps(lq_max, lt_max, tier, skey=key)
+                if prev_caps.get(key) == caps:
+                    # nothing wider on the ladder: go to the fallback
+                    nxt[key] = items
+                    continue
+                prev_caps[key] = caps
+                k_win, s_cap, b_cap = caps
+                eng = self._engine(k_win, s_cap)
+                bs = min(self.cfg.batch_size, b_cap)
+                chunks = [items[i:i + bs] for i in range(0, len(items), bs)]
+                mx = score_seen.get(key, -1)
+                # one batch ahead: the next batch's host pack and launch
+                # overlap the device work of the one being fetched
+                handle = eng.submit_batch([p for _, p in chunks[0]])
+                for ci, chunk in enumerate(chunks):
+                    nxt_handle = (eng.submit_batch([p for _, p in chunks[ci + 1]])
+                                  if ci + 1 < len(chunks) else None)
+                    out = eng.finish_batch(handle, fallback=False)
+                    handle = nxt_handle
+                    for (idx, pair), res in zip(chunk, out):
+                        if res is None:
+                            nxt[key].append((idx, pair))
+                        else:
+                            results[idx] = res
+                            served[tier] += 1
+                            mx = max(mx, res.score)
+                if mx >= 0:
+                    score_seen[key] = mx
+            pending = nxt
+        for items in pending.values():  # final exact fallback
+            for idx, (q, t) in items:
+                results[idx] = self._oracle.align(q, t)
+                served["oracle"] += 1
+        # replace, not max-merge: easier workloads shrink the caps again
+        self._score_memory.update(score_seen)
+        self.served = served
+        return results  # type: ignore[return-value]
