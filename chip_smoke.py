@@ -4,14 +4,25 @@
 
 Builds the CUDA kernels from ``wfa_tpu_torch/csrc`` (nvcc, sm_90a), holds
 each kernel against its plain PyTorch version on the card, then drives
-the main path — ``AlignmentPipeline.align_all`` on 32768 pairs of
-l=1000, e=0.05, global, gap-affine 4/6/2, wf-adaptive 10/50/1 (bench.py's
-protocol: one warm call, one timed call) — and checks 512 evenly spaced
-results against the exact oracle.  Every comparison is integer and exact:
-the tolerance is 0.
+the main paths through ``AlignmentPipeline.align_all`` (bench.py's
+protocol: one warm call, one timed call), each with the launch counts set
+to 0 just before its timed call and read just after, and checks 512
+evenly spaced results of each against the exact oracle:
+
+* global: 32768 pairs of l=1000, e=0.05, gap-affine 4/6/2, wf-adaptive
+  10/50/1, kernels checked on 2048-pair batches;
+* semi-global: 8192 pairs of l=1000 and 1024 pairs of l=200, e=0.05,
+  4/6/2, 10/50/1, kernels checked in their semi-global mode on 256 pairs
+  of l=1000 (the plain version needs ~20 GB at more) and on the 1024
+  pairs of l=200.
+
+The kernels are checked at each (k_win, s_cap) the paths run: tier 0's
+first cap and the cap the score memory fits after the warm call.  A path
+that builds an engine of other caps fails the run.  Every comparison is
+integer and exact: the tolerance is 0.
 
 Exits nonzero on any failure.  The last two lines are one JSON object
-per kernel run and ``{"ok": true, "device": {...}}``.  Imports no JAX.
+per kernel and ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -24,6 +35,13 @@ import time
 N_MAIN = 32768
 BATCH = 2048  # the main path's batch: K1 and K2 are checked at its shapes
 N_CHECK = 512
+N_SEMI = 8192  # bench.py's semi-global rows: l=1000 and l=200
+N_SEMI_SHORT = 1024
+# K1/K2 checks, (pairs, l, k_win, s_cap): the first of each mode is the
+# one the kernels' record reports
+GLOBAL_CHECKS = ((BATCH, 1000, 128, 640), (BATCH, 1000, 128, 512))
+SEMI_CHECKS = ((256, 1000, 2048, 640), (256, 1000, 2048, 512),
+               (N_SEMI_SHORT, 200, 512, 256))
 
 
 def fail(msg: str) -> None:
@@ -58,17 +76,42 @@ def phase_build() -> None:
             print(f"  ptxas: {line.strip()}")
 
 
-def kernel_batch(n: int, device):
-    """The K1/K2 test batch: main-path shapes of tier 0 at l=1000."""
+def kernel_batch(n: int, length: int, k_win: int, s_cap: int,
+                 global_alignment: bool):
+    """A K1/K2 test batch on the card: the first ``n`` pairs of a main
+    path's data at one of its (k_win, s_cap)."""
     from wfa_tpu import AdaptiveReductionOption, Penalties
     from wfa_tpu.datagen import generate_pairs
     from wfa_tpu_torch.engine import EngineConfig, _pack_all, inputs_from_packed
 
-    cfg = EngineConfig(penalties=Penalties(4, 6, 2), global_alignment=True,
+    cfg = EngineConfig(penalties=Penalties(4, 6, 2),
+                       global_alignment=global_alignment,
                        adaptive=AdaptiveReductionOption(10, 50, 1),
-                       k_win=128, s_cap=640)
-    pairs = generate_pairs(n, 1000, 0.05, seed=42)
-    return cfg, inputs_from_packed(_pack_all(pairs, cfg.k_win), device)
+                       k_win=k_win, s_cap=s_cap)
+    pairs = generate_pairs(n, length, 0.05, seed=42)
+    packed = _pack_all(pairs, cfg.k_win, global_alignment=global_alignment)
+    return cfg, inputs_from_packed(packed, "cuda")
+
+
+def check_kernels(checks, global_alignment: bool, reps: int):
+    """K1 and K2 against their plain versions at each shape of
+    ``checks``; returns the two records (times of the first shape,
+    max_abs_err over all)."""
+    import torch
+
+    recs = None
+    for n, length, k_win, s_cap in checks:
+        torch.cuda.empty_cache()
+        cfg, ins = kernel_batch(n, length, k_win, s_cap, global_alignment)
+        rec1, k1_out = phase_k1(cfg, ins, reps)
+        rec2 = phase_k2(cfg, ins, k1_out)
+        del k1_out, ins
+        if recs is None:
+            recs = (rec1, rec2)
+        for rec, new in zip(recs, (rec1, rec2)):
+            rec["max_abs_err"] = max(rec["max_abs_err"], new["max_abs_err"])
+    torch.cuda.empty_cache()
+    return recs
 
 
 def phase_k1(cfg, ins, reps: int = 10):
@@ -80,71 +123,79 @@ def phase_k1(cfg, ins, reps: int = 10):
     qb, tbuf, qlen, tlen, toff, Lq, Ltb = ins
     args = (qb, tbuf, qlen, tlen, toff)
     kw = dict(cfg=cfg, Lq=Lq, Ltb=Ltb)
+    name = "score_loop" if cfg.global_alignment else "score_loop_semi"
     ref = run_batch_plain(*args, **kw)
     got = run_batch(*args, **kw)
     torch.cuda.synchronize()
-    for name, a, b in zip(("final_s", "done", "overflow", "term_cell"),
-                          ref[:4], got[:4]):
+    names = ("final_s", "done", "overflow", "term_cell", "end_s", "end_k",
+             "end_cell")
+    for field, a, b in zip(names, ref[:4] + ref[5], got[:4] + got[5]):
         if not torch.equal(a, b):
-            fail(f"K1 {name} differs on {int((a != b).sum())} pairs")
+            fail(f"{name} {field} differs on {int((a != b).sum())} pairs")
     ok = ref[1] & ~ref[2]
     rows = torch.arange(cfg.s_cap, device=qb.device)[None, :, None, None]
     mask = (rows <= ref[0][None, None, :, None]) & ok[None, None, :, None]
     diff = torch.where(mask, (ref[4] - got[4]).abs(), 0)
     err = int(diff.max())
     if err:
-        fail(f"K1 aux differs in {int((diff != 0).sum())} cells")
+        fail(f"{name} aux differs in {int((diff != 0).sum())} cells")
+    del ref, diff, mask
     plain_ms = cuda_ms(lambda: run_batch_plain(*args, **kw), 1)
     ms = cuda_ms(lambda: run_batch(*args, **kw), reps)
     n = qb.shape[0]
-    print(f"K1 score_loop == run_batch_plain: {n} pairs, {int(ok.sum())} "
-          f"done, max_abs_err {err} (tolerance 0); kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.1f} ms")
-    rec = {"name": "score_loop", "route": "cuda",
+    print(f"K1 {name} == run_batch_plain: {n} pairs, k_win {cfg.k_win}, "
+          f"s_cap {cfg.s_cap}, {int(ok.sum())} done, max_abs_err {err} "
+          f"(tolerance 0); kernel {ms:.3f} ms, plain {plain_ms:.1f} ms")
+    rec = {"name": name, "route": "cuda",
            "source": "wfa_tpu_torch/csrc/score_loop.cu",
-           "replaces": "wfa_tpu/pallas_engine.py:95",
+           "replaces": ("wfa_tpu/pallas_engine.py:95" if cfg.global_alignment
+                        else "wfa_tpu/pallas_engine.py:726"),
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
     return rec, got
 
 
 def phase_k2(cfg, ins, k1_out, reps: int = 10):
-    """K2 against device_backtrace_plain on K1's aux."""
+    """K2 against device_backtrace_plain on K1's aux, from K1's end."""
     import torch
     from wfa_tpu_torch.device_backtrace import (device_backtrace,
                                                 device_backtrace_plain)
     from wfa_tpu_torch.engine import _token_plan
 
     qb, tbuf, qlen, tlen, toff, Lq, Ltb = ins
-    final_s, done, overflow, term_cell, aux = k1_out
+    _, done, overflow, _, aux, (end_s, end_k, end_cell) = k1_out
     shift, _ = _token_plan(cfg.s_cap, cfg.penalties, Lq, Ltb)
-    args = (aux, term_cell, -toff, final_s, tlen - qlen, qlen, tlen,
-            done & ~overflow)
+    ga = cfg.global_alignment
+    name = "backtrace" if ga else "backtrace_semi"
+    args = (aux, end_cell, -toff, end_s, end_k, qlen, tlen, done & ~overflow)
     kw = dict(penalties=cfg.penalties, S=cfg.s_cap, K=cfg.k_win,
-              token_shift=shift, split_ext_codes=True)
+              token_shift=shift, split_ext_codes=ga, global_alignment=ga)
     ref = device_backtrace_plain(*args, **kw)
     got = device_backtrace(*args, **kw)
     torch.cuda.synchronize()
     err = 0
-    for name, a, b in zip(("tok0", "buf", "tail"), ref, got):
+    for field, a, b in zip(("tok0", "buf", "tail"), ref, got):
         if a.dtype != b.dtype or a.shape != b.shape:
-            fail(f"K2 {name}: {a.dtype}{tuple(a.shape)} vs "
+            fail(f"{name} {field}: {a.dtype}{tuple(a.shape)} vs "
                  f"{b.dtype}{tuple(b.shape)}")
         d = int((a.int() - b.int()).abs().max())
         if d:
-            fail(f"K2 {name} differs in {int((a != b).sum())} slots")
+            fail(f"{name} {field} differs in {int((a != b).sum())} slots")
         err = max(err, d)
     plain_ms = cuda_ms(lambda: device_backtrace_plain(*args, **kw), 1)
     ms = cuda_ms(lambda: device_backtrace(*args, **kw), reps)
-    print(f"K2 backtrace == device_backtrace_plain: max_abs_err {err} "
+    print(f"K2 {name} == device_backtrace_plain: {qb.shape[0]} pairs, "
+          f"k_win {cfg.k_win}, s_cap {cfg.s_cap}, max_abs_err {err} "
           f"(tolerance 0); kernel {ms:.3f} ms, plain {plain_ms:.1f} ms")
-    return {"name": "backtrace", "route": "cuda",
+    return {"name": name, "route": "cuda",
             "source": "wfa_tpu_torch/csrc/backtrace.cu",
             "replaces": "wfa_tpu/device_backtrace.py:276",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
-def phase_main(n: int, n_check: int, card: str):
-    """The main path; returns the launch counts of the timed call."""
+def phase_main(n: int, length: int, global_alignment: bool, batch: int,
+               n_check: int, card: str, checks):
+    """One main path; returns the launch counts of its timed call.  Fails
+    if it ran the kernels at a (k_win, s_cap) that ``checks`` lacks."""
     import torch
     from wfa_tpu import AdaptiveReductionOption, OracleAligner, Options, Penalties
     from wfa_tpu.datagen import generate_pairs
@@ -152,33 +203,44 @@ def phase_main(n: int, n_check: int, card: str):
     from wfa_tpu_torch.kernel_engine import run_batch
     from wfa_tpu_torch.pipeline import AlignmentPipeline, PipelineConfig
 
-    pen, opts = Penalties(4, 6, 2), Options(True)
+    mode = "global" if global_alignment else "semi"
+    tag = f"main {mode} l={length}"
+    pen, opts = Penalties(4, 6, 2), Options(global_alignment)
     ad = AdaptiveReductionOption(10, 50, 1)
-    pipe = AlignmentPipeline(PipelineConfig(pen, opts, ad, batch_size=BATCH,
+    pipe = AlignmentPipeline(PipelineConfig(pen, opts, ad, batch_size=batch,
                                             device="cuda"))
     t0 = time.perf_counter()
-    pairs = generate_pairs(n, 1000, 0.05, seed=42)
-    print(f"main: {n} pairs generated in {time.perf_counter() - t0:.1f} s")
+    pairs = generate_pairs(n, length, 0.05, seed=42)
+    print(f"{tag}: {n} pairs generated in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     pipe.align_all(pairs)  # warm
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
-    run_batch.launches = 0
-    device_backtrace.launches = 0
+    for counts in (run_batch.launches, device_backtrace.launches):
+        counts.update(dict.fromkeys(counts, 0))
     t0 = time.perf_counter()
     results = pipe.align_all(pairs)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {"score_loop": run_batch.launches,
-                "backtrace": device_backtrace.launches}
-    print(f"main: align_all {n} pairs in {secs:.3f} s = {n / secs:.1f} aln/s "
-          f"(warm call {warm:.3f} s) on {card}")
-    print(f"main: launches {launches}; pairs served per tier {pipe.served}")
+    launches = {"score_loop": run_batch.launches[mode],
+                "backtrace": device_backtrace.launches[mode]}
+    caps = sorted({k for k in pipe._engines})
+    print(f"{tag}: align_all {n} pairs in {secs:.3f} s = {n / secs:.1f} "
+          f"aln/s (warm call {warm:.3f} s) on {card}")
+    print(f"{tag}: launches {mode} {launches} (mean batch "
+          f"{n / max(1, launches['score_loop']):.1f} pairs), all "
+          f"{{'score_loop': {run_batch.launches}, 'backtrace': "
+          f"{device_backtrace.launches}}}; pairs served per tier "
+          f"{pipe.served}; (k_win, s_cap) engines {caps}")
     for name, count in launches.items():
         if count <= 0:
-            fail(f"main path launched {name} no time")
+            fail(f"{tag} launched {name} ({mode}) no time")
+    unchecked = set(caps) - {c[2:] for c in checks}
+    if unchecked:
+        fail(f"{tag} ran the kernels at unchecked (k_win, s_cap) "
+             f"{sorted(unchecked)}")
     if len(results) != n or any(r is None or r.error for r in results):
-        fail("main path returned missing or failed results")
+        fail(f"{tag} returned missing or failed results")
     oracle = OracleAligner(pen, opts, ad)
     fields = ("score", "q_begin", "q_end", "t_begin", "t_end", "align_len",
               "matches", "gaps", "gap_regions")
@@ -187,8 +249,8 @@ def phase_main(n: int, n_check: int, card: str):
         r, o = results[i], oracle.align(*pairs[i])
         if r.cigar(False) != o.cigar(False) or any(
                 getattr(r, f) != getattr(o, f) for f in fields):
-            fail(f"pair {i} differs from the oracle")
-    print(f"main: {min(n_check, n)} sampled results equal the oracle "
+            fail(f"{tag}: pair {i} differs from the oracle")
+    print(f"{tag}: {min(n_check, n)} sampled results equal the oracle "
           f"({time.perf_counter() - t0:.1f} s)")
     return launches
 
@@ -219,17 +281,23 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     phase_build()
-    cfg, ins = kernel_batch(BATCH, "cuda")
-    rec1, k1_out = phase_k1(cfg, ins)
-    rec2 = phase_k2(cfg, ins, k1_out)
-    del k1_out, ins
-    launches = phase_main(N_MAIN, N_CHECK, card)
+    # global: kernels at the main path's batch, then the main path
+    rec1, rec2 = check_kernels(GLOBAL_CHECKS, True, reps=10)
+    launches = phase_main(N_MAIN, 1000, True, BATCH, N_CHECK, card,
+                          GLOBAL_CHECKS)
     rec1["launches"] = launches["score_loop"]
     rec2["launches"] = launches["backtrace"]
+    # semi-global: the kernels' semi-global mode, then both main paths
+    rec3, rec4 = check_kernels(SEMI_CHECKS, False, reps=3)
+    launches = phase_main(N_SEMI, 1000, False, BATCH, N_CHECK, card,
+                          SEMI_CHECKS)
+    rec3["launches"] = launches["score_loop"]
+    rec4["launches"] = launches["backtrace"]
+    phase_main(N_SEMI_SHORT, 200, False, BATCH, N_CHECK, card, SEMI_CHECKS)
     imported = sorted(jax_modules() - preloaded)
     if imported:
         fail(f"the run imported JAX-bound modules: {imported[:5]}")
-    print(json.dumps({"kernels": [rec1, rec2]}))
+    print(json.dumps({"kernels": [rec1, rec3, rec2, rec4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

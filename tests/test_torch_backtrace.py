@@ -21,11 +21,13 @@ from test_pallas_engine import random_pairs
 torch.set_num_threads(2)
 
 
-def _aux_batch(seed, penalties):
+def _aux_batch(seed, penalties, ga=True):
+    """The JAX lockstep aux of a random batch and the backtrace's inputs;
+    a semi-global batch starts from the JAX end finder's pick."""
     pairs = random_pairs(random.Random(seed), 12, 80)
-    jb = JaxBatchAligner(penalties, Options(True),
-                         AdaptiveReductionOption(10, 50, 1), k_win=128,
-                         s_cap=128, engine="jax")
+    jb = JaxBatchAligner(penalties, Options(ga),
+                         AdaptiveReductionOption(10, 50, 1),
+                         k_win=128 if ga else 256, s_cap=128, engine="jax")
     packed = jb.pack_batch(pairs)
     qb, tbuf, qlen, tlen, toff, Lq, Ltb = packed
     st = _run_batch(*(jnp.asarray(a) for a in packed[:5]), cfg=jb.cfg,
@@ -35,11 +37,15 @@ def _aux_batch(seed, penalties):
     final_s = np.asarray(st.final_s)
     k0 = -toff.astype(np.int32)
     qlen, tlen = qlen.astype(np.int32), tlen.astype(np.int32)
-    ak = (tlen - qlen).astype(np.int32)
+    start_s, start_k = final_s, (tlen - qlen).astype(np.int32)
+    if not ga:
+        start_s, start_k, _ = (np.asarray(a) for a in jdb.end_finder(
+            st.hist_m, jnp.asarray(k0), st.final_s, jnp.asarray(qlen),
+            jnp.asarray(tlen), jb.cfg.s_cap, jb.cfg.k_win))
     b = np.arange(len(pairs))
-    start_cell = np.asarray(st.hist_m)[final_s, b, ak - k0]
+    start_cell = np.asarray(st.hist_m)[start_s, b, start_k - k0]
     active0 = np.asarray(st.done) & ~np.asarray(st.overflow)
-    args = (aux, start_cell, k0, final_s, ak, qlen, tlen, active0)
+    args = (aux, start_cell, k0, start_s, start_k, qlen, tlen, active0)
     return jb.cfg, tuple(np.array(a, dtype=a.dtype) for a in args)
 
 
@@ -66,6 +72,54 @@ def test_device_backtrace_plain_matches_jax(penalties, split):
                 a = np.asarray(a)
                 assert a.dtype == b.numpy().dtype
                 assert np.array_equal(a, b.numpy())
+
+
+@pytest.mark.parametrize("penalties", [Penalties(4, 6, 2), Penalties(2, 3, 1)],
+                         ids=["4-6-2", "2-3-1"])
+def test_device_backtrace_plain_semi_matches_jax(penalties):
+    """The semi-global chase (full token codes, stop on the first row or
+    column) and its compaction with the match runs kept."""
+    cfg, args = _aux_batch(7, penalties, ga=False)
+    assert args[-1].all()
+    for token_shift in (12, 28):
+        kw = dict(penalties=penalties, S=cfg.s_cap, K=cfg.k_win,
+                  token_shift=token_shift)
+        jout = jdb.device_backtrace(*(jnp.asarray(a) for a in args),
+                                    global_alignment=False, **kw)
+        tout = tdb.device_backtrace(*(torch.from_numpy(a) for a in args),
+                                    global_alignment=False, **kw)
+        for a, b in zip(jout[:3], tout):
+            a = np.asarray(a)
+            assert a.dtype == b.numpy().dtype and np.array_equal(a, b.numpy())
+        jc = jdb.compact_tokens_flat_u8(*jout[:3], token_shift, False)
+        tc = tdb.compact_tokens_flat_u8(*tout, token_shift, False)
+        for a, b in zip(jc, tc):
+            assert np.array_equal(np.asarray(a), b.numpy())
+
+
+def test_end_finder_plain_matches_jax():
+    """end_finder_plain equals wfa_tpu.device_backtrace.end_finder on a
+    semi-global JAX history, every pair (fallbacks included)."""
+    pairs = random_pairs(random.Random(9), 12, 80)
+    jb = JaxBatchAligner(Penalties(4, 6, 2), Options(False),
+                         AdaptiveReductionOption(10, 50, 1), k_win=256,
+                         s_cap=40, engine="jax")
+    packed = jb.pack_batch(pairs)
+    st = _run_batch(*(jnp.asarray(a) for a in packed[:5]), cfg=jb.cfg,
+                    B=len(pairs), Lq=packed[5], Ltb=packed[6])
+    k0 = -packed[4].astype(np.int32)
+    qlen, tlen = (packed[i].astype(np.int32) for i in (2, 3))
+    S, K = jb.cfg.s_cap, jb.cfg.k_win
+    jout = jdb.end_finder(st.hist_m, jnp.asarray(k0), st.final_s,
+                          jnp.asarray(qlen), jnp.asarray(tlen), S, K)
+    tout = tdb.end_finder_plain(
+        torch.from_numpy(np.array(st.hist_m)), torch.from_numpy(k0),
+        torch.from_numpy(np.array(st.final_s)), torch.from_numpy(qlen),
+        torch.from_numpy(tlen), S, K)
+    for a, b in zip(jout, tout):
+        assert np.array_equal(np.asarray(a), b.numpy())
+    found = tout[2].numpy()
+    assert found.any() and (~found).any()  # both branches
 
 
 def test_iter_capacity_matches_jax():

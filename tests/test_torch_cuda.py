@@ -6,10 +6,10 @@ imports JAX, which the card machine lacks, so run them there with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-``chip_smoke.py`` covers the main configuration at its full size; these
-cover the other shapes the main path can give the kernels (tier-1 and
-tier-2 windows, no reduction, degenerate penalties, overflows, raw
-bytes).  Integer outputs: exact equality.
+``chip_smoke.py`` covers the main configurations at their full size;
+these cover the other shapes the main path can give the kernels (tier-1
+and tier-2 windows, no reduction, degenerate penalties, overflows, raw
+bytes, semi-global full-span windows).  Integer outputs: exact equality.
 """
 
 import numpy as np
@@ -41,16 +41,33 @@ def _pairs(n, length, err, seed, raw=False):
     return pairs
 
 
+# (penalties, adaptive, k_win, s_cap, length, error, raw bytes, global,
+#  pairs); the semi-global windows span every diagonal of the batch
 CASES = {
-    "tier0": (Penalties(4, 6, 2), ADAPTIVE, 128, 640, 300, 0.05, False),
-    "tier1": (Penalties(4, 6, 2), ADAPTIVE, 512, 1920, 300, 0.1, False),
-    "tier2": (Penalties(4, 6, 2), ADAPTIVE, 1152, 2500, 500, 0.2, False),
-    "no_reduce": (Penalties(4, 6, 2), None, 768, 1200, 300, 0.05, False),
-    "degenerate": (Penalties(2, 3, 1), ADAPTIVE, 128, 512, 300, 0.05, False),
+    "tier0": (Penalties(4, 6, 2), ADAPTIVE, 128, 640, 300, 0.05, False, True,
+              24),
+    "tier1": (Penalties(4, 6, 2), ADAPTIVE, 512, 1920, 300, 0.1, False, True,
+              24),
+    "tier2": (Penalties(4, 6, 2), ADAPTIVE, 1152, 2500, 500, 0.2, False,
+              True, 24),
+    "no_reduce": (Penalties(4, 6, 2), None, 768, 1200, 300, 0.05, False,
+                  True, 24),
+    "degenerate": (Penalties(2, 3, 1), ADAPTIVE, 128, 512, 300, 0.05, False,
+                   True, 24),
     "wide_penalties": (Penalties(9, 13, 5), ADAPTIVE, 256, 1024, 200, 0.05,
-                       False),
-    "overflow": (Penalties(4, 6, 2), ADAPTIVE, 128, 80, 300, 0.05, False),
-    "raw_bytes": (Penalties(4, 6, 2), ADAPTIVE, 128, 640, 300, 0.05, True),
+                       False, True, 24),
+    "overflow": (Penalties(4, 6, 2), ADAPTIVE, 128, 80, 300, 0.05, False,
+                 True, 24),
+    "raw_bytes": (Penalties(4, 6, 2), ADAPTIVE, 128, 640, 300, 0.05, True,
+                  True, 24),
+    "semi_l200": (Penalties(4, 6, 2), ADAPTIVE, 512, 256, 200, 0.05, False,
+                  False, 24),
+    "semi_l1000": (Penalties(4, 6, 2), ADAPTIVE, 2048, 640, 1000, 0.05,
+                   False, False, 128),
+    "semi_overflow": (Penalties(4, 6, 2), ADAPTIVE, 512, 40, 200, 0.05,
+                      False, False, 24),
+    "semi_no_reduce": (Penalties(4, 6, 2), None, 512, 256, 200, 0.05, False,
+                       False, 24),
 }
 
 
@@ -61,42 +78,51 @@ def test_kernels_match_plain(card, case):
                                                 device_backtrace_plain)
     from wfa_tpu_torch.kernel_engine import run_batch
 
-    pen, ad, k_win, s_cap, length, err, raw = CASES[case]
-    cfg = te.EngineConfig(penalties=pen, adaptive=ad, k_win=k_win,
-                          s_cap=s_cap)
-    packed = te._pack_all(_pairs(24, length, err, 7, raw), k_win)
+    pen, ad, k_win, s_cap, length, err, raw, ga, n = CASES[case]
+    cfg = te.EngineConfig(penalties=pen, global_alignment=ga, adaptive=ad,
+                          k_win=k_win, s_cap=s_cap)
+    packed = te._pack_all(_pairs(n, length, err, 7, raw), k_win,
+                          global_alignment=ga)
     assert (packed[8] is None) == raw
     qb, tbuf, qlen, tlen, toff, Lq, Ltb = te.inputs_from_packed(packed, card)
     args = (qb, tbuf, qlen, tlen, toff)
     ref = te.run_batch_plain(*args, cfg=cfg, Lq=Lq, Ltb=Ltb)
     got = run_batch(*args, cfg=cfg, Lq=Lq, Ltb=Ltb)
-    for a, b in zip(ref[:4], got[:4]):
+    for a, b in zip(ref[:4] + ref[5], got[:4] + got[5]):
         assert torch.equal(a, b)
     ok = ref[1] & ~ref[2]
-    if case == "overflow":
+    if case.endswith("overflow"):
         assert ref[2].any() and ok.any()
+    elif not ga:
+        # full-span windows hold every pair; only the two prefix pairs of
+        # _pairs may need a score past the cap to reach their global end
+        assert int(ok.sum()) >= n - 2
     for b in torch.nonzero(ok).flatten().tolist():
         f = int(ref[0][b])
         assert torch.equal(ref[4][:, :f + 1, b], got[4][:, :f + 1, b]), b
 
     shift, _ = te._token_plan(s_cap, pen, Lq, Ltb)
-    bt_args = (got[4], got[3], -toff, got[0], tlen - qlen, qlen, tlen, ok)
+    end_s, end_k, end_cell = got[5]
+    bt_args = (got[4], end_cell, -toff, end_s, end_k, qlen, tlen, ok)
     kw = dict(penalties=pen, S=s_cap, K=k_win, token_shift=shift,
-              split_ext_codes=True)
+              split_ext_codes=ga, global_alignment=ga)
     for a, b in zip(device_backtrace_plain(*bt_args, **kw),
                     device_backtrace(*bt_args, **kw)):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
-def test_align_full2_card_matches_cpu(card):
+@pytest.mark.parametrize("ga", [True, False], ids=["global", "semi"])
+def test_align_full2_card_matches_cpu(card, ga):
     """The whole device part of the main path: the byte streams from the
     kernels equal those from the plain versions."""
     from wfa_tpu_torch import engine as te
 
-    cfg = te.EngineConfig(penalties=Penalties(4, 6, 2), adaptive=ADAPTIVE,
-                          k_win=128, s_cap=640)
+    k_win = 128 if ga else 1024
+    cfg = te.EngineConfig(penalties=Penalties(4, 6, 2), global_alignment=ga,
+                          adaptive=ADAPTIVE, k_win=k_win, s_cap=640)
     pairs = _pairs(64, 400, 0.05, 11)
-    _, _, qlen, tlen, toff, Lq, Ltb, qp, tp = te._pack_all(pairs, 128)
+    _, _, qlen, tlen, toff, Lq, Ltb, qp, tp = te._pack_all(
+        pairs, k_win, global_alignment=ga)
     seq = torch.from_numpy(np.concatenate([qp, tp], axis=1))
     lens = torch.from_numpy(np.stack([qlen, tlen, toff], axis=1))
     cpu = te.align_full2(seq, lens, cfg=cfg, B=len(pairs), Lq=Lq, Ltb=Ltb,

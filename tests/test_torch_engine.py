@@ -3,7 +3,8 @@
 The same numpy-packed batch (``wfa_tpu.engine.BatchAligner._pack_all``)
 goes through each JAX function and its ``wfa_tpu_torch`` counterpart on
 the CPU, where the port's kernel wrappers run their plain PyTorch
-versions.  Every comparison is integer: the tolerance is exact equality.
+versions, in global and semi-global mode.  Every comparison is integer:
+the tolerance is exact equality.
 """
 
 import random
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from wfa_tpu import AdaptiveReductionOption, Options, Penalties
+from wfa_tpu.device_backtrace import end_finder
 from wfa_tpu.engine import BatchAligner as JaxBatchAligner
 from wfa_tpu.engine import (_align_full2, _run_batch, _seed_rows,
                             _stop_tables, _unpack2)
@@ -29,11 +31,15 @@ ADAPTIVE = AdaptiveReductionOption(10, 50, 1)
 
 
 def _batch(seed, n=12, max_len=80, penalties=Penalties(4, 6, 2),
-           adaptive=ADAPTIVE, k_win=128, s_cap=128, raw=False):
+           adaptive=ADAPTIVE, k_win=128, s_cap=128, raw=False, ga=True):
+    """A random batch and the JAX aligner that packed it; semi-global
+    (``ga=False``) windows span every diagonal, k_win 256."""
     pairs = random_pairs(random.Random(seed), n, max_len)
     if raw:  # a non-ACGT byte forces the raw (unpacked) upload
         pairs[1] = (b"ACGTNNACGTACGGT", b"ACGTNACGTTACGGT")
-    jb = JaxBatchAligner(penalties, Options(True), adaptive, k_win=k_win,
+    if not ga:
+        k_win = 256
+    jb = JaxBatchAligner(penalties, Options(ga), adaptive, k_win=k_win,
                          s_cap=s_cap, engine="jax")
     return pairs, jb, jb._pack_all(pairs)
 
@@ -73,6 +79,31 @@ def test_engine_inputs_match_jax(raw):
         assert np.array_equal(np.asarray(j), t.numpy())
 
 
+@pytest.mark.parametrize("raw", [False, True], ids=["packed", "raw"])
+def test_semi_pack_and_seed_rows_match_jax(raw):
+    """The semi-global pack (toff = qlen - 1), window origin and seed rows
+    (first row and column, match and mismatch seeds, merged at x == 0)."""
+    pairs, jb, packed = _batch(13, raw=raw, ga=False)
+    K = jb.cfg.k_win
+    for a, b in zip(te._pack_all(pairs, K, global_alignment=False), packed):
+        assert (a is None and b is None) or np.array_equal(a, b)
+    qb, tbuf, qlen, tlen, toff, Lq, Ltb = packed[:7]
+    for q, t, o in zip(qlen, tlen, toff):
+        assert (te.window_origin(int(q), int(t), K, False) == -int(o)
+                == -(int(q) - 1))
+    ins = te.inputs_from_packed(packed, "cpu")
+    for mismatch in (4, 0):
+        jseeds = _seed_rows(*_jax_args(packed), mismatch=mismatch,
+                            global_alignment=False, K=K, Lq=Lq, Ltb=Ltb)
+        tseeds = te._seed_rows(*ins[:5], mismatch=mismatch, K=K, Ltb=Ltb,
+                               global_alignment=False)
+        for js, ts in zip(jseeds, tseeds):
+            for a, b in zip(js, ts):
+                assert np.array_equal(np.asarray(a), b.numpy())
+        assert bool(tseeds[0][3].all())
+        assert bool(tseeds[1][3].any()) == (mismatch > 0)
+
+
 def test_clz32_matches_lax():
     from jax import lax
 
@@ -84,22 +115,29 @@ def test_clz32_matches_lax():
                           te._clz32(torch.from_numpy(words)).numpy())
 
 
-@pytest.mark.parametrize("penalties,adaptive,s_cap", [
-    (Penalties(4, 6, 2), ADAPTIVE, 128),
-    (Penalties(4, 6, 2), None, 128),
-    (Penalties(2, 3, 1), ADAPTIVE, 128),
-    (Penalties(4, 6, 2), ADAPTIVE, 48),  # score-cap overflows
-], ids=["adaptive", "plain", "degenerate", "overflow"])
-def test_run_batch_plain_matches_lockstep(penalties, adaptive, s_cap):
+@pytest.mark.parametrize("penalties,adaptive,s_cap,ga", [
+    (Penalties(4, 6, 2), ADAPTIVE, 128, True),
+    (Penalties(4, 6, 2), None, 128, True),
+    (Penalties(2, 3, 1), ADAPTIVE, 128, True),
+    (Penalties(4, 6, 2), ADAPTIVE, 48, True),  # score-cap overflows
+    (Penalties(4, 6, 2), ADAPTIVE, 128, False),
+    (Penalties(4, 6, 2), None, 128, False),
+    (Penalties(2, 3, 1), ADAPTIVE, 128, False),
+    (Penalties(4, 6, 2), ADAPTIVE, 32, False),
+], ids=["adaptive", "plain", "degenerate", "overflow", "semi_adaptive",
+        "semi_plain", "semi_degenerate", "semi_overflow"])
+def test_run_batch_plain_matches_lockstep(penalties, adaptive, s_cap, ga):
     """run_batch_plain equals wfa_tpu.engine._run_batch on the whole
-    final_s, done, overflow and aux."""
+    final_s, done, overflow and aux; its end triple is (final_s, Ak,
+    term_cell) in global mode and the JAX end finder's pick over the JAX
+    history in semi-global mode."""
     pairs, jb, packed = _batch(21, penalties=penalties, adaptive=adaptive,
-                               s_cap=s_cap)
+                               s_cap=s_cap, ga=ga)
     Lq, Ltb = packed[5], packed[6]
-    st = _run_batch(*_jax_args(packed), cfg=jb.cfg, B=len(pairs), Lq=Lq,
-                    Ltb=Ltb)
+    B, S, K = len(pairs), jb.cfg.s_cap, jb.cfg.k_win
+    st = _run_batch(*_jax_args(packed), cfg=jb.cfg, B=B, Lq=Lq, Ltb=Ltb)
     ins = te.inputs_from_packed(packed, "cpu")
-    final_s, done, overflow, term_cell, aux = te.run_batch_plain(
+    final_s, done, overflow, term_cell, aux, end = te.run_batch_plain(
         *ins[:5], cfg=te.config_from_jax(jb.cfg), Lq=Lq, Ltb=Ltb)
     assert np.array_equal(np.asarray(st.final_s), final_s.numpy())
     assert np.array_equal(np.asarray(st.done), done.numpy())
@@ -108,32 +146,48 @@ def test_run_batch_plain_matches_lockstep(penalties, adaptive, s_cap):
                      np.asarray(st.aux_d)])
     assert np.array_equal(jaux, aux.numpy())
     # term_cell is the stored M cell at (final_s, Ak)
-    j_ak = (packed[3] - packed[2]) + packed[4]
+    qlen, tlen, toff = packed[2:5]
+    j_ak = (tlen - qlen) + toff
     hist = np.asarray(st.hist_m)
-    ok = done.numpy()
-    b = np.arange(len(pairs))[ok]
+    ok = done.numpy() & ~overflow.numpy()
+    b = np.arange(B)[ok]
     assert np.array_equal(hist[final_s.numpy()[ok], b, j_ak[ok]],
                           term_cell.numpy()[ok])
+    end_s, end_k, end_cell = (a.numpy() for a in end)
+    if ga:
+        want = (final_s.numpy(), tlen - qlen, term_cell.numpy())
+    else:
+        k0 = -toff.astype(np.int32)
+        js, jk, _ = (np.asarray(a) for a in end_finder(
+            st.hist_m, jnp.asarray(k0), st.final_s, jnp.asarray(qlen),
+            jnp.asarray(tlen), S, K))
+        want = (js, jk, hist[js, np.arange(B), jk - k0])
+    for a, w in zip((end_s, end_k, end_cell), want):
+        assert np.array_equal(a[ok], np.asarray(w)[ok])
     if s_cap < 128:
         assert overflow.any() and (~overflow).any()
 
 
-def test_run_batch_plain_matches_pallas_interpret():
+@pytest.mark.parametrize("ga", [True, False], ids=["global", "semi"])
+def test_run_batch_plain_matches_pallas_interpret(ga):
     """run_batch_plain equals the Pallas kernel (interpret mode) on every
-    pair it reports done and not overflowed: final_s, term_cell and the
-    aux rows 0..final_s ([3, S, K, Bp] int16 -> [3, S, B, K] int32)."""
-    pairs, jb, packed = _batch(31, n=8, max_len=60)
+    pair it reports done and not overflowed: final_s, term_cell, the end
+    triple (out rows 5-7) and the aux rows 0..final_s ([3, S, K, Bp]
+    int16 -> [3, S, B, K] int32)."""
+    pairs, jb, packed = _batch(31, n=8, max_len=60, ga=ga)
     Lq, Ltb = packed[5], packed[6]
     B = len(pairs)
-    final_p, done_p, ovf_p, term_p, aux_p, _, _, _ = pallas_run_batch(
+    final_p, done_p, ovf_p, term_p, aux_p, _, end_p, _ = pallas_run_batch(
         *_jax_args(packed), cfg=jb.cfg, B=B, Lq=Lq, Ltb=Ltb, interpret=True)
     ins = te.inputs_from_packed(packed, "cpu")
-    final_s, done, overflow, term_cell, aux = run_batch(
+    final_s, done, overflow, term_cell, aux, end = run_batch(
         *ins[:5], cfg=te.config_from_jax(jb.cfg), Lq=Lq, Ltb=Ltb)
     ok = np.asarray(done_p) & ~np.asarray(ovf_p)
     assert ok.all()
     assert np.array_equal(np.asarray(final_p)[ok], final_s.numpy()[ok])
     assert np.array_equal(np.asarray(term_p)[ok], term_cell.numpy()[ok])
+    for a, b in zip(end_p, end):
+        assert np.array_equal(np.asarray(a)[ok], b.numpy()[ok])
     paux = np.transpose(np.asarray(aux_p)[..., :B], (0, 1, 3, 2)).astype(
         np.int32)
     taux = aux.numpy()
@@ -142,11 +196,8 @@ def test_run_batch_plain_matches_pallas_interpret():
         assert np.array_equal(paux[:, :f + 1, b], taux[:, :f + 1, b]), b
 
 
-@pytest.mark.parametrize("raw", [False, True], ids=["packed", "raw"])
-def test_align_full2_bytes_match_jax(raw):
-    """align_full2's "mtb" and "lg" streams are byte-equal to
-    wfa_tpu.engine._align_full2(engine="jax", flat=True)."""
-    pairs, jb, packed = _batch(41, raw=raw, n=14)
+def _check_align_full2(raw, n, ga=True):
+    pairs, jb, packed = _batch(41, raw=raw, n=n, ga=ga)
     qb, tbuf, qlen, tlen, toff, Lq, Ltb, qp, tp = packed
     is_packed = tp is not None
     assert is_packed != raw
@@ -163,6 +214,38 @@ def test_align_full2_bytes_match_jax(raw):
         a, b = np.asarray(jout[key]), tout[key].numpy()
         assert a.dtype == b.dtype and a.shape == b.shape, key
         assert np.array_equal(a, b), key
+    return pairs, tout
+
+
+@pytest.mark.parametrize("raw", [False, True], ids=["packed", "raw"])
+def test_align_full2_bytes_match_jax(raw):
+    """align_full2's "mtb" and "lg" streams are byte-equal to
+    wfa_tpu.engine._align_full2(engine="jax", flat=True)."""
+    _check_align_full2(raw, 14)
+
+
+@pytest.mark.parametrize("raw", [False, True], ids=["packed", "raw"])
+@pytest.mark.parametrize("mode", ["semi", "full_tokens"])
+def test_align_full2_full_token_streams_match_jax(mode, raw, monkeypatch):
+    """The full token streams (match runs included) are byte-equal to
+    JAX's too: semi-global always ships them, global under
+    WFA_EDIT_TOKENS=0, and the port's decode of them equals the shared
+    wfa_tpu.cigar decode."""
+    from wfa_tpu.cigar import AlignmentResult
+
+    if mode == "full_tokens":
+        # the JAX gate is read while tracing: a batch size of its own
+        # keeps this trace apart from the edit-only one in the jit cache
+        monkeypatch.setenv("WFA_EDIT_TOKENS", "0")
+    ga = mode == "full_tokens"
+    pairs, tout = _check_align_full2(raw, 15, ga=ga)
+    _, toks = te.decode_outputs(pairs, tout["mtb"].numpy(),
+                                tout["lg"].numpy())
+    for tk in toks:
+        ref = AlignmentResult.from_device(ga, 0, tk)
+        ref.process()
+        ours = te.DeviceResult.from_device(ga, 0, tk)
+        assert ours.ops == ref.ops and ours.q_end == ref.q_end
 
 
 def test_config_from_jax_rejects_unported_modes():
@@ -174,9 +257,12 @@ def test_config_from_jax_rejects_unported_modes():
     assert te.config_from_jax(cfg) == te.EngineConfig(
         penalties=Penalties(4, 6, 2), adaptive=ADAPTIVE)
     for change in ({"w_win": 32}, {"v_win": 256}, {"aux_kw": 128},
-                   {"prefix": True}, {"global_alignment": False}):
+                   {"prefix": True}):
         with pytest.raises(NotImplementedError):
             te.config_from_jax(dataclasses.replace(cfg, **change))
+    # semi-global is ported
+    semi = te.config_from_jax(dataclasses.replace(cfg, global_alignment=False))
+    assert not semi.global_alignment
 
 
 def test_window_origin_and_direct_pack_match_jax():

@@ -68,6 +68,15 @@ for (q, t), r in zip(pairs, pipe.align_all(pairs)):
     assert (r.score, r.cigar(False), r.q_end, r.matches) == (
         o.score, o.cigar(False), o.q_end, o.matches), (q, t)
 assert pipe.served[1] >= 1, pipe.served
+# semi-global: full token streams, decoded without JAX
+semi = (args[0], Options(False), args[2])
+pipe = AlignmentPipeline(PipelineConfig(*semi, batch_size=4))
+oracle = OracleAligner(*semi)
+for (q, t), r in zip(pairs, pipe.align_all(pairs)):
+    o = oracle.align(q, t)
+    assert (r.score, r.cigar(False), r.q_end, r.t_begin, r.matches) == (
+        o.score, o.cigar(False), o.q_end, o.t_begin, o.matches), (q, t)
+assert pipe.served["oracle"] == 0, pipe.served
 bound = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
                or m.startswith("wfa_tpu.") and m.split(".")[1] in {bound!r})
 assert not bound, bound

@@ -2,7 +2,8 @@
 
 ``wfa_tpu_torch.pipeline.AlignmentPipeline(device="cpu").align_all``
 must equal ``wfa_tpu.oracle`` on score, CIGAR, q/t begin/end, align_len,
-matches, gaps and gap_regions, whichever tier served the pair."""
+matches, gaps and gap_regions, whichever tier served the pair, in global
+and semi-global mode."""
 
 import random
 
@@ -13,7 +14,7 @@ from wfa_tpu import (AdaptiveReductionOption, EmptySeqError, Options,
                      OracleAligner, Penalties)
 from wfa_tpu.datagen import generate_pairs
 from wfa_tpu.io import read_pairs
-from wfa_tpu_torch.engine import BatchAligner
+from wfa_tpu_torch.engine import BatchAligner, DeviceResult
 from wfa_tpu_torch.pipeline import AlignmentPipeline, PipelineConfig
 
 from test_pallas_engine import random_pairs
@@ -27,10 +28,16 @@ GOLDEN = [  # (query, target, score, cigar) with 4/6/2 and 10/50/1
     (b"AGCTAGTGTCAATGGCTACTTTTCAGGTCCT",
      b"AACTAAGTGTCGGTGGCTACTATATATCAGGTCCT", 36, "1M1X3M1I5M2X8M3I1M1X9M"),
 ]
+SEMI_GOLDEN = [  # semi-global, 4/6/2 and 10/50/1 (README, BASELINE.md)
+    (b"ACGATCTCG", b"CAGGCTCCTCGG", 16, "1I1M1X1M1X2M1I3M1I"),
+    (b"Bioinformatics helps Biology",
+     b"We learn bioinformatics to help biologists", 32,
+     "9I1X14M3I4M1D1M1X5M1X3I"),
+]
 
 
-def _assert_oracle(pairs, results, penalties, adaptive):
-    oracle = OracleAligner(penalties, Options(True), adaptive)
+def _assert_oracle(pairs, results, penalties, adaptive, ga=True):
+    oracle = OracleAligner(penalties, Options(ga), adaptive)
     assert len(results) == len(pairs)
     for (q, t), res in zip(pairs, results):
         ref = oracle.align(q, t)
@@ -39,20 +46,24 @@ def _assert_oracle(pairs, results, penalties, adaptive):
             assert getattr(res, f) == getattr(ref, f), (f, q, t)
 
 
-@pytest.mark.parametrize("penalties,adaptive", [
-    (Penalties(4, 6, 2), ADAPTIVE),
-    (Penalties(4, 6, 2), None),
-    (Penalties(2, 3, 1), ADAPTIVE),
-], ids=["adaptive", "plain", "degenerate"])
-def test_pipeline_matches_oracle(penalties, adaptive):
+@pytest.mark.parametrize("penalties,adaptive,ga", [
+    (Penalties(4, 6, 2), ADAPTIVE, True),
+    (Penalties(4, 6, 2), None, True),
+    (Penalties(2, 3, 1), ADAPTIVE, True),
+    (Penalties(4, 6, 2), ADAPTIVE, False),
+    (Penalties(4, 6, 2), None, False),
+    (Penalties(2, 3, 1), ADAPTIVE, False),
+], ids=["adaptive", "plain", "degenerate", "semi_adaptive", "semi_plain",
+        "semi_degenerate"])
+def test_pipeline_matches_oracle(penalties, adaptive, ga):
     pairs = random_pairs(random.Random(17), 24, 80)
     pairs += list(read_pairs("tests/data/seqs.txt"))[:3]
-    pairs += [(q, t) for q, t, _, _ in GOLDEN]
-    pipe = AlignmentPipeline(PipelineConfig(penalties, Options(True),
+    pairs += [(q, t) for q, t, _, _ in GOLDEN + SEMI_GOLDEN]
+    pipe = AlignmentPipeline(PipelineConfig(penalties, Options(ga),
                                             adaptive, batch_size=16))
-    _assert_oracle(pairs, pipe.align_all(pairs), penalties, adaptive)
+    _assert_oracle(pairs, pipe.align_all(pairs), penalties, adaptive, ga)
     # a second call runs at the score caps the first one learned
-    _assert_oracle(pairs, pipe.align_all(pairs), penalties, adaptive)
+    _assert_oracle(pairs, pipe.align_all(pairs), penalties, adaptive, ga)
 
 
 def test_pipeline_golden_values():
@@ -66,6 +77,70 @@ def test_pipeline_golden_values():
         36, "1X1I14M1D39M1D31M1D12M")
     assert (res[-1].q_begin, res[-1].q_end, res[-1].t_begin,
             res[-1].t_end) == (2, 100, 3, 98)
+
+
+def test_pipeline_semi_golden_values():
+    pipe = AlignmentPipeline(PipelineConfig(Penalties(4, 6, 2),
+                                            Options(False), ADAPTIVE))
+    res = pipe.align_all([(q, t) for q, t, _, _ in SEMI_GOLDEN])
+    for r, (_, _, score, cigar) in zip(res, SEMI_GOLDEN):
+        assert isinstance(r, DeviceResult)
+        assert (r.score, r.cigar(False)) == (score, cigar)
+    assert pipe.served[0] == len(SEMI_GOLDEN)
+
+
+def test_pipeline_full_token_stream(monkeypatch):
+    """Under WFA_EDIT_TOKENS=0 a global batch ships full token streams
+    (match runs included), as the JAX package does, and decodes to the
+    same results."""
+    monkeypatch.setenv("WFA_EDIT_TOKENS", "0")
+    p = Penalties(4, 6, 2)
+    pairs = generate_pairs(8, 120, 0.05, seed=6)
+    pairs += [(q, t) for q, t, _, _ in GOLDEN]
+    eng = BatchAligner(p, Options(True), ADAPTIVE, k_win=128, s_cap=256)
+    res = eng.align_batch(pairs)
+    assert all(not isinstance(r._raw_tokens, tuple) for r in res)
+    _assert_oracle(pairs, res, p, ADAPTIVE)
+
+
+def test_token_format_fixed_at_submit(monkeypatch):
+    """The pipeline submits one batch ahead; the stream format chosen at
+    submit holds when the batch is finished, whatever the environment
+    says by then."""
+    p = Penalties(4, 6, 2)
+    pairs = generate_pairs(4, 120, 0.05, seed=8)
+    eng = BatchAligner(p, Options(True), ADAPTIVE, k_win=128, s_cap=256)
+    monkeypatch.setenv("WFA_EDIT_TOKENS", "0")
+    full = eng.submit_batch(pairs)
+    monkeypatch.delenv("WFA_EDIT_TOKENS")
+    edit = eng.submit_batch(pairs)
+    monkeypatch.setenv("WFA_EDIT_TOKENS", "0")
+    for handle, is_edit in ((full, False), (edit, True)):
+        res = eng.finish_batch(handle)
+        assert all(isinstance(r._raw_tokens, tuple) == is_edit for r in res)
+        _assert_oracle(pairs, res, p, ADAPTIVE)
+
+
+def test_semi_score_memory_holds_the_global_end():
+    """A short read inside a longer target has a small semi-global score,
+    but K1 runs it to its global end, which costs more.  The score memory
+    learns that cost, so the second call serves every pair at tier 0 too:
+    a cap fitted to the semi-global scores (24 at most here, a cap of
+    128) would send the first pair (global end 210) to tier 1."""
+    p = Penalties(4, 6, 2)
+    pairs = []
+    for seed, off in ((21, 60), (22, 100), (23, 140)):
+        read, target = generate_pairs(1, 300, 0.02, seed=seed)[0]
+        pairs.append((read[off:off + 150], target))
+    pipe = AlignmentPipeline(PipelineConfig(p, Options(False), ADAPTIVE,
+                                            s_cap_base=64))
+    first = pipe.align_all(pairs)
+    _assert_oracle(pairs, first, p, ADAPTIVE, ga=False)
+    assert pipe.served[0] == len(pairs), pipe.served
+    assert max(r.final_s for r in first) > 128 > 1.2 * max(
+        r.score for r in first) + 16
+    _assert_oracle(pairs, pipe.align_all(pairs), p, ADAPTIVE, ga=False)
+    assert pipe.served[0] == len(pairs), pipe.served
 
 
 def test_pipeline_tier_retry_and_oracle_tier():
@@ -97,9 +172,14 @@ def test_guards_and_unported_modes():
         BatchAligner(p, Options(True), ADAPTIVE).align_batch([(b"A", b"")])
     with pytest.raises(ValueError):
         BatchAligner(p, Options(True), AdaptiveReductionOption(0, 50, 1))
-    with pytest.raises(NotImplementedError):
-        AlignmentPipeline(PipelineConfig(p, Options(False), ADAPTIVE))
-    with pytest.raises(NotImplementedError):
-        BatchAligner(p, Options(False), ADAPTIVE)
-    with pytest.raises(NotImplementedError):
-        pipe.align_all([(b"A" * 4097, b"A" * 4097)])
+    # semi-global is ported: the pipeline and the aligner take it
+    semi = AlignmentPipeline(PipelineConfig(p, Options(False), ADAPTIVE))
+    res = semi.align_all([(b"", b"ACGT"), (b"ACGT", b"TTACGTTT")])
+    assert isinstance(res[0].error, EmptySeqError)
+    assert res[1].error is None and res[1].cigar(False) == "2I4M2I"
+    assert BatchAligner(p, Options(False), ADAPTIVE).align_batch(
+        [(b"ACGT", b"ACGA")])[0].score == res[1].score + 4
+    # reads over 4096 bases are not ported yet, in either mode
+    for pl in (pipe, semi):
+        with pytest.raises(NotImplementedError):
+            pl.align_all([(b"A" * 4097, b"A" * 4097)])

@@ -32,11 +32,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S, K, x, oe, e, reduce_on,
-    # min_wf_len, max_dist_diff, win, out, aux, stream
-    "wfa_score_loop": [_P] * 5 + [_I] * 11 + [_P] * 4,
+    # min_wf_len, max_dist_diff, semi, win, out, aux, stream
+    "wfa_score_loop": [_P] * 5 + [_I] * 12 + [_P] * 4,
     # aux, start_cell, k0, start_s, start_k, qlen, tlen, active0, B, S, K,
-    # x, oe, e, it_cap, token_shift, split, tok0, buf, tail, stream
-    "wfa_backtrace": [_P] * 8 + [_I] * 9 + [_P] * 4,
+    # x, oe, e, it_cap, token_shift, split, semi, tok0, buf, tail, stream
+    "wfa_backtrace": [_P] * 8 + [_I] * 10 + [_P] * 4,
 }
 
 _lib = None

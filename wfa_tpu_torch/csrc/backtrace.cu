@@ -1,8 +1,8 @@
 // Kernel K2: the backtrace chase, one thread per pair.
 //
 // Replaces the XLA while_loop of wfa_tpu/device_backtrace.py:276-547
-// (device_backtrace, global alignment, one aux tensor, pairs not on
-// lanes).  That loop steps every pair of the batch in lockstep; written
+// (device_backtrace, global or semi-global alignment, one aux tensor,
+// pairs not on lanes).  That loop steps every pair of the batch in lockstep; written
 // as torch ops it would cost one launch per op per step, for up to
 // iter_capacity steps.  Here each thread walks its own pair to the end.
 //
@@ -15,8 +15,10 @@
 // the tag of the cell stepped into is read one step late, from the same
 // aux cell that gives the next offset0; a pair that exits right after a
 // step still applies that pending tag before the tail; the loop stops at
-// it == it_cap - 1.  Every slot of buf is written exactly once (zero when
-// the pair emits nothing), so the wrapper can hand in torch.empty.
+// it == it_cap - 1.  A semi-global chase stops, without stepping, once
+// the op it recorded left it on the first row or column (h == 1 or
+// v == 1: a seed cell).  Every slot of buf is written exactly once (zero
+// when the pair emits nothing), so the wrapper can hand in torch.empty.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -56,7 +58,7 @@ __global__ void backtrace_kernel(
     const int32_t* __restrict__ start_k, const int32_t* __restrict__ qlen,
     const int32_t* __restrict__ tlen, const uint8_t* __restrict__ active0,
     int B, int S, int K, int x, int oe, int e, int it_cap, int shift,
-    int split, Tok* __restrict__ tok0, Tok* __restrict__ buf,
+    int split, int semi, Tok* __restrict__ tok0, Tok* __restrict__ buf,
     Tok* __restrict__ tail) {
   int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
@@ -105,11 +107,13 @@ __global__ void backtrace_kernel(
     Tok tok_op = cont2 ? pack(code_of[tag], 1) : (Tok)0;
     buf[((int64_t)it * B + b) * 2] = tok_m;
     buf[((int64_t)it * B + b) * 2 + 1] = tok_op;
+    // semi-global: a seed cell is the path's start
+    const bool cont3 = cont2 && !(semi && (h == 1 || v == 1));
 
     // step to the source cell (wfa.go:884-909)
     bool is_mis = tag == kMismatch, is_io = tag == kInsOpen;
     bool is_do = tag == kDelOpen;
-    bool step = cont2 && (is_mis || is_io || is_ie || is_do || is_de);
+    bool step = cont3 && (is_mis || is_io || is_ie || is_do || is_de);
     if (step) {
       s -= is_mis ? x : ((is_io || is_do) ? oe : e);
       k += (is_io || is_ie) ? -1 : ((is_do || is_de) ? 1 : 0);
@@ -158,7 +162,7 @@ extern "C" int wfa_backtrace(const int32_t* aux, const int32_t* start_cell,
                              const int32_t* tlen, const uint8_t* active0,
                              int B, int S, int K, int x, int oe, int e,
                              int it_cap, int token_shift, int split,
-                             void* tok0, void* buf, void* tail,
+                             int semi, void* tok0, void* buf, void* tail,
                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int threads = 128;
@@ -167,13 +171,13 @@ extern "C" int wfa_backtrace(const int32_t* aux, const int32_t* start_cell,
     if (token_shift <= 12) {
       backtrace_kernel<int16_t><<<blocks, threads, 0, st>>>(
           aux, start_cell, k0, start_s, start_k, qlen, tlen, active0, B, S,
-          K, x, oe, e, it_cap, token_shift, split,
+          K, x, oe, e, it_cap, token_shift, split, semi,
           static_cast<int16_t*>(tok0), static_cast<int16_t*>(buf),
           static_cast<int16_t*>(tail));
     } else {
       backtrace_kernel<int32_t><<<blocks, threads, 0, st>>>(
           aux, start_cell, k0, start_s, start_k, qlen, tlen, active0, B, S,
-          K, x, oe, e, it_cap, token_shift, split,
+          K, x, oe, e, it_cap, token_shift, split, semi,
           static_cast<int32_t*>(tok0), static_cast<int32_t*>(buf),
           static_cast<int32_t*>(tail));
     }

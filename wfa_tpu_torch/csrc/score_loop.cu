@@ -1,11 +1,13 @@
-// Kernel K1: the global WFA score loop, one thread block per pair.
+// Kernel K1: the WFA score loop, one thread block per pair.
 //
-// Replaces the TPU kernel wfa_tpu/pallas_engine.py::_kernel (95-956), in
-// its default global mode, as launched by pallas_run_batch (959-1159).
-// For each pair it runs the reference's loop extend -> termination ->
-// wf-adaptive reduce -> next (wfa.go:228-251) and bakes the backtrace aux
-// (offset0 << 3 | tag per cell) as it goes.  Outputs per pair: final_s,
-// done, overflow, term_cell (the raw M cell at (final_s, Ak)), and the
+// Replaces the TPU kernel wfa_tpu/pallas_engine.py::_kernel (95-956) as
+// launched by pallas_run_batch (959-1159), in its default global mode
+// (GLOBAL = true) and in semi-global mode (GLOBAL = false, 726-759 and
+// 944-952).  For each pair it runs the reference's loop extend ->
+// termination -> wf-adaptive reduce -> next (wfa.go:228-251) and bakes
+// the backtrace aux (offset0 << 3 | tag per cell) as it goes.  Outputs per
+// pair: final_s, done, overflow, term_cell (the raw M cell at
+// (final_s, Ak)), the backtrace start (end_s, end_k, end_cell), and the
 // aux rows 0..final_s of aux[3, S, B, K] in the lockstep engine's
 // pair-major layout.  Rows above final_s are not written.
 //
@@ -25,9 +27,35 @@
 //    WE = e + 1 rows each of I and D) live in a global scratch tensor,
 //    which serves any K; the band slots live in shared memory.
 //
+// Semi-global mode (the window spans every diagonal, k0 = -(qlen-1)):
+//  * Seeds: the first row and column, k in [-(qlen-1), tlen-1]; match
+//    seeds in row 0, mismatch seeds in row x (merged when x == 0), aux =
+//    the tag bits.  A mismatch seed beyond the score cap overflows the
+//    pair, which with these seeds is almost every pair when x >= S.
+//  * The end finder (wfa.go:270-375) is fused into the loop: on each
+//    score row, post-extend and post-reduce (the terminating row
+//    unreduced, before the loop breaks), the nearest stop cell on each
+//    side of Ak decides; the first success over ascending s wins, its up
+//    side first, and (final_s, Ak, term_cell) is the fallback.
+//  * The pair runs to termination as the JAX kernel does, so final_s and
+//    overflow equal its tensors.
+//  * The JAX engines cancel a semi-global pair's termination when a
+//    stop-table window outran an extension in the same step
+//    (engine.py:868-874, pallas_engine.py:670).  K1 compares bytes and
+//    has no table window, so nothing outruns and nothing is cancelled.
+//  * A pair whose window misses a seed or terminal diagonal, or that has
+//    a mismatch seed beyond the score cap, returns at once as overflow
+//    with done = 0; the lockstep engines still extend such a pair's
+//    stored seed rows while other pairs of their batch run (and may mark
+//    it done), but its results are discarded either way.
+//
 // What bounds it: each step is a short chain of dependent L1/L2 reads
 // and block barriers per pair; K = 128 diagonals give one cell per
 // thread, and 2048 pairs fill the card's 132 SMs with ~16 blocks each.
+// Semi-global windows are the full span (K = 2048 at l = 1000), and every
+// pass strides over all K columns even after the band has collapsed to
+// tens of diagonals: the whole-window aux rows and window passes are its
+// cost.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -99,6 +127,7 @@ __device__ __forceinline__ bool src(const int32_t* row, bool present, int lo,
   return true;
 }
 
+template <bool GLOBAL>
 __global__ void __launch_bounds__(kThreads) score_loop_kernel(
     const uint8_t* __restrict__ qb, const uint8_t* __restrict__ tbuf,
     const int32_t* __restrict__ qlen, const int32_t* __restrict__ tlen,
@@ -127,56 +156,134 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
     return aux + ((int64_t)(comp * S + s) * B + b) * K;
   };
 
-  // the window must hold the seed diagonal 0 and the terminal one
+  // the window must hold the seed diagonals and the terminal one
   bool overflow = Ak < k0 || Ak >= k0 + K || 0 < k0 || 0 >= k0 + K;
+  if (!GLOBAL) overflow = overflow || tl - 1 >= k0 + K;
   const uint8_t* q = qb + (int64_t)b * Lq;
   const uint8_t* t = tbuf + (int64_t)b * Ltb + tof;  // t[h], valid if !overflow
+  bool done = false;
+  int final_s = 0, term_cell = 0;
+  // semi-global end finder: the first success over ascending s
+  bool end_found = false;
+  int end_s = 0, end_k = 0, end_cell = 0;
+  auto write_out = [&]() {
+    if (tid == 0) {
+      const bool use_end = !GLOBAL && done && !overflow && end_found;
+      out[b] = final_s;
+      out[B + b] = done;
+      out[2 * B + b] = overflow || !done;
+      out[3 * B + b] = term_cell;
+      out[4 * B + b] = use_end ? end_s : final_s;
+      out[5 * B + b] = use_end ? end_k : Ak;
+      out[6 * B + b] = use_end ? end_cell : term_cell;
+    }
+  };
   bool eq00 = false;
-  if (!overflow) {
+  if (GLOBAL && !overflow) {
     eq00 = q[0] == t[0];
     // a mismatch seed beyond the score cap can never be reached
     if (!eq00 && x >= S && x > 0) overflow = true;
   }
   if (overflow) {
-    if (tid == 0) {
-      out[b] = 0;
-      out[B + b] = 0;
-      out[2 * B + b] = 1;
-      out[3 * B + b] = 0;
-    }
+    write_out();
     return;
   }
 
-  // ---- seeding (wfa.go:143-184): one cell, diagonal 0 at offset 1
-  const int j0 = -k0;
-  const int cell0 = (1 << 3) | (eq00 ? kMatch : kMismatch);
-  const int seed_row = (eq00 || x == 0) ? 0 : x;
   for (int i = tid; i < WM * K; i += kThreads) Mw[i] = 0;
   for (int i = tid; i < WE * K; i += kThreads) Iw[i] = Dw[i] = 0;
   __syncthreads();
-  if (tid == 0) {
-    Mw[seed_row * K + j0] = cell0;
-    for (int r = 0; r < WM; ++r) {
-      mb.lo[r] = r == seed_row ? 0 : kBig;
-      mb.hi[r] = r == seed_row ? 0 : -kBig;
-      mb.ex[r] = r == seed_row;
+  if constexpr (GLOBAL) {
+    // ---- seeding (wfa.go:143-184): one cell, diagonal 0 at offset 1
+    const int j0 = -k0;
+    const int cell0 = (1 << 3) | (eq00 ? kMatch : kMismatch);
+    const int seed_row = (eq00 || x == 0) ? 0 : x;
+    if (tid == 0) {
+      Mw[seed_row * K + j0] = cell0;
+      for (int r = 0; r < WM; ++r) {
+        mb.lo[r] = r == seed_row ? 0 : kBig;
+        mb.hi[r] = r == seed_row ? 0 : -kBig;
+        mb.ex[r] = r == seed_row;
+      }
     }
+    // aux row 0: seed cells have no sources, so their aux is the tag bits
+    for (int j = tid; j < K; j += kThreads) {
+      aux_row(0, 0)[j] = (seed_row == 0 && j == j0) ? (cell0 & 7) : 0;
+      aux_row(1, 0)[j] = 0;
+      aux_row(2, 0)[j] = 0;
+    }
+  } else {
+    // ---- semi-global seeding (wfa.go:163-183): k in [-(qlen-1), tlen-1],
+    // k >= 0 at offset k+1 from q[0] == t[k], k < 0 at offset 1 from
+    // q[-k] == t[0]; match seeds in row 0, mismatch seeds in row x
+    int rs[4] = {kBig, kBig, kBig, kBig};  // min k, -max k of rows 0, x
+    for (int j = tid; j < K; j += kThreads) {
+      const int k = k0 + j;
+      int aux0 = 0;
+      if (k <= tl - 1 && k >= -(ql - 1)) {
+        const bool eq = k >= 0 ? q[0] == t[k] : q[-k] == t[0];
+        const int seed = ((k >= 0 ? k + 1 : 1) << 3) | (eq ? kMatch : kMismatch);
+        const int r = (eq || x == 0) ? 0 : 1;
+        rs[2 * r] = min(rs[2 * r], k);
+        rs[2 * r + 1] = min(rs[2 * r + 1], -k);
+        Mw[(r ? x : 0) * K + j] = seed;  // x < WM
+        if (r == 0) aux0 = seed & 7;
+      }
+      aux_row(0, 0)[j] = aux0;
+      aux_row(1, 0)[j] = 0;
+      aux_row(2, 0)[j] = 0;
+    }
+    block_min(rs, red);
+    // a mismatch seed beyond the score cap can never be reached
+    if (x >= S && rs[2] < kBig) {
+      overflow = true;
+      write_out();
+      return;
+    }
+    if (tid == 0) {
+      for (int r = 0; r < WM; ++r) {
+        const int i = r == 0 ? 0 : (r == x ? 2 : -1);
+        const bool ex = i >= 0 && rs[i] < kBig;
+        mb.lo[r] = ex ? rs[i] : kBig;
+        mb.hi[r] = ex ? -rs[i + 1] : -kBig;
+        mb.ex[r] = ex;
+      }
+    }
+  }
+  if (tid == 0) {
     for (int r = 0; r < WE; ++r) {
       ib.lo[r] = db.lo[r] = kBig;
       ib.hi[r] = db.hi[r] = -kBig;
       ib.ex[r] = db.ex[r] = 0;
     }
   }
-  // aux row 0: seed cells have no sources, so their aux is the tag bits
-  for (int j = tid; j < K; j += kThreads) {
-    aux_row(0, 0)[j] = (seed_row == 0 && j == j0) ? (cell0 & 7) : 0;
-    aux_row(1, 0)[j] = 0;
-    aux_row(2, 0)[j] = 0;
-  }
   __syncthreads();
 
-  bool done = false;
-  int final_s = 0, term_cell = 0;
+  // the nearest stop cell on each side of Ak in an M row (wfa.go:270-375):
+  // the largest 2j + succ at k <= Ak and the smallest 2j + !succ above it
+  auto find_end = [&](int s, const int32_t* row) {
+    int r2[2] = {kBig, kBig};  // -(2 j_dn + succ_dn), 2 j_up + !succ_up
+    for (int j = tid; j < K; j += kThreads) {
+      const int cell = row[j];
+      if (cell <= 0) continue;
+      const int k = k0 + j, h = cell >> 3, v = h - k;
+      const bool viol = v <= 0 || v > ql || h > tl;
+      const bool elig = (v == ql && h >= ql) || (h == tl && v >= tl);
+      if (!viol && !elig) continue;
+      if (k <= Ak) r2[0] = min(r2[0], -(2 * j + !viol));
+      else r2[1] = min(r2[1], 2 * j + viol);
+    }
+    block_min(r2, red);
+    const bool succ_dn = r2[0] < kBig && ((-r2[0]) & 1);
+    const bool succ_up = r2[1] < kBig && !(r2[1] & 1);
+    if (succ_up || succ_dn) {
+      const int j = succ_up ? r2[1] >> 1 : (-r2[0]) >> 1;
+      end_found = true;
+      end_s = s;
+      end_k = k0 + j;
+      end_cell = row[j];
+    }
+  };
+
   for (int s = 0; s < S - 1; ++s) {
     const int sm = s % WM, se = s % WE;
     const int lo_ms = mb.lo[sm], hi_ms = mb.hi[sm];
@@ -210,6 +317,8 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
       done = true;
       final_s = s;
       term_cell = cell_ak;
+      // the terminating row is searched unreduced
+      if (!GLOBAL && !end_found) find_end(s, row_m);
       break;
     }
 
@@ -305,6 +414,8 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
       }
       __syncthreads();
     }
+
+    if (!GLOBAL && !end_found) find_end(s, row_m);
 
     // ---------------- next (wfa.go:549-700) ----------------
     const int s2 = s + 1;
@@ -422,31 +533,32 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
     __syncthreads();
   }
 
-  if (tid == 0) {
-    out[b] = final_s;
-    out[B + b] = done;
-    out[2 * B + b] = overflow || !done;
-    out[3 * B + b] = term_cell;
-  }
+  write_out();
 }
 
 }  // namespace
 
+// out is int32[7, B]: final_s, done, overflow, term_cell, end_s, end_k,
+// end_cell; semi != 0 selects the semi-global instantiation
 extern "C" int wfa_score_loop(const uint8_t* qb, const uint8_t* tbuf,
                               const int32_t* qlen, const int32_t* tlen,
                               const int32_t* toff, int B, int Lq, int Ltb,
                               int S, int K, int x, int oe, int e,
                               int reduce_on, int min_wf_len,
-                              int max_dist_diff, int32_t* win, int32_t* out,
-                              int32_t* aux, void* stream) {
+                              int max_dist_diff, int semi, int32_t* win,
+                              int32_t* out, int32_t* aux, void* stream) {
   // dynamic shared memory: the reduction slots and the band slots.  Over
   // the 48 KB default (penalties near 4000) the launch fails and the
   // error is returned.
   const int WM = (x > oe ? x : oe) + 1, WE = e + 1;
   const int smem = (8 * kWarps + 3 * WM + 6 * WE) * (int)sizeof(int);
-  if (B > 0) {
-    score_loop_kernel<<<B, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B > 0 && semi) {
+    score_loop_kernel<false><<<B, kThreads, smem, st>>>(
+        qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S, K, x, oe, e, reduce_on,
+        min_wf_len, max_dist_diff, win, out, aux);
+  } else if (B > 0) {
+    score_loop_kernel<true><<<B, kThreads, smem, st>>>(
         qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S, K, x, oe, e, reduce_on,
         min_wf_len, max_dist_diff, win, out, aux);
   }

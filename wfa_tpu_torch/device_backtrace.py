@@ -1,5 +1,5 @@
-"""Device backtrace and token compaction, PyTorch port of
-:mod:`wfa_tpu.device_backtrace` (global alignment, one aux tensor).
+"""Device backtrace, semi-global end finder and token compaction,
+PyTorch port of :mod:`wfa_tpu.device_backtrace` (one aux tensor).
 
 Kernel K2 (``csrc/backtrace.cu``, wrapper :func:`device_backtrace`)
 replaces the JAX package's ``device_backtrace`` ``lax.while_loop``
@@ -12,7 +12,11 @@ version: all pairs step in lockstep, one launch per op per step.
 
 Both are exact ports of the reference backtrace loop (wfa.go:703-983),
 with the deferred tag read of the stepped-into cell, the post-loop
-pending tag and the ``it < it_cap - 1`` stop.
+pending tag, the ``it < it_cap - 1`` stop and, in semi-global mode, the
+stop on the first row or column.
+
+:func:`end_finder_plain` is the semi-global end finder over a stored M
+history; kernel K1 fuses the same search into its score loop.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from wfa_tpu.constants import (
 )
 
 CODE_M, CODE_X, CODE_I, CODE_D, CODE_H = 0, 1, 2, 3, 4
+OP_CHARS = "MXIDH"
 # gap-extension codes of the edit-only token stream (decoders map 5 -> I,
 # 6 -> D): no match run can precede an extension step
 CODE_IE, CODE_DE = 5, 6
@@ -55,17 +60,59 @@ def _tok_dtype(token_shift: int):
     return torch.int16 if token_shift <= 12 else torch.int32
 
 
+def end_finder_plain(hist_m, k0, final_s, qlen, tlen, S: int, K: int):
+    """Semi-global end finder (wfa.go:270-375) over the M history
+    ``hist_m`` int32[S, B, K], equal to ``wfa_tpu.device_backtrace
+    .end_finder``.  Per stored score row s <= final_s the nearest *stop*
+    cell on each side of Ak decides (the first bound-violating cell fails
+    a direction, the first last-row/column cell succeeds); the lowest
+    successful score wins, its up side first.  Returns (end_s, end_k,
+    found), falling back to (final_s, Ak)."""
+    dev = hist_m.device
+    i32 = torch.int32
+    ks = k0[None, :, None] + torch.arange(K, device=dev, dtype=i32)
+    n = qlen[None, :, None]
+    m = tlen[None, :, None]
+    s_rows = torch.arange(S, device=dev, dtype=i32)[:, None, None]
+    okc = (hist_m > 0) & (s_rows <= final_s[None, :, None])
+    h = hist_m >> TYPE_BITS
+    v = h - ks
+    viol = (v <= 0) | (v > n) | (h > m)
+    elig = ((v == n) & (h >= n)) | ((h == m) & (v >= m))
+    stop = okc & (viol | elig)
+    succ = okc & ~viol & elig
+    Ak = (tlen - qlen)[None, :, None]
+    big = 1 << 30
+    stop_dn = stop & (ks <= Ak)
+    k_dn = torch.where(stop_dn, ks, -big).amax(dim=2)  # [S, B]
+    succ_dn = (succ & (ks <= Ak) & (ks == k_dn[:, :, None])).any(dim=2)
+    stop_up = stop & (ks >= Ak + 1)
+    k_up = torch.where(stop_up, ks, big).amin(dim=2)
+    succ_up = (succ & (ks >= Ak + 1) & (ks == k_up[:, :, None])).any(dim=2)
+    row_ok = succ_dn | succ_up
+    s_idx = torch.arange(S, device=dev, dtype=i32)[:, None]
+    min_s = torch.where(row_ok, s_idx, big).amin(dim=0)  # [B]
+    found = min_s < big
+    sc = min_s.clamp(0, S - 1).long()[None, :]
+    up_at = torch.gather(succ_up, 0, sc)[0]
+    k_sel = torch.where(up_at, torch.gather(k_up, 0, sc)[0],
+                        torch.gather(k_dn, 0, sc)[0])
+    return (torch.where(found, min_s, final_s),
+            torch.where(found, k_sel, tlen - qlen), found)
+
+
 def device_backtrace_plain(
     aux, start_cell, k0, start_s, start_k, qlen, tlen, active0, *,
     penalties, S: int, K: int, token_shift: int,
-    split_ext_codes: bool = False,
+    split_ext_codes: bool = False, global_alignment: bool = True,
 ):
     """Plain PyTorch version of kernel K2.
 
     ``aux`` is int32[3, S, B, K]; ``start_cell`` the raw M cell at
     (start_s, start_k).  Returns (tok0 [B], buf [it_cap, B, 2],
     tail [B, 4]): op tokens in emission order tok0, buf[0], buf[1], ...,
-    tail, zero = empty slot, int16 when ``token_shift`` <= 12."""
+    tail, zero = empty slot, int16 when ``token_shift`` <= 12.  A
+    semi-global chase stops once it reaches the first row or column."""
     dev = aux.device
     B = qlen.shape[0]
     i32 = torch.int32
@@ -137,6 +184,8 @@ def device_backtrace_plain(
         # record the current op (wfa.go:871-874)
         tok_op = torch.where(cont2, pack(code_tab[tag.long()], 1), 0)
         buf[it] = torch.stack([tok_m, tok_op], dim=1).to(tok_dtype)
+        if not global_alignment:  # a seed cell is the path's start
+            cont2 = cont2 & ~((h == 1) | (v == 1))
 
         # step to the source cell (wfa.go:884-909)
         is_mis = tag == T_MISMATCH
@@ -183,7 +232,7 @@ def device_backtrace_plain(
 def device_backtrace(
     aux, start_cell, k0, start_s, start_k, qlen, tlen, active0, *,
     penalties, S: int, K: int, token_shift: int,
-    split_ext_codes: bool = False,
+    split_ext_codes: bool = False, global_alignment: bool = True,
 ):
     """Kernel K2 (same contract as :func:`device_backtrace_plain`).
 
@@ -195,7 +244,8 @@ def device_backtrace(
         return device_backtrace_plain(
             aux, start_cell, k0, start_s, start_k, qlen, tlen, active0,
             penalties=penalties, S=S, K=K, token_shift=token_shift,
-            split_ext_codes=split_ext_codes)
+            split_ext_codes=split_ext_codes,
+            global_alignment=global_alignment)
     from ._build import check_inputs, launch, stream_ptr
 
     B = qlen.shape[0]
@@ -219,12 +269,14 @@ def device_backtrace(
            ctypes.c_int(p.mismatch), ctypes.c_int(p.gap_open + p.gap_ext),
            ctypes.c_int(p.gap_ext), ctypes.c_int(it_cap),
            ctypes.c_int(token_shift), ctypes.c_int(int(split_ext_codes)),
-           tok0, buf, tail, stream_ptr(dev))
-    device_backtrace.launches += 1
+           ctypes.c_int(int(not global_alignment)), tok0, buf, tail,
+           stream_ptr(dev))
+    device_backtrace.launches["global" if global_alignment else "semi"] += 1
     return tok0, buf, tail
 
 
-device_backtrace.launches = 0
+# launches per mode of the kernel (global, semi-global)
+device_backtrace.launches = {"global": 0, "semi": 0}
 
 
 def compact_tokens_flat_u8(tok0, buf, tail, token_shift: int,

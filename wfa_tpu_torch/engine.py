@@ -1,9 +1,10 @@
 """Batched score-loop engine, PyTorch port of :mod:`wfa_tpu.engine`.
 
-The global-alignment main path: host pack -> upload -> ``_unpack2`` ->
-kernel K1 (``kernel_engine.run_batch``, the per-pair CUDA score loop) ->
-kernel K2 (``device_backtrace.device_backtrace``) -> token compaction ->
-meta bytes -> host decode in :class:`wfa_tpu.cigar.AlignmentResult`.
+The main path, global or semi-global: host pack -> upload ->
+``_unpack2`` -> kernel K1 (``kernel_engine.run_batch``, the per-pair CUDA
+score loop, with its fused end finder in semi-global mode) -> kernel K2
+(``device_backtrace.device_backtrace``) from the end K1 reports -> token
+compaction -> meta bytes -> host decode in :class:`DeviceResult`.
 
 ``run_batch_plain`` is the plain PyTorch version of K1: a lockstep
 transcription of the JAX engine's ``_run_batch_impl`` that extends through
@@ -18,6 +19,7 @@ tests compare the two packages value for value.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -47,8 +49,6 @@ _I32 = torch.int32
 # longest read of the ported path; longer reads need the long-read kernel
 # (ROADMAP.md queue 1, item 9)
 MAX_PORT_LEN = 4096
-SEMI_GLOBAL_NOT_PORTED = (
-    "semi-global alignment is not ported yet (ROADMAP.md queue 1, item 8)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,9 +59,13 @@ class EngineConfig:
     k_win: int = 128  # diagonal window width
     s_cap: int = 256  # max score + 1
 
-    def __post_init__(self):
-        if not self.global_alignment:
-            raise NotImplementedError(SEMI_GLOBAL_NOT_PORTED)
+
+def edit_only(cfg: EngineConfig) -> bool:
+    """Whether a batch ships the edit-only token stream (match runs
+    dropped, rebuilt host-side): global alignment unless
+    ``WFA_EDIT_TOKENS=0``, the gate of ``wfa_tpu.engine``."""
+    return (cfg.global_alignment
+            and os.environ.get("WFA_EDIT_TOKENS") != "0")
 
 
 def config_from_jax(cfg) -> EngineConfig:
@@ -143,8 +147,8 @@ def _pack2(arr: np.ndarray, lo: np.ndarray, hi: np.ndarray):
 
 
 def _pack_all(pairs: Sequence[Tuple[bytes, bytes]], k_win: int,
-              need_raw: bool = True):
-    """Padded row matrices and their 2-bit uploads for a global batch:
+              need_raw: bool = True, global_alignment: bool = True):
+    """Padded row matrices and their 2-bit uploads for a batch:
     (qb, tbuf, qlen, tlen, toff, Lq, Ltb, qp, tp), the same tuple as
     ``wfa_tpu.engine.BatchAligner._pack_all``.  qp/tp are None when the
     batch has non-ACGT bytes; qb/tbuf are None when ``need_raw`` is False
@@ -152,9 +156,12 @@ def _pack_all(pairs: Sequence[Tuple[bytes, bytes]], k_win: int,
     B = len(pairs)
     qlen = np.fromiter((len(q) for q, _ in pairs), np.int32, B)
     tlen = np.fromiter((len(t) for _, t in pairs), np.int32, B)
-    ak = tlen - qlen
-    # floor division on the host: C++ `/` would truncate toward zero
-    toff = (k_win // 2 - ak // 2).astype(np.int32)
+    if global_alignment:
+        ak = tlen - qlen
+        # floor division on the host: C++ `/` would truncate toward zero
+        toff = (k_win // 2 - ak // 2).astype(np.int32)
+    else:  # the window starts at the first-column seeds' diagonal
+        toff = qlen - 1
     Lq = _pad_len(int(qlen.max()))
     Ltb = _pad_len(max(int((toff + tlen).max()), 1))
 
@@ -227,24 +234,41 @@ def _masked_max(vals, mask):
 
 
 def _seed_rows(qb, tbuf, qlen, tlen, toff, *, mismatch: int, K: int,
-               Ltb: int):
-    """Dense global seed rows for scores 0 and ``mismatch``
-    (wfa.go:143-184): ((row0, lo0, hi0, ex0), (rowx, lox, hix, exx)),
-    rows int32[B, K] in the fixed-origin window layout.  With
-    mismatch == 0 both seeds land in row0 and rowx is empty."""
+               Ltb: int, global_alignment: bool = True):
+    """Dense seed rows for scores 0 and ``mismatch`` (wfa.go:143-184):
+    ((row0, lo0, hi0, ex0), (rowx, lox, hix, exx)), rows int32[B, K] in
+    the fixed-origin window layout; match seeds go to row 0, mismatch
+    seeds to row x, and with mismatch == 0 both land in row0 and rowx is
+    empty.  Global: one cell, diagonal 0 at offset 1.  Semi-global: the
+    first row and column, k in [-(qlen-1), tlen-1] (k0 == -(qlen-1));
+    k >= 0 at offset k+1 from q[0] == t[k], k < 0 at offset 1 from
+    q[-k] == t[0], built by indexing rather than the TPU's log-shift
+    doublings (equal to them whenever the window spans the query)."""
     B = qb.shape[0]
+    dev = qb.device
     k0 = -toff.to(_I32)
-    iota = torch.arange(K, device=qb.device, dtype=_I32)[None, :]
+    iota = torch.arange(K, device=dev, dtype=_I32)[None, :]
     ks = k0[:, None] + iota
-    col = toff.long().clamp(0, Ltb - 1)
-    t0 = tbuf[torch.arange(B, device=qb.device), col]
-    eq00 = qb[:, 0] == t0
-    tag0 = torch.where(eq00, T_MATCH, T_MISMATCH).to(_I32)
-    cell0 = ((1 << TYPE_BITS) | tag0)[:, None]
-    at_j0 = ks == 0
-    zero = torch.zeros((B, K), dtype=_I32, device=qb.device)
-    seed_eq = torch.where(at_j0 & eq00[:, None], cell0, zero)
-    seed_ne = torch.where(at_j0 & ~eq00[:, None], cell0, zero)
+    rows_b = torch.arange(B, device=dev)
+    t0 = tbuf[rows_b, toff.long().clamp(0, Ltb - 1)]
+    if global_alignment:
+        eq = (qb[:, 0] == t0)[:, None]
+        off = torch.ones_like(ks)
+        in_range = ks == 0
+    else:
+        # t[k] lives at buffer column k + toff == j; q[-k] = q[toff - j]
+        t_at_k = torch.zeros((B, K), dtype=torch.uint8, device=dev)
+        n = min(K, Ltb)
+        t_at_k[:, :n] = tbuf[:, :n]
+        mk = (-ks).clamp(0, qb.shape[1] - 1).long()
+        q_at_mk = torch.gather(qb, 1, mk)
+        eq = torch.where(ks >= 0, qb[:, :1] == t_at_k, q_at_mk == t0[:, None])
+        off = torch.where(ks >= 0, ks + 1, 1)
+        in_range = ks <= (tlen.to(_I32) - 1)[:, None]
+    cell = off << TYPE_BITS
+    zero = torch.zeros((B, K), dtype=_I32, device=dev)
+    seed_eq = torch.where(in_range & eq, cell | T_MATCH, zero)
+    seed_ne = torch.where(in_range & ~eq, cell | T_MISMATCH, zero)
     rows = ((seed_eq + seed_ne, zero) if mismatch == 0
             else (seed_eq, seed_ne))
     out = []
@@ -346,14 +370,19 @@ def _shift_kp1(row):
 
 def run_batch_plain(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig,
                     Lq: int, Ltb: int):
-    """Plain PyTorch version of kernel K1: the global score loop of
+    """Plain PyTorch version of kernel K1: the score loop of
     ``wfa_tpu.engine._run_batch_impl`` (no ``w_win``/``v_win``), all pairs
-    in lockstep, one score per iteration.
+    in lockstep, one score per iteration, global or semi-global.
 
     Returns (final_s int32[B], done bool[B], overflow bool[B],
-    term_cell int32[B], aux int32[3, S, B, K]) where ``term_cell`` is the
-    raw M cell at (final_s, Ak) and ``aux`` is the backtrace aux
-    (``offset0 << 3 | tag`` per cell; components M, I, D)."""
+    term_cell int32[B], aux int32[3, S, B, K], end) where ``term_cell`` is
+    the raw M cell at (final_s, Ak), ``aux`` is the backtrace aux
+    (``offset0 << 3 | tag`` per cell; components M, I, D) and ``end`` is
+    the backtrace start (end_s, end_k, end_cell), int32[B] each: global
+    (final_s, Ak, term_cell); semi-global the end finder's pick over the
+    stored M history (``device_backtrace.end_finder_plain``) and its raw
+    cell, as ``wfa_tpu.engine._align_full_impl`` takes it, for pairs done
+    and not overflowed, else the global triple."""
     p = cfg.penalties
     x, oe, e = p.mismatch, p.gap_open + p.gap_ext, p.gap_ext
     S, K = cfg.s_cap, cfg.k_win
@@ -383,10 +412,13 @@ def run_batch_plain(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig,
     ex_m, ex_i, ex_d = (torch.zeros((S, B), dtype=torch.bool, device=dev)
                         for _ in range(3))
 
-    # the window must hold the seed diagonal and the terminal one
+    # the window must hold the seed diagonals and the terminal one
     overflow = (Ak < k0) | (Ak >= k0 + K) | (0 < k0) | (0 >= k0 + K)
+    if not cfg.global_alignment:
+        overflow = overflow | ((tlen - 1) >= k0 + K)
     (row0, lo0, hi0, ex0), (rowx, lox, hix, exx) = _seed_rows(
-        qb, tbuf, qlen, tlen, toff, mismatch=x, K=K, Ltb=Ltb)
+        qb, tbuf, qlen, tlen, toff, mismatch=x, K=K, Ltb=Ltb,
+        global_alignment=cfg.global_alignment)
     hist_m[0], aux_m[0] = row0, row0 & 7  # seeds have no sources
     lo_m[0], hi_m[0], ex_m[0] = lo0, hi0, ex0
     if 0 < x < S:
@@ -611,7 +643,20 @@ def run_batch_plain(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig,
         ex_m[s2] = torch.where(frz, ex_m_old, keep_m)
 
     overflow = overflow | ~done
-    return final_s, done, overflow, term_cell, aux
+    end = (final_s, Ak, term_cell)
+    if not cfg.global_alignment:
+        from .device_backtrace import end_finder_plain
+
+        end_s, end_k, _ = end_finder_plain(hist_m, k0, final_s, qlen, tlen,
+                                           S, K)
+        # GetRaw of the start cell (wfa.go:738)
+        j = (end_k - k0).clamp(0, K - 1).long()
+        end_cell = hist_m[end_s.clamp(0, S - 1).long(),
+                          torch.arange(B, device=dev), j]
+        ok = done & ~overflow
+        end = (torch.where(ok, end_s, final_s), torch.where(ok, end_k, Ak),
+               torch.where(ok, end_cell, term_cell))
+    return final_s, done, overflow, term_cell, aux, end
 
 
 # ---------------------------------------------------------------------------
@@ -619,11 +664,13 @@ def run_batch_plain(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig,
 
 
 def _finish_outputs(aux, start_cell, k0, start_s, start_k, qlen, tlen, done,
-                    overflow, *, cfg: EngineConfig, Lq: int, Ltb: int):
-    """Backtrace (kernel K2), edit-only token compaction and the meta
-    header: ``{"mtb": uint8, "lg": int16/int32}``, byte-identical to the
-    ``compact and flat`` branch of ``wfa_tpu.engine._finish_outputs`` in
-    global mode, so ``wfa_tpu.cigar`` decodes it unchanged."""
+                    overflow, *, cfg: EngineConfig, Lq: int, Ltb: int,
+                    edit: bool):
+    """Backtrace (kernel K2), token compaction and the meta header:
+    ``{"mtb": uint8, "lg": int16/int32}``, byte-identical to the
+    ``compact and flat`` branch of ``wfa_tpu.engine._finish_outputs``, so
+    ``DeviceResult`` decodes it as ``wfa_tpu.cigar`` would.  The token
+    stream is edit-only when ``edit``, else full."""
     from .device_backtrace import (compact_tokens_flat_u8, device_backtrace,
                                    iter_capacity)
 
@@ -635,10 +682,10 @@ def _finish_outputs(aux, start_cell, k0, start_s, start_k, qlen, tlen, done,
     tok0, buf, tail = device_backtrace(
         aux, start_cell, k0, start_s, start_k, qlen, tlen, done & ~overflow,
         penalties=cfg.penalties, S=S, K=K, token_shift=token_shift,
-        split_ext_codes=True)
-    # edit-only stream: match runs are dropped and rebuilt host-side
+        split_ext_codes=edit, global_alignment=cfg.global_alignment)
+    # an edit-only stream drops the match runs; the host rebuilds them
     bytes_flat, longs_flat, n_tok, n_long = compact_tokens_flat_u8(
-        tok0, buf, tail, token_shift, drop_m=True)
+        tok0, buf, tail, token_shift, drop_m=edit)
     meta = torch.stack([start_s.to(_I32), overflow.to(_I32), n_tok, n_long],
                        dim=1)
     ns_cap = 2 * iter_capacity(S, cfg.penalties) + 5
@@ -652,12 +699,16 @@ def _finish_outputs(aux, start_cell, k0, start_s, start_k, qlen, tlen, done,
 
 
 def align_full2(seq, lens, *, cfg: EngineConfig, B: int, Lq: int, Ltb: int,
-                packed: bool = False):
+                packed: bool = False, edit: Optional[bool] = None):
     """Full alignment of an uploaded batch, the port of
     ``wfa_tpu.engine._align_full2(..., flat=True)``: ``seq`` is the query
     and target byte matrices side by side (2-bit packed when ``packed``),
     ``lens`` is int32[B, 3] (qlen, tlen, toff).  Score loop (K1) ->
-    backtrace (K2) -> compaction; returns ``{"mtb", "lg"}``."""
+    backtrace (K2) from the end K1 reports -> compaction; returns
+    ``{"mtb", "lg"}``, plus ``"final_s"`` (int32[B]) in semi-global mode:
+    the score at which each pair reached its global end, where K1 stops,
+    which lies above its semi-global score.  ``edit`` picks the token
+    stream (default :func:`edit_only`)."""
     from .kernel_engine import run_batch
 
     qw = Lq // 4 if packed else Lq
@@ -666,16 +717,20 @@ def align_full2(seq, lens, *, cfg: EngineConfig, B: int, Lq: int, Ltb: int,
     if packed:
         qb = _unpack2(qb, Lq, torch.zeros_like(qlen), qlen)
         tbuf = _unpack2(tbuf, Ltb, toff, toff + tlen)
-    final_s, done, overflow, term_cell, aux = run_batch(
+    final_s, done, overflow, _, aux, (end_s, end_k, end_cell) = run_batch(
         qb.contiguous(), tbuf.contiguous(), qlen, tlen, toff, cfg=cfg, Lq=Lq,
         Ltb=Ltb)
-    return _finish_outputs(aux, term_cell, -toff, final_s, tlen - qlen, qlen,
-                           tlen, done, overflow, cfg=cfg, Lq=Lq, Ltb=Ltb)
+    out = _finish_outputs(aux, end_cell, -toff, end_s, end_k, qlen, tlen,
+                          done, overflow, cfg=cfg, Lq=Lq, Ltb=Ltb,
+                          edit=edit_only(cfg) if edit is None else edit)
+    if not cfg.global_alignment:
+        out["final_s"] = final_s
+    return out
 
 
 def decode_outputs(pairs, mtb: np.ndarray, lg: np.ndarray):
     """Split a fetched ``{"mtb", "lg"}`` pair of streams into (meta
-    int32[B, 4], per-pair edit-token arrays), as
+    int32[B, 4], per-pair token arrays), as
     ``wfa_tpu.engine.BatchAligner.finish_small/finish_tokens`` do."""
     B = len(pairs)
     nm = len(META_COLS)
@@ -696,19 +751,45 @@ def decode_outputs(pairs, mtb: np.ndarray, lg: np.ndarray):
     return meta, [toks[a:z] for a, z in zip([0] + el[:-1], el)]
 
 
+def decode_tokens(toks: np.ndarray) -> List[Tuple[str, int]]:
+    """Ops of a full token stream (match runs included) in final order:
+    the nonzero tokens reversed, the split extension codes 5 -> I and
+    6 -> D normalised (``wfa_tpu.cigar``'s decode of a non-tuple
+    stream)."""
+    from .device_backtrace import OP_CHARS
+
+    shift = 12 if toks.dtype == np.int16 else 28
+    mask = (1 << shift) - 1
+    return [(OP_CHARS[c] if c < len(OP_CHARS)
+             else "I" if c == 5 else "D" if c == 6 else ".", int(tk & mask))
+            for tk in toks[toks != 0][::-1]
+            for c in (int(tk) >> shift,)]
+
+
 class DeviceResult(AlignmentResult):
-    """An :class:`AlignmentResult` made from a pair's edit-only token
-    stream, decoded lazily on first access like ``from_device`` results.
-    The base class's decode imports its op table from the JAX-bound
-    ``wfa_tpu.device_backtrace``; this one decodes the same stream with
-    the JAX-free ``_decode_edit_tokens`` alone."""
+    """An :class:`AlignmentResult` made from a pair's token stream,
+    decoded lazily on first access like ``from_device`` results.  The
+    base class's decode imports its op table from the JAX-bound
+    ``wfa_tpu.device_backtrace``; this one decodes the same streams
+    without it: an edit-only stream ((toks, q, t)) through
+    ``_decode_edit_tokens``, a full one through :func:`decode_tokens`.
+
+    ``final_s`` (set by :meth:`BatchAligner.finish_batch`) is the score at
+    which K1 stopped the pair: its score in global mode, the cost of its
+    global end in semi-global mode.  A score cap must lie above it."""
+
+    __slots__ = ("final_s",)
 
     def process(self) -> None:
         if self._processed or self._raw_tokens is None:
             return super().process()
-        toks, q, t = self._raw_tokens
+        if isinstance(self._raw_tokens, tuple):
+            toks, q, t = self._raw_tokens
+            decoded = self._decode_edit_tokens(toks, q, t)
+        else:
+            decoded = decode_tokens(self._raw_tokens)
         ops: List[Tuple[str, int]] = []
-        for op, n in self._decode_edit_tokens(toks, q, t):
+        for op, n in decoded:
             if ops and ops[-1][0] == op:
                 ops[-1] = (op, ops[-1][1] + n)
             else:
@@ -720,7 +801,7 @@ class DeviceResult(AlignmentResult):
 
 
 class BatchAligner:
-    """Batched global aligner on one device: pack -> K1 -> K2 -> decode.
+    """Batched aligner on one device: pack -> K1 -> K2 -> decode.
 
     Pairs whose band or score leaves the configured windows are aligned
     by the exact host oracle (``fallback=True``) or returned as None, so
@@ -763,31 +844,40 @@ class BatchAligner:
                 f"reads longer than {MAX_PORT_LEN} are not ported yet "
                 "(ROADMAP.md queue 1, item 9)")
         qb, tbuf, qlen, tlen, toff, Lq, Ltb, qp, tp = _pack_all(
-            pairs, self.cfg.k_win, need_raw=False)
+            pairs, self.cfg.k_win, need_raw=False,
+            global_alignment=self.cfg.global_alignment)
         packed = tp is not None
         seq = np.concatenate([qp if packed else qb, tp if packed else tbuf],
                              axis=1)
         lens = np.stack([qlen, tlen, toff], axis=1).astype(np.int32)
         dev = self.device
+        edit = edit_only(self.cfg)  # fixed here; the decode follows it
         out = align_full2(torch.from_numpy(seq).to(dev),
                           torch.from_numpy(lens).to(dev), cfg=self.cfg,
-                          B=len(pairs), Lq=Lq, Ltb=Ltb, packed=packed)
-        return pairs, out
+                          B=len(pairs), Lq=Lq, Ltb=Ltb, packed=packed,
+                          edit=edit)
+        return pairs, out, edit
 
     def finish_batch(self, handle, fallback: bool = True
                      ) -> List[Optional[AlignmentResult]]:
         """Fetch a submitted batch and build its results (op decoding is
         lazy, on first access)."""
-        pairs, out = handle
+        pairs, out, edit = handle
         meta, toks = decode_outputs(pairs, out["mtb"].cpu().numpy(),
                                     out["lg"].cpu().numpy())
+        scores = meta[:, M_SCORE].tolist()
+        final = (out["final_s"].cpu().tolist() if "final_s" in out
+                 else scores)
         results: List[Optional[AlignmentResult]] = []
         oracle = self._oracle
-        for (q, t), score, ovf, tk in zip(pairs, meta[:, M_SCORE].tolist(),
-                                          meta[:, M_OVF].tolist(), toks):
+        ga = self.cfg.global_alignment
+        for (q, t), score, fs, ovf, tk in zip(pairs, scores, final,
+                                              meta[:, M_OVF].tolist(), toks):
             if ovf:
                 results.append(oracle.align(q, t) if fallback else None)
             else:
-                results.append(DeviceResult.from_device(True, score,
-                                                        (tk, q, t)))
+                res = DeviceResult.from_device(
+                    ga, score, (tk, q, t) if edit else tk)
+                res.final_s = fs
+                results.append(res)
         return results

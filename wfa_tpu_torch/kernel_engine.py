@@ -1,9 +1,10 @@
 """Kernel K1: the per-pair CUDA score loop (``csrc/score_loop.cu``).
 
-The port of the TPU kernel ``wfa_tpu.pallas_engine._kernel`` in its
-default global mode (reached through ``pallas_run_batch``).  Its plain
-PyTorch version is :func:`wfa_tpu_torch.engine.run_batch_plain`, which
-this wrapper runs for CPU tensors.
+The port of the TPU kernel ``wfa_tpu.pallas_engine._kernel`` as
+``pallas_run_batch`` reaches it, in global mode and in semi-global mode
+with its fused end finder.  Its plain PyTorch version is
+:func:`wfa_tpu_torch.engine.run_batch_plain`, which this wrapper runs for
+CPU tensors.
 """
 
 from __future__ import annotations
@@ -25,10 +26,11 @@ def scratch_ints(cfg: EngineConfig) -> int:
 
 def run_batch(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig, Lq: int,
               Ltb: int):
-    """Run the global score loop for a batch; returns (final_s int32[B],
+    """Run the score loop for a batch; returns (final_s int32[B],
     done bool[B], overflow bool[B], term_cell int32[B],
-    aux int32[3, S, B, K]).  Aux rows above a pair's final_s, and every
-    row of an overflow pair, are unspecified.
+    aux int32[3, S, B, K], (end_s, end_k, end_cell) int32[B] each), the
+    contract of :func:`run_batch_plain`.  Aux rows above a pair's
+    final_s, and every row of an overflow pair, are unspecified.
 
     CUDA tensors launch ``wfa_score_loop`` on the current stream; CPU
     tensors take :func:`run_batch_plain`."""
@@ -46,17 +48,20 @@ def run_batch(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig, Lq: int,
                  tbuf=(tbuf, torch.uint8, (B, Ltb)), qlen=(qlen, i32, (B,)),
                  tlen=(tlen, i32, (B,)), toff=(toff, i32, (B,)))
     win = torch.empty((B, scratch_ints(cfg)), dtype=i32, device=dev)
-    out = torch.empty((4, B), dtype=i32, device=dev)
+    out = torch.empty((7, B), dtype=i32, device=dev)
     aux = torch.empty((3, S, B, K), dtype=i32, device=dev)
     ad = cfg.adaptive
     launch("wfa_score_loop", qb, tbuf, qlen, tlen, toff,
            *(ctypes.c_int(v) for v in (
                B, Lq, Ltb, S, K, p.mismatch, p.gap_open + p.gap_ext,
                p.gap_ext, int(ad is not None),
-               ad.min_wf_len if ad else 0, ad.max_dist_diff if ad else 0)),
+               ad.min_wf_len if ad else 0, ad.max_dist_diff if ad else 0,
+               int(not cfg.global_alignment))),
            win, out, aux, stream_ptr(dev))
-    run_batch.launches += 1
-    return out[0], out[1] > 0, out[2] > 0, out[3], aux
+    run_batch.launches["global" if cfg.global_alignment else "semi"] += 1
+    return (out[0], out[1] > 0, out[2] > 0, out[3], aux,
+            (out[4], out[5], out[6]))
 
 
-run_batch.launches = 0
+# launches per instantiation of the kernel (global, semi-global)
+run_batch.launches = {"global": 0, "semi": 0}

@@ -1,5 +1,6 @@
 """Alignment pipeline: length buckets and the tiered window retry, the
-PyTorch port of :mod:`wfa_tpu.pipeline` for global alignment.
+PyTorch port of :mod:`wfa_tpu.pipeline` for global and semi-global
+alignment.
 
 Pairs are grouped into length classes and run through the batched
 engine with economical window caps; pairs whose band or score overflows
@@ -21,7 +22,7 @@ from wfa_tpu.io import bucket_pairs
 from wfa_tpu.oracle import Aligner as OracleAligner
 
 from .device_backtrace import iter_capacity
-from .engine import SEMI_GLOBAL_NOT_PORTED, BatchAligner, EngineConfig
+from .engine import BatchAligner, EngineConfig
 from .kernel_engine import scratch_ints
 
 
@@ -58,13 +59,12 @@ class AlignmentPipeline:
     """Aligns arbitrary lists of pairs at batch throughput."""
 
     def __init__(self, cfg: PipelineConfig) -> None:
-        if not cfg.options.global_alignment:
-            raise NotImplementedError(SEMI_GLOBAL_NOT_PORTED)
         self.cfg = cfg
         self._oracle = OracleAligner(cfg.penalties, cfg.options, cfg.adaptive)
         self._engines: Dict[Tuple[int, int], BatchAligner] = {}
-        # adaptive score-cap memory: bucket class -> max final score seen
-        # in the most recent align_all that completed pairs there
+        # adaptive score-cap memory: bucket class -> max final score
+        # (``DeviceResult.final_s``) seen in the most recent align_all that
+        # completed pairs there
         self._score_memory: Dict[Tuple[int, int], int] = {}
         # pairs served per tier in the last align_all ("oracle": the final
         # exact fallback)
@@ -76,7 +76,12 @@ class AlignmentPipeline:
         cfg = self.cfg
         full_span = _round_up(lq + lt - 1 + 2, 128)
         longest = max(lq, lt)
-        if cfg.adaptive is not None:
+        if not cfg.options.global_alignment:
+            # the semi-global seeds span every diagonal, so every tier
+            # holds the full span (K1 keeps its window in device memory,
+            # so any width serves); only the score cap climbs
+            k_win = full_span
+        elif cfg.adaptive is not None:
             # wf-adaptive trims the band to ~2 * max_dist_diff around the
             # optimal path, whose diagonal drifts like a random walk
             band = 2 * (cfg.adaptive.max_dist_diff + 2)
@@ -103,8 +108,10 @@ class AlignmentPipeline:
         # one pair's aux must fit the budget
         s_cap = max(8, min(s_cap, (cfg.mem_budget // (12 * k_win)) // 8 * 8))
         per_pair = batch_bytes_per_pair(
-            EngineConfig(penalties=p, adaptive=cfg.adaptive, k_win=k_win,
-                         s_cap=s_cap), longest)
+            EngineConfig(penalties=p,
+                         global_alignment=cfg.options.global_alignment,
+                         adaptive=cfg.adaptive, k_win=k_win, s_cap=s_cap),
+            longest)
         b_cap = max(1, min(8192, cfg.mem_budget // per_pair))
         return k_win, s_cap, b_cap
 
@@ -172,7 +179,9 @@ class AlignmentPipeline:
                         else:
                             results[idx] = res
                             served[tier] += 1
-                            mx = max(mx, res.score)
+                            # the score K1 ran to: above a semi-global
+                            # pair's score when its global end costs more
+                            mx = max(mx, res.final_s)
                 if mx >= 0:
                     score_seen[key] = mx
             pending = nxt
