@@ -9,15 +9,17 @@ imports JAX, which the card machine lacks, so run them there with
 ``chip_smoke.py`` covers the main configurations at their full size;
 these cover the other shapes the main path can give the kernels (tier-1
 and tier-2 windows, no reduction, degenerate penalties, overflows, raw
-bytes, semi-global full-span windows).  Integer outputs: exact equality.
+bytes, semi-global full-span windows; K1-long and K2 over its rebased
+aux at long-read lengths, the int16 guard and the raw outputs).  Integer
+outputs: exact equality.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from wfa_tpu import AdaptiveReductionOption, Penalties
-from wfa_tpu.datagen import generate_pairs
+from wfa_tpu_torch import AdaptiveReductionOption, Penalties
+from wfa_tpu_torch.datagen import generate_pairs
 
 pytestmark = pytest.mark.cuda
 
@@ -111,25 +113,97 @@ def test_kernels_match_plain(card, case):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
-@pytest.mark.parametrize("ga", [True, False], ids=["global", "semi"])
-def test_align_full2_card_matches_cpu(card, ga):
-    """The whole device part of the main path: the byte streams from the
-    kernels equal those from the plain versions."""
+def _guard_pair(seed):
+    """A pair whose score-8 row spreads past the int16 cells' 4095 with
+    reduction off: diagonal 0 runs a 4,200-base shared stretch, while
+    diagonals -1 and +1 open from the score-0 seed near offset 1."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    run = acgt[rng.integers(0, 4, 4200)].tobytes()
+    tail = acgt[rng.integers(0, 4, 30)].tobytes()
+    return b"AG" + run + b"T" + tail, b"AC" + run + b"G" + tail
+
+
+# (penalties, adaptive, k_win, s_cap, length, error, pairs)
+LONG_CASES = {
+    "l5000": (Penalties(4, 6, 2), ADAPTIVE, 256, 2816, 5000, 0.05, 16),
+    "l5000_degenerate": (Penalties(2, 3, 1), ADAPTIVE, 256, 1536, 5000,
+                         0.05, 16),
+    "overflow": (Penalties(4, 6, 2), ADAPTIVE, 256, 1440, 5000, 0.05, 16),
+    "int16_guard": (Penalties(4, 6, 2), None, 64, 64, 300, 0.0, 4),
+}
+
+
+@pytest.mark.parametrize("case", list(LONG_CASES))
+def test_long_kernels_match_plain(card, case):
+    """K1-long and K2 over its rebased aux against their plain versions:
+    every out row, the int16 aux rows and bases <= final_s of done pairs,
+    the tokens and the chase iterations."""
+    from wfa_tpu_torch import engine as te
+    from wfa_tpu_torch.device_backtrace import (device_backtrace,
+                                                device_backtrace_plain)
+    from wfa_tpu_torch.kernel_engine import run_batch_long
+
+    pen, ad, k_win, s_cap, length, err, n = LONG_CASES[case]
+    cfg = te.EngineConfig(penalties=pen, adaptive=ad, k_win=k_win,
+                          s_cap=s_cap)
+    pairs = generate_pairs(n, length, err, seed=13)
+    if case == "int16_guard":
+        pairs[1] = _guard_pair(5)
+    qb, tbuf, qlen, tlen, toff, Lq, Ltb = te.inputs_from_packed(
+        te._pack_all(pairs, k_win), card)
+    args = (qb, tbuf, qlen, tlen, toff)
+    ref = te.run_batch_long_plain(*args, cfg=cfg, Lq=Lq, Ltb=Ltb)
+    got = run_batch_long(*args, cfg=cfg, Lq=Lq, Ltb=Ltb)
+    for a, b in zip(ref[:4], got[:4]):
+        assert torch.equal(a, b)
+    ok = ref[1] & ~ref[2]
+    if case == "int16_guard":
+        assert bool(ref[2][1]) and int(ok.sum()) == n - 1
+    elif case == "overflow":
+        assert ref[2].any() and ok.any()
+    else:
+        assert bool(ok.all())
+    for b in torch.nonzero(ok).flatten().tolist():
+        f = int(ref[0][b])
+        assert torch.equal(ref[4][:, :f + 1, b], got[4][:, :f + 1, b]), b
+        assert torch.equal(ref[5][b, :f + 1], got[5][b, :f + 1]), b
+
+    shift, _ = te._token_plan(s_cap, pen, Lq, Ltb)
+    bt_args = (got[4], got[3], -toff, got[0], tlen - qlen, qlen, tlen, ok)
+    kw = dict(penalties=pen, S=s_cap, K=k_win, token_shift=shift,
+              split_ext_codes=True, aux_base=got[5], return_iters=True)
+    for a, b in zip(device_backtrace_plain(*bt_args, **kw),
+                    device_backtrace(*bt_args, **kw)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("ga,engine,s_cap", [
+    (True, "auto", 640), (False, "auto", 640), (True, "long", 640),
+    (True, "auto", 65528)], ids=["global", "semi", "long", "raw_outputs"])
+def test_align_full2_card_matches_cpu(card, ga, engine, s_cap):
+    """The whole device part of the main path: the outputs from the
+    kernels equal those from the plain versions (the byte streams, or the
+    raw streams where the token stream passes 2**16 slots)."""
     from wfa_tpu_torch import engine as te
 
     k_win = 128 if ga else 1024
+    if s_cap > 32000:
+        k_win = 32  # keeps the [S, B, K] tensors small
     cfg = te.EngineConfig(penalties=Penalties(4, 6, 2), global_alignment=ga,
-                          adaptive=ADAPTIVE, k_win=k_win, s_cap=640)
-    pairs = _pairs(64, 400, 0.05, 11)
+                          adaptive=ADAPTIVE, k_win=k_win, s_cap=s_cap)
+    pairs = (generate_pairs(16, 60, 0.05, seed=11) if s_cap > 32000
+             else _pairs(64, 400, 0.05, 11))
     _, _, qlen, tlen, toff, Lq, Ltb, qp, tp = te._pack_all(
         pairs, k_win, global_alignment=ga)
     seq = torch.from_numpy(np.concatenate([qp, tp], axis=1))
     lens = torch.from_numpy(np.stack([qlen, tlen, toff], axis=1))
     cpu = te.align_full2(seq, lens, cfg=cfg, B=len(pairs), Lq=Lq, Ltb=Ltb,
-                         packed=True)
+                         packed=True, engine=engine)
     gpu = te.align_full2(seq.to(card), lens.to(card), cfg=cfg, B=len(pairs),
-                         Lq=Lq, Ltb=Ltb, packed=True)
-    for key in ("mtb", "lg"):
+                         Lq=Lq, Ltb=Ltb, packed=True, engine=engine)
+    assert sorted(cpu) == sorted(gpu)
+    for key in cpu:
         assert torch.equal(cpu[key], gpu[key].cpu()), key
 
 

@@ -229,8 +229,8 @@ def test_align_full2_bytes_match_jax(raw):
 def test_align_full2_full_token_streams_match_jax(mode, raw, monkeypatch):
     """The full token streams (match runs included) are byte-equal to
     JAX's too: semi-global always ships them, global under
-    WFA_EDIT_TOKENS=0, and the port's decode of them equals the shared
-    wfa_tpu.cigar decode."""
+    WFA_EDIT_TOKENS=0, and the port's decode of them equals
+    wfa_tpu.cigar's."""
     from wfa_tpu.cigar import AlignmentResult
 
     if mode == "full_tokens":
@@ -268,8 +268,8 @@ def test_config_from_jax_rejects_unported_modes():
 def test_window_origin_and_direct_pack_match_jax():
     """window_origin equals the JAX one and the packed toff is -k0; the
     direct pack (no raw rows) uploads the same bytes."""
-    from wfa_tpu import native
     from wfa_tpu.engine import window_origin
+    from wfa_tpu_torch import native
 
     pairs, jb, packed = _batch(51)
     qlen, tlen, toff = packed[2:5]
@@ -278,7 +278,7 @@ def test_window_origin_and_direct_pack_match_jax():
         assert k0 == window_origin(int(q), int(t), 128, True) == -int(o)
     direct = te._pack_all(pairs, 128, need_raw=False)
     # the native packer packs straight from the strings, without raw rows
-    assert (direct[0] is None) == (native.lib is not None)
+    assert (direct[0] is None) == (native.load() is not None)
     for a, b in zip(direct[2:], packed[2:]):
         assert np.array_equal(a, b)
     for a, b in zip(te._pack_all(pairs, 128), packed):
@@ -289,10 +289,10 @@ def test_window_origin_and_direct_pack_match_jax():
 def test_numpy_pack_matches_jax(raw, monkeypatch):
     """Without the native packer (no C toolchain), the numpy pack gives
     the same rows and uploads."""
-    from wfa_tpu import native
+    from wfa_tpu_torch import native
 
     pairs, jb, packed = _batch(61, raw=raw)
-    monkeypatch.setattr(native, "lib", None)
+    monkeypatch.setattr(native, "load", lambda: None)
     ours = te._pack_all(pairs, 128)
     assert (ours[8] is None) == raw
     for a, b in zip(ours, packed):

@@ -1,20 +1,21 @@
-"""The port runs where JAX is not installed: no module of
-``wfa_tpu_torch`` (nor ``chip_smoke.py``) may import JAX or a JAX-bound
-module of ``wfa_tpu``."""
+"""The port stands alone: no module of ``wfa_tpu_torch`` (nor
+``chip_smoke.py``) imports JAX or any module of the JAX package
+``wfa_tpu``, and the port's own copies of the host layers (oracle,
+datagen, io, native packer) equal the JAX package's."""
 
 import ast
 import os
 import pathlib
+import random
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "wfa_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-JAX_BOUND = ("engine", "pipeline", "device_backtrace", "pallas_engine",
-             "pallas_longread", "pallas_prefix", "semi2", "parallel", "cli",
-             "dp", "plot")
+BLOCKED = ("jax", "jaxlib", "wfa_tpu")  # import roots the port may not load
 
 
 def _imports(path):
@@ -25,49 +26,45 @@ def _imports(path):
                 yield alias.name
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module or ""
-            if node.module == "wfa_tpu":
-                for alias in node.names:
-                    yield f"wfa_tpu.{alias.name}"
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_jax_imports(path):
     for name in _imports(path):
-        top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib"), (path, name)
-        if top == "wfa_tpu" and "." in name:
-            assert name.split(".")[1] not in JAX_BOUND, (path, name)
+        assert name.split(".")[0] not in BLOCKED, (path, name)
 
 
-# The main path on the CPU in a fresh interpreter where importing JAX
-# fails; it also catches imports the scan above cannot see (lazy imports
-# inside the shared wfa_tpu layers).
+# The main paths on the CPU in a fresh interpreter where importing JAX or
+# wfa_tpu fails; it also catches imports the scan above cannot see.
 _NO_JAX_RUN = """
 import sys
 
-class NoJax:
+class Blocked:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError("JAX is blocked: " + name)
+        if name.split(".")[0] in {blocked!r}:
+            raise ImportError("blocked: " + name)
 
-sys.meta_path.insert(0, NoJax())
+sys.meta_path.insert(0, Blocked())
 import torch
 torch.set_num_threads(2)
-from wfa_tpu import AdaptiveReductionOption, OracleAligner, Options, Penalties
-from wfa_tpu.datagen import generate_pairs
+from wfa_tpu_torch import (AdaptiveReductionOption, OracleAligner, Options,
+                           Penalties)
+from wfa_tpu_torch.datagen import generate_pairs
 from wfa_tpu_torch.pipeline import AlignmentPipeline, PipelineConfig
 
 args = (Penalties(4, 6, 2), Options(True), AdaptiveReductionOption(10, 50, 1))
 pairs = generate_pairs(6, 150, 0.05, seed=9)
 q = generate_pairs(1, 300, 0.0, seed=3)[0][0]
 pairs.append((q, q[:150]))  # its band leaves the tier-0 window
+long_pair = generate_pairs(1, 4300, 0.002, seed=5)  # the long-read engine
 pipe = AlignmentPipeline(PipelineConfig(*args, batch_size=4))
 oracle = OracleAligner(*args)
-for (q, t), r in zip(pairs, pipe.align_all(pairs)):
+for (q, t), r in zip(pairs + long_pair, pipe.align_all(pairs + long_pair)):
     o = oracle.align(q, t)
     assert (r.score, r.cigar(False), r.q_end, r.matches) == (
         o.score, o.cigar(False), o.q_end, o.matches), (q, t)
 assert pipe.served[1] >= 1, pipe.served
+assert any(e == "long" for _, _, e in pipe._engines), pipe._engines
 # semi-global: full token streams, decoded without JAX
 semi = (args[0], Options(False), args[2])
 pipe = AlignmentPipeline(PipelineConfig(*semi, batch_size=4))
@@ -77,9 +74,8 @@ for (q, t), r in zip(pairs, pipe.align_all(pairs)):
     assert (r.score, r.cigar(False), r.q_end, r.t_begin, r.matches) == (
         o.score, o.cigar(False), o.q_end, o.t_begin, o.matches), (q, t)
 assert pipe.served["oracle"] == 0, pipe.served
-bound = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
-               or m.startswith("wfa_tpu.") and m.split(".")[1] in {bound!r})
-assert not bound, bound
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r})
+assert not loaded, loaded
 print("no-jax run ok")
 """
 
@@ -87,7 +83,109 @@ print("no-jax run ok")
 def test_main_path_runs_without_jax():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     r = subprocess.run(
-        [sys.executable, "-c", _NO_JAX_RUN.format(bound=set(JAX_BOUND))],
+        [sys.executable, "-c", _NO_JAX_RUN.format(blocked=set(BLOCKED))],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "no-jax run ok" in r.stdout
+
+
+ORACLE_FIELDS = ("score", "q_begin", "q_end", "t_begin", "t_end",
+                 "align_len", "matches", "gaps", "gap_regions")
+
+
+def _oracle_pairs():
+    """The goldens plus a seeded fuzz set of mixed lengths, error rates,
+    length differences and non-ACGT bytes."""
+    from wfa_tpu.io import read_pairs
+
+    pairs = [(b"AGCTAGTGTCAATGGCTACTTTTCAGGTCCT",
+              b"AACTAAGTGTCGGTGGCTACTATATATCAGGTCCT"),
+             (b"ACGATCTCG", b"CAGGCTCCTCGG"),
+             (b"Bioinformatics helps Biology",
+              b"We learn bioinformatics to help biologists")]
+    pairs += list(read_pairs(str(ROOT / "tests" / "data" / "seqs.txt")))[:3]
+    rng = random.Random(23)
+    for _ in range(24):
+        n = rng.randint(1, 120)
+        q = bytes(rng.choice(b"ACGT") for _ in range(n))
+        t = bytearray(q)
+        for _ in range(rng.randint(0, max(1, n // 6))):
+            pos = rng.randrange(len(t) + 1)
+            kind = rng.randrange(3)
+            if kind == 0 and pos < len(t):
+                t[pos] = rng.choice(b"ACGTN")
+            elif kind == 1 and pos < len(t):
+                del t[pos]
+            else:
+                t[pos:pos] = bytes([rng.choice(b"ACGT")])
+        pairs.append((q, bytes(t) or b"A"))
+    return pairs
+
+
+HOST_CASES = ["oracle-global-adaptive", "oracle-global-plain",
+              "oracle-semi-adaptive", "oracle-semi-plain", "generate_pairs",
+              "bucket_pairs", "native_pack"]
+
+
+@pytest.mark.parametrize("case", HOST_CASES)
+def test_host_layers_match_wfa_tpu(case):
+    """The port's copies of the host layers give what wfa_tpu's give:
+    oracle results (every field and the CIGAR), datagen pairs, buckets,
+    and the native 2-bit pack, byte for byte."""
+    import wfa_tpu
+    import wfa_tpu_torch
+
+    if case.startswith("oracle"):
+        _, mode, red = case.split("-")
+        res = []
+        for pkg in (wfa_tpu, wfa_tpu_torch):
+            ad = pkg.AdaptiveReductionOption(10, 50, 1) if red == "adaptive" \
+                else None
+            aligner = pkg.OracleAligner(pkg.Penalties(4, 6, 2),
+                                        pkg.Options(mode == "global"), ad)
+            res.append([aligner.align(q, t) for q, t in _oracle_pairs()])
+        for a, b in zip(*res):
+            assert a.cigar(False) == b.cigar(False)
+            assert a.cigar(True) == b.cigar(True)
+            for f in ORACLE_FIELDS:
+                assert getattr(a, f) == getattr(b, f), f
+    elif case == "generate_pairs":
+        from wfa_tpu import datagen as jd
+        from wfa_tpu_torch import datagen as td
+
+        for args in ((16, 300, 0.05, 42), (4, 2000, 0.2, 7), (3, 5, 1.0, 1)):
+            assert jd.generate_pairs(*args) == td.generate_pairs(*args)
+    elif case == "bucket_pairs":
+        from wfa_tpu import io as jio
+        from wfa_tpu_torch import io as tio
+
+        indexed = list(enumerate(_oracle_pairs()))
+        indexed += [(99, (b"A" * 5000, b"C" * 70))]
+        assert jio.bucket_pairs(indexed) == tio.bucket_pairs(indexed)
+    else:
+        from wfa_tpu import native as jn
+        from wfa_tpu_torch import native as tn
+
+        assert (tn.load() is None) == (jn.lib is None)
+        if jn.lib is None:
+            return
+        seqs = [q for q, _ in _oracle_pairs()[:12]] + [b"ACGTTGCA" * 40]
+        lens = np.array([len(s) for s in seqs], np.int32)
+        offs = np.arange(len(seqs), dtype=np.int32) * 3
+        L = 512
+        for off in (None, offs):
+            raw_j, pk_j = jn.build_and_pack(seqs, lens, off, L)
+            raw_t, pk_t = tn.build_and_pack(seqs, lens, off, L)
+            assert np.array_equal(raw_j, raw_t)
+            assert (pk_j is None) == (pk_t is None)
+            if pk_j is not None:
+                assert np.array_equal(pk_j, pk_t)
+            dj = jn.pack_direct(seqs, lens, off, L)
+            dt = tn.pack_direct(seqs, lens, off, L)
+            assert (dj is None) == (dt is None)
+            if dj is not None:
+                assert np.array_equal(dj, dt)
+        acgt = [s for s in seqs if set(s) <= set(b"ACGT")]
+        lens = np.array([len(s) for s in acgt], np.int32)
+        assert np.array_equal(jn.pack_direct(acgt, lens, None, L),
+                              tn.pack_direct(acgt, lens, None, L))

@@ -10,10 +10,10 @@ import random
 import pytest
 import torch
 
-from wfa_tpu import (AdaptiveReductionOption, EmptySeqError, Options,
-                     OracleAligner, Penalties)
+from wfa_tpu import AdaptiveReductionOption, Options, OracleAligner, Penalties
 from wfa_tpu.datagen import generate_pairs
 from wfa_tpu.io import read_pairs
+from wfa_tpu_torch import EmptySeqError  # the port raises its own
 from wfa_tpu_torch.engine import BatchAligner, DeviceResult
 from wfa_tpu_torch.pipeline import AlignmentPipeline, PipelineConfig
 
@@ -179,7 +179,10 @@ def test_guards_and_unported_modes():
     assert res[1].error is None and res[1].cigar(False) == "2I4M2I"
     assert BatchAligner(p, Options(False), ADAPTIVE).align_batch(
         [(b"ACGT", b"ACGA")])[0].score == res[1].score + 4
-    # reads over 4096 bases are not ported yet, in either mode
-    for pl in (pipe, semi):
-        with pytest.raises(NotImplementedError):
-            pl.align_all([(b"A" * 4097, b"A" * 4097)])
+    # global reads over 4096 bases align (the long-read engine); semi-
+    # global ones are not ported yet
+    long = [(b"A" * 4097, b"A" * 4097), (b"AC" * 2100, b"AG" + b"AC" * 2099)]
+    _assert_oracle(long, pipe.align_all(long), p, ADAPTIVE)
+    assert {e for _, _, e in pipe._engines} == {"auto", "long"}
+    with pytest.raises(NotImplementedError):
+        semi.align_all([(b"A" * 4097, b"A" * 4097)])

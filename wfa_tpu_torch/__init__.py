@@ -1,23 +1,26 @@
 """wfa_tpu_torch — the PyTorch / CUDA port of the batched WFA engine.
 
 The JAX package :mod:`wfa_tpu` is the reference; this package reproduces
-its global-alignment main path bit for bit on an NVIDIA H100:
+its global and semi-global paths bit for bit on an NVIDIA H100, and
+imports nothing of it:
 
 * :mod:`wfa_tpu_torch.engine`        — packing, seed rows, stop tables, the
-  lockstep plain score loop, output packing and :class:`BatchAligner`;
+  lockstep plain score loop and its value-rebased long-read form, output
+  packing and :class:`BatchAligner`;
 * :mod:`wfa_tpu_torch.kernel_engine` — kernel K1, the per-pair CUDA score
-  loop (``csrc/score_loop.cu``);
+  loop (``csrc/score_loop.cu``), and its long-read form K1-long;
 * :mod:`wfa_tpu_torch.device_backtrace` — kernel K2, the per-pair CUDA
   backtrace (``csrc/backtrace.cu``), and the token compaction;
 * :mod:`wfa_tpu_torch.pipeline`      — bucketing and the tier ladder.
 
-The JAX-free host layers (constants, oracle, cigar decode, io, datagen,
-native packer) are shared with :mod:`wfa_tpu` and re-exported here.
-Importing this package never imports JAX.
+The host layers (constants, oracle, backtrace, cigar decode, io, datagen,
+the native packer) are the port's own copies of the JAX package's and are
+re-exported here.  Importing this package imports neither JAX nor
+:mod:`wfa_tpu`.
 """
 
-from wfa_tpu.cigar import AlignmentResult
-from wfa_tpu.constants import (
+from .cigar import AlignmentResult
+from .constants import (
     MAX_SEQ_LEN,
     AdaptiveReductionOption,
     EmptySeqError,
@@ -25,7 +28,7 @@ from wfa_tpu.constants import (
     Penalties,
     SeqTooLongError,
 )
-from wfa_tpu.oracle import Aligner as OracleAligner
+from .oracle import Aligner as OracleAligner
 
 
 def __getattr__(name):

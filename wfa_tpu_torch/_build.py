@@ -1,8 +1,9 @@
 """Build and bind the port's CUDA kernels (``csrc/*.cu``).
 
-At first use, ``nvcc`` compiles every source into one shared library
-with a plain C interface for Hopper (``sm_90a``), in
-``wfa_tpu_torch/build/`` (git-ignored), and ``ctypes`` loads it.  The
+At first use, ``nvcc`` compiles every source (one process each, started
+together) and links them into one shared library with a plain C
+interface for Hopper (``sm_90a``), in ``wfa_tpu_torch/build/``
+(git-ignored), and ``ctypes`` loads it.  The
 library name carries a hash of the sources, so an edited kernel
 rebuilds.  Each C entry launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`launch` raises when that is not 0.
@@ -25,18 +26,19 @@ _PKG = Path(__file__).resolve().parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # C entry points: every pointer and the stream are c_void_p, every
 # scalar a c_int (ctypes would otherwise cut a pointer to 32 bits)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S, K, x, oe, e, reduce_on,
-    # min_wf_len, max_dist_diff, semi, win, out, aux, stream
-    "wfa_score_loop": [_P] * 5 + [_I] * 12 + [_P] * 4,
-    # aux, start_cell, k0, start_s, start_k, qlen, tlen, active0, B, S, K,
-    # x, oe, e, it_cap, token_shift, split, semi, tok0, buf, tail, stream
-    "wfa_backtrace": [_P] * 8 + [_I] * 10 + [_P] * 4,
+    # min_wf_len, max_dist_diff, mode, win, out, aux, aux_base, stream
+    "wfa_score_loop": [_P] * 5 + [_I] * 12 + [_P] * 5,
+    # aux, aux_base, start_cell, k0, start_s, start_k, qlen, tlen, active0,
+    # B, S, K, x, oe, e, it_cap, token_shift, split, semi, tok0, buf, tail,
+    # iters, stream
+    "wfa_backtrace": [_P] * 9 + [_I] * 10 + [_P] * 5,
 }
 
 _lib = None
@@ -66,15 +68,33 @@ def library() -> ctypes.CDLL:
     so = BUILD_DIR / f"libwfa_kernels_{digest.hexdigest()[:16]}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        build_seconds = time.perf_counter() - t0
-        build_log = r.stdout + r.stderr
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{build_log}")
-        os.replace(tmp, so)
+        # one nvcc per source, all at once, then one link
+        objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        try:
+            procs = [subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for src, obj in zip(sources, objs)]
+            build_log = "".join(p.communicate()[0] for p in procs)
+            failed = [p.returncode for p in procs if p.returncode != 0]
+            if failed:
+                raise RuntimeError(f"nvcc failed ({failed}):\n{build_log}")
+            r = subprocess.run(
+                [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                capture_output=True, text=True)
+            build_seconds = time.perf_counter() - t0
+            build_log += r.stdout + r.stderr
+            if r.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                                   f"{build_log}")
+            os.replace(tmp, so)
+        finally:
+            for path in (*objs, tmp):
+                path.unlink(missing_ok=True)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -6,10 +6,19 @@
 // as torch ops it would cost one launch per op per step, for up to
 // iter_capacity steps.  Here each thread walks its own pair to the end.
 //
+// Two aux forms: int32 cells (offset0 << 3 | tag) from the score loop, or
+// the long-read score loop's value-rebased int16 cells, whose found cells
+// hold offset0 - aux_base[b, s] + 1 (device_backtrace.py:327-331,
+// 379-383); read_aux is templated on the cell type and adds the base back.
+//
 // What bounds it on the card: one dependent 4-byte aux read per step
-// (an L2 or HBM latency, ~iter_capacity steps per pair).  One thread per
-// pair keeps a whole batch of those chains in flight, so the latency is
-// hidden across pairs rather than within one.
+// (an L2 or HBM latency, ~iter_capacity steps per pair; a rebased read
+// adds an independent base read).  One thread per pair keeps a whole batch
+// of those chains in flight, so the latency is hidden across pairs rather
+// than within one; a 64-pair long-read batch keeps only 64 in flight.
+// Every slot of buf is written, and iters[b] records the iterations the
+// pair ran (their maximum is the JAX loop's trip count, which the raw
+// non-compact output ships as its trim length).
 //
 // The step logic is an exact per-pair transcription of the JAX loop:
 // the tag of the cell stepped into is read one step late, from the same
@@ -39,27 +48,36 @@ struct AuxCell {
   bool found;
 };
 
-__device__ __forceinline__ AuxCell read_aux(const int32_t* __restrict__ aux,
+// One aux cell at (s, comp, k); `base` (int32[B, S]) is null for int32
+// cells and the per-row value base of rebased int16 cells.
+template <typename Cell>
+__device__ __forceinline__ AuxCell read_aux(const Cell* __restrict__ aux,
+                                            const int32_t* __restrict__ base,
                                             int S, int B, int K, int b,
                                             int k0, int s, int comp, int k) {
   int j = k - k0;
   AuxCell r{0, 0, false};
   if (s >= 0 && s < S && j >= 0 && j < K) {
     int cell = aux[((int64_t)(comp * S + s) * B + b) * K + j];
-    if (cell > 0) r = AuxCell{cell >> 3, cell & 7, true};
+    if (cell > 0) {
+      int off = cell >> 3;
+      if (base != nullptr) off += base[(int64_t)b * S + s] - 1;
+      r = AuxCell{off, cell & 7, true};
+    }
   }
   return r;
 }
 
-template <typename Tok>
+template <typename Tok, typename Cell>
 __global__ void backtrace_kernel(
-    const int32_t* __restrict__ aux, const int32_t* __restrict__ start_cell,
+    const Cell* __restrict__ aux, const int32_t* __restrict__ aux_base,
+    const int32_t* __restrict__ start_cell,
     const int32_t* __restrict__ k0s, const int32_t* __restrict__ start_s,
     const int32_t* __restrict__ start_k, const int32_t* __restrict__ qlen,
     const int32_t* __restrict__ tlen, const uint8_t* __restrict__ active0,
     int B, int S, int K, int x, int oe, int e, int it_cap, int shift,
     int split, int semi, Tok* __restrict__ tok0, Tok* __restrict__ buf,
-    Tok* __restrict__ tail) {
+    Tok* __restrict__ tail, int32_t* __restrict__ iters) {
   int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const int* code_of = kTag2Code[split];
@@ -87,7 +105,7 @@ __global__ void backtrace_kernel(
   int comp = 0;
   int it = 0;
   while (alive) {
-    AuxCell c = read_aux(aux, S, B, K, b, k0, s, comp, k);
+    AuxCell c = read_aux(aux, aux_base, S, B, K, b, k0, s, comp, k);
     if (pending) {
       if (c.found) tag = c.tag;
       else alive = false;
@@ -126,13 +144,14 @@ __global__ void backtrace_kernel(
     alive = step && v > 0 && h > 0 && it < it_cap - 1;
     ++it;
   }
+  iters[b] = it;  // the chase iterations this pair ran
   for (; it < it_cap; ++it) {
     buf[((int64_t)it * B + b) * 2] = 0;
     buf[((int64_t)it * B + b) * 2 + 1] = 0;
   }
   // the reference updates the tag before its loop check (wfa.go:915-920)
   if (pending) {
-    AuxCell c = read_aux(aux, S, B, K, b, k0, s, comp, k);
+    AuxCell c = read_aux(aux, aux_base, S, B, K, b, k0, s, comp, k);
     if (c.found) tag = c.tag;
   }
 
@@ -154,32 +173,58 @@ __global__ void backtrace_kernel(
   tail[(int64_t)b * 4 + 3] = tok_d;
 }
 
-}  // namespace
-
-extern "C" int wfa_backtrace(const int32_t* aux, const int32_t* start_cell,
-                             const int32_t* k0, const int32_t* start_s,
-                             const int32_t* start_k, const int32_t* qlen,
-                             const int32_t* tlen, const uint8_t* active0,
-                             int B, int S, int K, int x, int oe, int e,
-                             int it_cap, int token_shift, int split,
-                             int semi, void* tok0, void* buf, void* tail,
-                             void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <typename Tok>
+void launch_tok(const void* aux, const int32_t* aux_base,
+                const int32_t* start_cell, const int32_t* k0,
+                const int32_t* start_s, const int32_t* start_k,
+                const int32_t* qlen, const int32_t* tlen,
+                const uint8_t* active0, int B, int S, int K, int x, int oe,
+                int e, int it_cap, int token_shift, int split, int semi,
+                void* tok0, void* buf, void* tail, int32_t* iters,
+                cudaStream_t st) {
   const int threads = 128;
   const int blocks = (B + threads - 1) / threads;
+  Tok* t0 = static_cast<Tok*>(tok0);
+  Tok* bf = static_cast<Tok*>(buf);
+  Tok* tl = static_cast<Tok*>(tail);
+  if (aux_base != nullptr) {
+    backtrace_kernel<Tok, int16_t><<<blocks, threads, 0, st>>>(
+        static_cast<const int16_t*>(aux), aux_base, start_cell, k0, start_s,
+        start_k, qlen, tlen, active0, B, S, K, x, oe, e, it_cap, token_shift,
+        split, semi, t0, bf, tl, iters);
+  } else {
+    backtrace_kernel<Tok, int32_t><<<blocks, threads, 0, st>>>(
+        static_cast<const int32_t*>(aux), nullptr, start_cell, k0, start_s,
+        start_k, qlen, tlen, active0, B, S, K, x, oe, e, it_cap, token_shift,
+        split, semi, t0, bf, tl, iters);
+  }
+}
+
+}  // namespace
+
+// aux is int32[3, S, B, K] when aux_base is null, else the value-rebased
+// int16[3, S, B, K] with its bases int32[B, S]; iters is int32[B]
+extern "C" int wfa_backtrace(const void* aux, const int32_t* aux_base,
+                             const int32_t* start_cell, const int32_t* k0,
+                             const int32_t* start_s, const int32_t* start_k,
+                             const int32_t* qlen, const int32_t* tlen,
+                             const uint8_t* active0, int B, int S, int K,
+                             int x, int oe, int e, int it_cap,
+                             int token_shift, int split, int semi,
+                             void* tok0, void* buf, void* tail,
+                             int32_t* iters, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B > 0) {
     if (token_shift <= 12) {
-      backtrace_kernel<int16_t><<<blocks, threads, 0, st>>>(
-          aux, start_cell, k0, start_s, start_k, qlen, tlen, active0, B, S,
-          K, x, oe, e, it_cap, token_shift, split, semi,
-          static_cast<int16_t*>(tok0), static_cast<int16_t*>(buf),
-          static_cast<int16_t*>(tail));
+      launch_tok<int16_t>(aux, aux_base, start_cell, k0, start_s, start_k,
+                          qlen, tlen, active0, B, S, K, x, oe, e, it_cap,
+                          token_shift, split, semi, tok0, buf, tail, iters,
+                          st);
     } else {
-      backtrace_kernel<int32_t><<<blocks, threads, 0, st>>>(
-          aux, start_cell, k0, start_s, start_k, qlen, tlen, active0, B, S,
-          K, x, oe, e, it_cap, token_shift, split, semi,
-          static_cast<int32_t*>(tok0), static_cast<int32_t*>(buf),
-          static_cast<int32_t*>(tail));
+      launch_tok<int32_t>(aux, aux_base, start_cell, k0, start_s, start_k,
+                          qlen, tlen, active0, B, S, K, x, oe, e, it_cap,
+                          token_shift, split, semi, tok0, buf, tail, iters,
+                          st);
     }
   }
   return static_cast<int>(cudaGetLastError());

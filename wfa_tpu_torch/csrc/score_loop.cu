@@ -49,13 +49,40 @@
 //    stored seed rows while other pairs of their batch run (and may mark
 //    it done), but its results are discarded either way.
 //
+// Long-read mode (REBASE = true, global only): the port of the TPU kernel
+// wfa_tpu/pallas_longread.py::_kernel (168-845) as launched by its
+// pallas_run_batch (848-1010).  Extend, terminate, reduce and next are the
+// same code as above; only the aux store differs, so the two can never
+// drift.  The aux is value-rebased int16: per (pair, score) row the
+// minimum offset0 over the three planes' nonzero cells is the row's base,
+// each found cell stores (offset0 - base + 1) << 3 | tag (a stored 0 stays
+// "absent"), and the base goes to aux_base[b, s].  A row is final only
+// after its own reduce (next() of step s writes row s+1, the reduce of step
+// s+1 zeroes some of its cells), so the newest aux row of each plane is
+// staged as int32 in the per-pair scratch (3 K more ints), zeroed where
+// the reduce zeroes, and written rebased after that reduce; the
+// terminating row unreduced, at the break, as the TPU kernel streams it.
+// A rebased value above 4095 does not fit the int16 cell: the pair is
+// then reported overflowed (done = 0, final_s = term_cell = 0), so it
+// retries or goes to the oracle, where the TPU kernel relies on
+// wf-adaptive bounding a row's spread by about band + max_dist_diff.
+// What the TPU kernel adds for its layout is not carried over: the 64- and
+// 8-pair blocks, the stop tables with their per-8-pair-group VMEM windows
+// and the "outrun" overflow (560-653), the CH-chunk DMA.  K1 compares
+// sequence bytes, so nothing outruns: a pair the TPU kernel overflows for
+// an outrun is served here at tier 0.
+//
 // What bounds it: each step is a short chain of dependent L1/L2 reads
 // and block barriers per pair; K = 128 diagonals give one cell per
 // thread, and 2048 pairs fill the card's 132 SMs with ~16 blocks each.
 // Semi-global windows are the full span (K = 2048 at l = 1000), and every
 // pass strides over all K columns even after the band has collapsed to
 // tens of diagonals: the whole-window aux rows and window passes are its
-// cost.
+// cost.  Long reads: at l = 50000, e = 0.05 (s_cap ~27,520 at tier 0,
+// K = 384, final_s ~14,500) each pair is a serial chain of ~14,500 steps of
+// block barriers; the aux rows, 6 B x 14,500 x 384 x 64 pairs ~ 2.1 GB,
+// take ~0.64 ms at 3.35 TB/s, so the chain latency, not memory, sets the
+// time, and a 64-pair batch fills only 64 of the 132 SMs.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -67,6 +94,7 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kInsOpen = 1, kInsExt = 2, kDelOpen = 3, kDelExt = 4;
 constexpr int kMismatch = 5, kMatch = 6;
+constexpr int kMaxRebased = 4095;  // (v << 3) | tag must fit int16
 
 // Block-wide minimum of N values at once (a maximum passes its negation;
 // all values lie in [-kBig, kBig]).  Every thread gets the results.
@@ -127,14 +155,16 @@ __device__ __forceinline__ bool src(const int32_t* row, bool present, int lo,
   return true;
 }
 
-template <bool GLOBAL>
+// Cell: int32 aux cells, or the value-rebased int16 cells of REBASE mode
+template <bool GLOBAL, bool REBASE, typename Cell>
 __global__ void __launch_bounds__(kThreads) score_loop_kernel(
     const uint8_t* __restrict__ qb, const uint8_t* __restrict__ tbuf,
     const int32_t* __restrict__ qlen, const int32_t* __restrict__ tlen,
     const int32_t* __restrict__ toff, int B, int Lq, int Ltb, int S, int K,
     int x, int oe, int e, int reduce_on, int min_wf_len, int max_dist_diff,
     int32_t* __restrict__ win, int32_t* __restrict__ out,
-    int32_t* __restrict__ aux) {
+    Cell* __restrict__ aux, int32_t* __restrict__ aux_base) {
+  static_assert(GLOBAL || !REBASE, "the long-read mode is global only");
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int WM = max(x, oe) + 1, WE = e + 1;
@@ -149,11 +179,46 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
 
   const int ql = qlen[b], tl = tlen[b], tof = toff[b];
   const int k0 = -tof, Ak = tl - ql, jak = Ak - k0;
-  int32_t* Mw = win + (int64_t)b * (WM + 2 * WE) * K;
+  // per-pair scratch: the windows, then (REBASE) the three staged rows
+  int32_t* Mw = win + (int64_t)b * (WM + 2 * WE + (REBASE ? 3 : 0)) * K;
   int32_t* Iw = Mw + (int64_t)WM * K;
   int32_t* Dw = Iw + (int64_t)WE * K;
   auto aux_row = [&](int comp, int s) {
     return aux + ((int64_t)(comp * S + s) * B + b) * K;
+  };
+  // where seeding, reduce and next put a row's aux: the output row, or
+  // in REBASE mode the int32 staging rows after the I and D windows
+  int32_t* stage = Dw + (int64_t)WE * K;
+  auto aux_dst = [&](int comp, int s) -> int32_t* {
+    if constexpr (REBASE) return stage + (int64_t)comp * K;
+    else return reinterpret_cast<int32_t*>(aux_row(comp, s));
+  };
+  // REBASE: write the staged row s rebased; false when a value is too
+  // wide for the int16 cell
+  auto flush = [&](int s) {
+    int r[2] = {kBig, kBig};  // min offset0, -max offset0 of found cells
+    for (int j = tid; j < K; j += kThreads) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const int cell = stage[c * K + j];
+        if (cell > 0) {
+          r[0] = min(r[0], cell >> 3);
+          r[1] = min(r[1], -(cell >> 3));
+        }
+      }
+    }
+    block_min(r, red);
+    const int base = r[0] < kBig ? r[0] : 0;
+    for (int j = tid; j < K; j += kThreads) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const int cell = stage[c * K + j];
+        aux_row(c, s)[j] = static_cast<Cell>(
+            cell > 0 ? (((cell >> 3) - base + 1) << 3) | (cell & 7) : 0);
+      }
+    }
+    if (tid == 0) aux_base[(int64_t)b * S + s] = base;
+    return r[0] == kBig || -r[1] - base + 1 <= kMaxRebased;
   };
 
   // the window must hold the seed diagonals and the terminal one
@@ -191,6 +256,8 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
 
   for (int i = tid; i < WM * K; i += kThreads) Mw[i] = 0;
   for (int i = tid; i < WE * K; i += kThreads) Iw[i] = Dw[i] = 0;
+  if (REBASE)
+    for (int i = tid; i < 3 * K; i += kThreads) stage[i] = 0;
   __syncthreads();
   if constexpr (GLOBAL) {
     // ---- seeding (wfa.go:143-184): one cell, diagonal 0 at offset 1
@@ -207,9 +274,9 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
     }
     // aux row 0: seed cells have no sources, so their aux is the tag bits
     for (int j = tid; j < K; j += kThreads) {
-      aux_row(0, 0)[j] = (seed_row == 0 && j == j0) ? (cell0 & 7) : 0;
-      aux_row(1, 0)[j] = 0;
-      aux_row(2, 0)[j] = 0;
+      aux_dst(0, 0)[j] = (seed_row == 0 && j == j0) ? (cell0 & 7) : 0;
+      aux_dst(1, 0)[j] = 0;
+      aux_dst(2, 0)[j] = 0;
     }
   } else {
     // ---- semi-global seeding (wfa.go:163-183): k in [-(qlen-1), tlen-1],
@@ -228,9 +295,9 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
         Mw[(r ? x : 0) * K + j] = seed;  // x < WM
         if (r == 0) aux0 = seed & 7;
       }
-      aux_row(0, 0)[j] = aux0;
-      aux_row(1, 0)[j] = 0;
-      aux_row(2, 0)[j] = 0;
+      aux_dst(0, 0)[j] = aux0;
+      aux_dst(1, 0)[j] = 0;
+      aux_dst(2, 0)[j] = 0;
     }
     block_min(rs, red);
     // a mismatch seed beyond the score cap can never be reached
@@ -319,6 +386,12 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
       term_cell = cell_ak;
       // the terminating row is searched unreduced
       if (!GLOBAL && !end_found) find_end(s, row_m);
+      // and streamed unreduced
+      if (REBASE && !flush(s)) {
+        overflow = true;
+        done = false;
+        final_s = term_cell = 0;
+      }
       break;
     }
 
@@ -383,7 +456,7 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
         delete_range_asc(new_hi + 1, hi_ms, l1, h1, nlo[c], nhi[c], z[c][2],
                          z[c][3]);
       }
-      int32_t* aux_m = aux_row(0, s);
+      int32_t* aux_m = aux_dst(0, s);
       for (int j = tid; j < K; j += kThreads) {
         int k = k0 + j;
         int cell = row_m[j];
@@ -396,7 +469,7 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
           if (gate[c] && ((k >= z[c][0] && k <= z[c][1]) ||
                           (k >= z[c][2] && k <= z[c][3]))) {
             (c == 0 ? Iw : Dw)[(int64_t)se * K + j] = 0;
-            aux_row(1 + c, s)[j] = 0;
+            aux_dst(1 + c, s)[j] = 0;
           }
         }
       }
@@ -416,6 +489,11 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
     }
 
     if (!GLOBAL && !end_found) find_end(s, row_m);
+    // row s is final: stream it rebased
+    if (REBASE && !flush(s)) {
+      overflow = true;
+      break;
+    }
 
     // ---------------- next (wfa.go:549-700) ----------------
     const int s2 = s + 1;
@@ -449,9 +527,9 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
     int32_t* m_new = Mw + (int64_t)s2m * K;
     int32_t* i_new = Iw + (int64_t)s2e * K;
     int32_t* d_new = Dw + (int64_t)s2e * K;
-    int32_t* am_new = aux_row(0, s2);
-    int32_t* ai_new = aux_row(1, s2);
-    int32_t* ad_new = aux_row(2, s2);
+    int32_t* am_new = aux_dst(0, s2);
+    int32_t* ai_new = aux_dst(1, s2);
+    int32_t* ad_new = aux_dst(2, s2);
     // band reductions: min k and -max k of the written I, D, M cells
     int rb[6] = {kBig, kBig, kBig, kBig, kBig, kBig};
     for (int j = tid; j < K; j += kThreads) {
@@ -539,28 +617,37 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
 }  // namespace
 
 // out is int32[7, B]: final_s, done, overflow, term_cell, end_s, end_k,
-// end_cell; semi != 0 selects the semi-global instantiation
+// end_cell.  mode 0: global, int32 aux; 1: semi-global, int32 aux; 2: the
+// long-read mode, global with value-rebased int16 aux and its aux_base
+// int32[B, S] (null in the other modes)
 extern "C" int wfa_score_loop(const uint8_t* qb, const uint8_t* tbuf,
                               const int32_t* qlen, const int32_t* tlen,
                               const int32_t* toff, int B, int Lq, int Ltb,
                               int S, int K, int x, int oe, int e,
                               int reduce_on, int min_wf_len,
-                              int max_dist_diff, int semi, int32_t* win,
-                              int32_t* out, int32_t* aux, void* stream) {
+                              int max_dist_diff, int mode, int32_t* win,
+                              int32_t* out, void* aux, int32_t* aux_base,
+                              void* stream) {
   // dynamic shared memory: the reduction slots and the band slots.  Over
   // the 48 KB default (penalties near 4000) the launch fails and the
   // error is returned.
   const int WM = (x > oe ? x : oe) + 1, WE = e + 1;
   const int smem = (8 * kWarps + 3 * WM + 6 * WE) * (int)sizeof(int);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B > 0 && semi) {
-    score_loop_kernel<false><<<B, kThreads, smem, st>>>(
+  int32_t* aux32 = static_cast<int32_t*>(aux);
+  if (B > 0 && mode == 2) {
+    score_loop_kernel<true, true, int16_t><<<B, kThreads, smem, st>>>(
         qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S, K, x, oe, e, reduce_on,
-        min_wf_len, max_dist_diff, win, out, aux);
+        min_wf_len, max_dist_diff, win, out, static_cast<int16_t*>(aux),
+        aux_base);
+  } else if (B > 0 && mode == 1) {
+    score_loop_kernel<false, false, int32_t><<<B, kThreads, smem, st>>>(
+        qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S, K, x, oe, e, reduce_on,
+        min_wf_len, max_dist_diff, win, out, aux32, nullptr);
   } else if (B > 0) {
-    score_loop_kernel<true><<<B, kThreads, smem, st>>>(
+    score_loop_kernel<true, false, int32_t><<<B, kThreads, smem, st>>>(
         qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S, K, x, oe, e, reduce_on,
-        min_wf_len, max_dist_diff, win, out, aux);
+        min_wf_len, max_dist_diff, win, out, aux32, nullptr);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -26,7 +26,7 @@ import ctypes
 import numpy as np
 import torch
 
-from wfa_tpu.constants import (
+from .constants import (
     T_DEL_EXT,
     T_DEL_OPEN,
     T_INS_EXT,
@@ -105,14 +105,20 @@ def device_backtrace_plain(
     aux, start_cell, k0, start_s, start_k, qlen, tlen, active0, *,
     penalties, S: int, K: int, token_shift: int,
     split_ext_codes: bool = False, global_alignment: bool = True,
+    aux_base=None, return_iters: bool = False,
 ):
     """Plain PyTorch version of kernel K2.
 
-    ``aux`` is int32[3, S, B, K]; ``start_cell`` the raw M cell at
-    (start_s, start_k).  Returns (tok0 [B], buf [it_cap, B, 2],
+    ``aux`` is int32[3, S, B, K], or with ``aux_base`` (int32[B, S]) the
+    value-rebased int16[3, S, B, K] of the long-read score loop, whose
+    found cells hold ``offset0 - aux_base[b, s] + 1``
+    (wfa_tpu/device_backtrace.py:379-383); ``start_cell`` the raw M cell
+    at (start_s, start_k).  Returns (tok0 [B], buf [it_cap, B, 2],
     tail [B, 4]): op tokens in emission order tok0, buf[0], buf[1], ...,
-    tail, zero = empty slot, int16 when ``token_shift`` <= 12.  A
-    semi-global chase stops once it reaches the first row or column."""
+    tail, zero = empty slot, int16 when ``token_shift`` <= 12; with
+    ``return_iters`` also int32[B], the chase iterations each pair ran
+    (their maximum is the JAX loop's iteration count).  A semi-global
+    chase stops once it reaches the first row or column."""
     dev = aux.device
     B = qlen.shape[0]
     i32 = torch.int32
@@ -134,11 +140,15 @@ def device_backtrace_plain(
         """(offset0, tag, found) of the aux cell at (s, comp, k)."""
         j = k - k0
         ok = (s >= 0) & (s < S) & (j >= 0) & (j < K)
-        row = (comp.long() * S + s.clamp(0, S - 1).long()) * B + bidx
-        cell = flat[row, j.clamp(0, K - 1).long()]
+        sc = s.clamp(0, S - 1).long()
+        row = (comp.long() * S + sc) * B + bidx
+        cell = flat[row, j.clamp(0, K - 1).long()].to(i32)
         found = ok & (cell > 0)
         cell = torch.where(found, cell, 0)
-        return cell >> TYPE_BITS, cell & ((1 << TYPE_BITS) - 1), found
+        off = cell >> TYPE_BITS
+        if aux_base is not None:
+            off = torch.where(found, off - 1 + aux_base[bidx, sc], 0)
+        return off, cell & ((1 << TYPE_BITS) - 1), found
 
     # ---- start point (wfa.go:738-750); existence deliberately unchecked
     tag = start_cell & ((1 << TYPE_BITS) - 1)
@@ -159,8 +169,10 @@ def device_backtrace_plain(
     k = start_k.to(i32)
     comp = torch.full((B,), COMP_M, dtype=i32, device=dev)
     pending = torch.zeros(B, dtype=torch.bool, device=dev)
+    iters = torch.zeros(B, dtype=i32, device=dev)
     it = 0
     while bool(alive.any()):
+        iters += alive.to(i32)
         # ONE aux read: the tag of the cell stepped into last iteration
         # (wfa.go:915-920, deferred) and this cell's offset0
         offset0, tag_new, tag_ok = read_aux(s, comp, k)
@@ -226,6 +238,8 @@ def device_backtrace_plain(
     tok_c = torch.where(active0 & (v > 1), pack(CODE_H, (v - 1).clamp(min=0)), 0)
     tok_d = torch.where(active0 & (h > 1), pack(CODE_I, (h - 1).clamp(min=0)), 0)
     tail = torch.stack([tok_a, tok_b, tok_c, tok_d], dim=1).to(tok_dtype)
+    if return_iters:
+        return tok0, buf, tail, iters
     return tok0, buf, tail
 
 
@@ -233,6 +247,7 @@ def device_backtrace(
     aux, start_cell, k0, start_s, start_k, qlen, tlen, active0, *,
     penalties, S: int, K: int, token_shift: int,
     split_ext_codes: bool = False, global_alignment: bool = True,
+    aux_base=None, return_iters: bool = False,
 ):
     """Kernel K2 (same contract as :func:`device_backtrace_plain`).
 
@@ -245,38 +260,49 @@ def device_backtrace(
             aux, start_cell, k0, start_s, start_k, qlen, tlen, active0,
             penalties=penalties, S=S, K=K, token_shift=token_shift,
             split_ext_codes=split_ext_codes,
-            global_alignment=global_alignment)
+            global_alignment=global_alignment, aux_base=aux_base,
+            return_iters=return_iters)
     from ._build import check_inputs, launch, stream_ptr
 
     B = qlen.shape[0]
     i32 = torch.int32
+    rebased = aux_base is not None
     check_inputs("device_backtrace", aux.device,
-                 aux=(aux, i32, (3, S, B, K)),
+                 aux=(aux, torch.int16 if rebased else i32, (3, S, B, K)),
                  start_cell=(start_cell, i32, (B,)), k0=(k0, i32, (B,)),
                  start_s=(start_s, i32, (B,)), start_k=(start_k, i32, (B,)),
                  qlen=(qlen, i32, (B,)), tlen=(tlen, i32, (B,)),
                  active0=(active0, torch.bool, (B,)))
+    if rebased:
+        check_inputs("device_backtrace", aux.device,
+                     aux_base=(aux_base, i32, (B, S)))
     it_cap = iter_capacity(S, penalties)
     tok_dtype = _tok_dtype(token_shift)
     dev = aux.device
     tok0 = torch.empty(B, dtype=tok_dtype, device=dev)
     buf = torch.empty((it_cap, B, 2), dtype=tok_dtype, device=dev)
     tail = torch.empty((B, 4), dtype=tok_dtype, device=dev)
+    iters = torch.empty(B, dtype=i32, device=dev)
     p = penalties
     launch("wfa_backtrace",
-           aux, start_cell, k0, start_s, start_k, qlen, tlen, active0,
-           ctypes.c_int(B), ctypes.c_int(S), ctypes.c_int(K),
+           aux, aux_base, start_cell, k0, start_s, start_k, qlen, tlen,
+           active0, ctypes.c_int(B), ctypes.c_int(S), ctypes.c_int(K),
            ctypes.c_int(p.mismatch), ctypes.c_int(p.gap_open + p.gap_ext),
            ctypes.c_int(p.gap_ext), ctypes.c_int(it_cap),
            ctypes.c_int(token_shift), ctypes.c_int(int(split_ext_codes)),
-           ctypes.c_int(int(not global_alignment)), tok0, buf, tail,
+           ctypes.c_int(int(not global_alignment)), tok0, buf, tail, iters,
            stream_ptr(dev))
-    device_backtrace.launches["global" if global_alignment else "semi"] += 1
+    mode = ("long" if rebased
+            else "global" if global_alignment else "semi")
+    device_backtrace.launches[mode] += 1
+    if return_iters:
+        return tok0, buf, tail, iters
     return tok0, buf, tail
 
 
-# launches per mode of the kernel (global, semi-global)
-device_backtrace.launches = {"global": 0, "semi": 0}
+# launches per mode of the kernel (global, semi-global, and global over
+# the long-read score loop's value-rebased int16 aux)
+device_backtrace.launches = {"global": 0, "semi": 0, "long": 0}
 
 
 def compact_tokens_flat_u8(tok0, buf, tail, token_shift: int,

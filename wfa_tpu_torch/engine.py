@@ -4,12 +4,17 @@ The main path, global or semi-global: host pack -> upload ->
 ``_unpack2`` -> kernel K1 (``kernel_engine.run_batch``, the per-pair CUDA
 score loop, with its fused end finder in semi-global mode) -> kernel K2
 (``device_backtrace.device_backtrace``) from the end K1 reports -> token
-compaction -> meta bytes -> host decode in :class:`DeviceResult`.
+compaction -> meta bytes -> host decode in :class:`DeviceResult`.  Long
+global reads may take K1-long instead (``engine="long"``,
+``kernel_engine.run_batch_long``: value-rebased int16 aux plus per-row
+bases), which K2 reads with those bases.
 
 ``run_batch_plain`` is the plain PyTorch version of K1: a lockstep
 transcription of the JAX engine's ``_run_batch_impl`` that extends through
 the precomputed stop tables (``_stop_tables``), while K1 compares sequence
 bytes directly, so the two extension mechanisms check each other.
+``run_batch_long_plain`` is K1-long's: the same loop, its aux rebased
+afterwards.
 
 Cells keep the reference encoding ``offset << 3 | tag`` (0 = absent), and
 every tensor that leaves a function has the JAX function's layout, so the
@@ -25,8 +30,9 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from wfa_tpu.cigar import AlignmentResult
-from wfa_tpu.constants import (
+from . import native
+from .cigar import AlignmentResult
+from .constants import (
     MAX_SEQ_LEN,
     T_DEL_EXT,
     T_DEL_OPEN,
@@ -41,14 +47,17 @@ from wfa_tpu.constants import (
     Penalties,
     SeqTooLongError,
 )
-from wfa_tpu.oracle import Aligner as OracleAligner
+from .oracle import Aligner as OracleAligner
 
 _BIG = 1 << 30
 _I32 = torch.int32
 
-# longest read of the ported path; longer reads need the long-read kernel
-# (ROADMAP.md queue 1, item 9)
+# longest semi-global read of the ported path; longer ones need the
+# two-phase route (ROADMAP.md queue 1, item 10).  Global reads take any
+# length up to MAX_SEQ_LEN.
 MAX_PORT_LEN = 4096
+# largest rebased offset an int16 aux cell of the long-read mode holds
+MAX_REBASED = 4095
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,16 +174,15 @@ def _pack_all(pairs: Sequence[Tuple[bytes, bytes]], k_win: int,
     Lq = _pad_len(int(qlen.max()))
     Ltb = _pad_len(max(int((toff + tlen).max()), 1))
 
-    from wfa_tpu import native
-
     qs = [q for q, _ in pairs]
     ts = [t for _, t in pairs]
-    if native.lib is not None and not need_raw:
+    lib = native.load()
+    if lib is not None and not need_raw:
         qp = native.pack_direct(qs, qlen, None, Lq)
         tp = native.pack_direct(ts, tlen, toff, Ltb) if qp is not None else None
         if tp is not None:
             return None, None, qlen, tlen, toff, Lq, Ltb, qp, tp
-    if native.lib is not None:
+    if lib is not None:
         qb, qp = native.build_and_pack(qs, qlen, None, Lq)
         tbuf, tp = native.build_and_pack(ts, tlen, toff, Ltb)
         if qp is None or tp is None:
@@ -659,37 +667,104 @@ def run_batch_plain(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig,
     return final_s, done, overflow, term_cell, aux, end
 
 
+def rebase_aux(aux):
+    """Value-rebase an int32 aux tensor [3, S, B, K] per (score, pair)
+    row, as the long-read TPU kernel streams it
+    (wfa_tpu/pallas_longread.py:754-791): the row's base is the minimum
+    offset0 over the three planes' nonzero cells (0 for an empty row), and
+    each nonzero cell becomes ((offset0 - base + 1) << 3 | tag), so a
+    stored 0 still means absent.  Returns (aux int16[3, S, B, K],
+    aux_base int32[B, S], wide bool[S, B]): ``wide`` marks rows with a
+    rebased value above :data:`MAX_REBASED`, whose int16 cells wrapped.
+    One plane at a time, so the temporaries stay a third of ``aux``."""
+    base = torch.full(aux.shape[1:3], _BIG, dtype=_I32, device=aux.device)
+    for plane in aux:
+        base = torch.minimum(base, torch.where(
+            plane > 0, plane >> TYPE_BITS, _BIG).amin(dim=2))  # [S, B]
+    base = torch.where(base >= _BIG, 0, base)
+    out = torch.empty(aux.shape, dtype=torch.int16, device=aux.device)
+    wide = torch.zeros(aux.shape[1:3], dtype=torch.bool, device=aux.device)
+    for plane, dst in zip(aux, out):
+        nz = plane > 0
+        v = (plane >> TYPE_BITS) - base[:, :, None] + 1
+        wide |= (nz & (v > MAX_REBASED)).any(dim=2)
+        dst.copy_(torch.where(nz, (v << TYPE_BITS) | (plane & 7), 0))
+    return out, base.t().contiguous(), wide
+
+
+def run_batch_long_plain(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig,
+                         Lq: int, Ltb: int):
+    """Plain PyTorch version of K1-long (``kernel_engine.run_batch_long``),
+    the port of ``wfa_tpu.pallas_longread.pallas_run_batch``: the score
+    loop of :func:`run_batch_plain` (global alignment), its aux rebased by
+    :func:`rebase_aux`.
+
+    Returns (final_s int32[B], done bool[B], overflow bool[B],
+    term_cell int32[B], aux int16[3, S, B, K], aux_base int32[B, S]), the
+    JAX layout without its block padding.  A done pair with a row
+    <= final_s too wide for int16 cells is reported overflowed instead
+    (done 0, final_s and term_cell 0), as K1-long reports it."""
+    if not cfg.global_alignment:
+        raise ValueError("the long-read score loop is global only")
+    final_s, done, overflow, term_cell, aux, _ = run_batch_plain(
+        qb, tbuf, qlen, tlen, toff, cfg=cfg, Lq=Lq, Ltb=Ltb)
+    aux16, aux_base, wide = rebase_aux(aux)
+    del aux
+    rows = torch.arange(cfg.s_cap, device=qb.device)[:, None]
+    bad = (done & ~overflow
+           & (wide & (rows <= final_s[None, :])).any(dim=0))
+    return (torch.where(bad, 0, final_s), done & ~bad, overflow | bad,
+            torch.where(bad, 0, term_cell), aux16, aux_base)
+
+
 # ---------------------------------------------------------------------------
 # backtrace, compaction and the byte stream the host decodes
 
 
 def _finish_outputs(aux, start_cell, k0, start_s, start_k, qlen, tlen, done,
                     overflow, *, cfg: EngineConfig, Lq: int, Ltb: int,
-                    edit: bool):
-    """Backtrace (kernel K2), token compaction and the meta header:
-    ``{"mtb": uint8, "lg": int16/int32}``, byte-identical to the
-    ``compact and flat`` branch of ``wfa_tpu.engine._finish_outputs``, so
-    ``DeviceResult`` decodes it as ``wfa_tpu.cigar`` would.  The token
-    stream is edit-only when ``edit``, else full."""
+                    edit: bool, aux_base=None):
+    """Backtrace (kernel K2), token compaction and the meta header, equal
+    to ``wfa_tpu.engine._finish_outputs(..., flat=True)``.  ``aux_base``
+    marks the long-read score loop's value-rebased int16 aux.
+
+    When ``_token_plan`` calls the stream compact: ``{"mtb": uint8,
+    "lg": int16/int32}``, byte-identical to JAX's ``compact and flat``
+    branch, edit-only when ``edit``, else full.  Otherwise the raw
+    ``{"meta", "tok0", "buf", "tail"}`` (engine.py:1386-1388): a full
+    stream, never edit-only (engine.py:1324), whose meta trim column is
+    the chase's iteration count; :func:`assemble_raw` joins it on the
+    host."""
     from .device_backtrace import (compact_tokens_flat_u8, device_backtrace,
                                    iter_capacity)
 
     S, K = cfg.s_cap, cfg.k_win
     token_shift, compact = _token_plan(S, cfg.penalties, Lq, Ltb)
-    if not compact:
-        raise NotImplementedError(
-            f"s_cap={S}: token streams over 2**16 slots are not ported")
-    tok0, buf, tail = device_backtrace(
+    edit = edit and compact
+    bt = device_backtrace(
         aux, start_cell, k0, start_s, start_k, qlen, tlen, done & ~overflow,
         penalties=cfg.penalties, S=S, K=K, token_shift=token_shift,
-        split_ext_codes=edit, global_alignment=cfg.global_alignment)
+        split_ext_codes=edit, global_alignment=cfg.global_alignment,
+        aux_base=aux_base, return_iters=not compact)
+    tok0, buf, tail = bt[:3]
+    ns_cap = 2 * iter_capacity(S, cfg.penalties) + 5
+    meta16 = max(Lq + Ltb, S, ns_cap) <= 32000
+    if not compact:
+        iters = bt[3]
+        # the JAX loop's trip count: the most iterations any pair ran
+        it_used = (iters.amax() if iters.numel()
+                   else torch.zeros((), dtype=_I32, device=iters.device))
+        zeros = torch.zeros_like(start_s, dtype=_I32)
+        meta = torch.stack([start_s.to(_I32), overflow.to(_I32),
+                            zeros + it_used, zeros], dim=1)
+        return {"meta": meta.to(torch.int16) if meta16 else meta,
+                "tok0": tok0, "buf": buf, "tail": tail}
     # an edit-only stream drops the match runs; the host rebuilds them
     bytes_flat, longs_flat, n_tok, n_long = compact_tokens_flat_u8(
         tok0, buf, tail, token_shift, drop_m=edit)
     meta = torch.stack([start_s.to(_I32), overflow.to(_I32), n_tok, n_long],
                        dim=1)
-    ns_cap = 2 * iter_capacity(S, cfg.penalties) + 5
-    mb = 2 if max(Lq + Ltb, S, ns_cap) <= 32000 else 4
+    mb = 2 if meta16 else 4
     # little-endian bytes of each column; a logical shift, so widen first
     # (torch's >> on int32 is arithmetic)
     m64 = meta.long() & 0xFFFFFFFF
@@ -699,17 +774,22 @@ def _finish_outputs(aux, start_cell, k0, start_s, start_k, qlen, tlen, done,
 
 
 def align_full2(seq, lens, *, cfg: EngineConfig, B: int, Lq: int, Ltb: int,
-                packed: bool = False, edit: Optional[bool] = None):
+                packed: bool = False, edit: Optional[bool] = None,
+                engine: str = "auto"):
     """Full alignment of an uploaded batch, the port of
     ``wfa_tpu.engine._align_full2(..., flat=True)``: ``seq`` is the query
     and target byte matrices side by side (2-bit packed when ``packed``),
-    ``lens`` is int32[B, 3] (qlen, tlen, toff).  Score loop (K1) ->
-    backtrace (K2) from the end K1 reports -> compaction; returns
-    ``{"mtb", "lg"}``, plus ``"final_s"`` (int32[B]) in semi-global mode:
-    the score at which each pair reached its global end, where K1 stops,
-    which lies above its semi-global score.  ``edit`` picks the token
-    stream (default :func:`edit_only`)."""
-    from .kernel_engine import run_batch
+    ``lens`` is int32[B, 3] (qlen, tlen, toff).  Score loop -> backtrace
+    (K2) from the end the score loop reports -> compaction; returns
+    :func:`_finish_outputs`' dict, plus ``"final_s"`` (int32[B]) in
+    semi-global mode: the score at which each pair reached its global end,
+    where K1 stops, which lies above its semi-global score.  ``edit``
+    picks the token stream (default :func:`edit_only`).
+
+    ``engine`` "auto" runs K1; "long" runs K1-long (global only, JAX's
+    ``engine="pallas_long"``, engine.py:1247-1266) and K2 over its
+    rebased aux from (final_s, Ak, term_cell)."""
+    from .kernel_engine import run_batch, run_batch_long
 
     qw = Lq // 4 if packed else Lq
     qb, tbuf = seq[:, :qw], seq[:, qw:]
@@ -717,12 +797,18 @@ def align_full2(seq, lens, *, cfg: EngineConfig, B: int, Lq: int, Ltb: int,
     if packed:
         qb = _unpack2(qb, Lq, torch.zeros_like(qlen), qlen)
         tbuf = _unpack2(tbuf, Ltb, toff, toff + tlen)
+    args = (qb.contiguous(), tbuf.contiguous(), qlen, tlen, toff)
+    edit = edit_only(cfg) if edit is None else edit
+    if engine == "long":
+        final_s, done, overflow, term_cell, aux, aux_base = run_batch_long(
+            *args, cfg=cfg, Lq=Lq, Ltb=Ltb)
+        return _finish_outputs(aux, term_cell, -toff, final_s, tlen - qlen,
+                               qlen, tlen, done, overflow, cfg=cfg, Lq=Lq,
+                               Ltb=Ltb, edit=edit, aux_base=aux_base)
     final_s, done, overflow, _, aux, (end_s, end_k, end_cell) = run_batch(
-        qb.contiguous(), tbuf.contiguous(), qlen, tlen, toff, cfg=cfg, Lq=Lq,
-        Ltb=Ltb)
+        *args, cfg=cfg, Lq=Lq, Ltb=Ltb)
     out = _finish_outputs(aux, end_cell, -toff, end_s, end_k, qlen, tlen,
-                          done, overflow, cfg=cfg, Lq=Lq, Ltb=Ltb,
-                          edit=edit_only(cfg) if edit is None else edit)
+                          done, overflow, cfg=cfg, Lq=Lq, Ltb=Ltb, edit=edit)
     if not cfg.global_alignment:
         out["final_s"] = final_s
     return out
@@ -751,28 +837,24 @@ def decode_outputs(pairs, mtb: np.ndarray, lg: np.ndarray):
     return meta, [toks[a:z] for a, z in zip([0] + el[:-1], el)]
 
 
-def decode_tokens(toks: np.ndarray) -> List[Tuple[str, int]]:
-    """Ops of a full token stream (match runs included) in final order:
-    the nonzero tokens reversed, the split extension codes 5 -> I and
-    6 -> D normalised (``wfa_tpu.cigar``'s decode of a non-tuple
-    stream)."""
-    from .device_backtrace import OP_CHARS
-
-    shift = 12 if toks.dtype == np.int16 else 28
-    mask = (1 << shift) - 1
-    return [(OP_CHARS[c] if c < len(OP_CHARS)
-             else "I" if c == 5 else "D" if c == 6 else ".", int(tk & mask))
-            for tk in toks[toks != 0][::-1]
-            for c in (int(tk) >> shift,)]
+def assemble_raw(pairs, out) -> tuple:
+    """(meta int32[B, 4], per-pair token rows) of a fetched raw output
+    ``{"meta", "tok0", "buf", "tail"}``: each row is tok0, buf[0], buf[1],
+    ..., tail with zeros for empty slots, as
+    ``wfa_tpu.engine.BatchAligner._finish`` joins it (engine.py:2114-2125).
+    """
+    tok0, buf, tail = (out[k].cpu().numpy() for k in ("tok0", "buf", "tail"))
+    B = tok0.shape[0]
+    toks = np.concatenate(
+        [tok0[:, None], np.transpose(buf, (1, 0, 2)).reshape(B, -1), tail],
+        axis=1)
+    return out["meta"].cpu().numpy().astype(np.int32), list(toks[:len(pairs)])
 
 
 class DeviceResult(AlignmentResult):
     """An :class:`AlignmentResult` made from a pair's token stream,
-    decoded lazily on first access like ``from_device`` results.  The
-    base class's decode imports its op table from the JAX-bound
-    ``wfa_tpu.device_backtrace``; this one decodes the same streams
-    without it: an edit-only stream ((toks, q, t)) through
-    ``_decode_edit_tokens``, a full one through :func:`decode_tokens`.
+    decoded lazily on first access (:meth:`AlignmentResult.process`:
+    an edit-only stream ``(toks, q, t)`` or a full one).
 
     ``final_s`` (set by :meth:`BatchAligner.finish_batch`) is the score at
     which K1 stopped the pair: its score in global mode, the cost of its
@@ -780,44 +862,33 @@ class DeviceResult(AlignmentResult):
 
     __slots__ = ("final_s",)
 
-    def process(self) -> None:
-        if self._processed or self._raw_tokens is None:
-            return super().process()
-        if isinstance(self._raw_tokens, tuple):
-            toks, q, t = self._raw_tokens
-            decoded = self._decode_edit_tokens(toks, q, t)
-        else:
-            decoded = decode_tokens(self._raw_tokens)
-        ops: List[Tuple[str, int]] = []
-        for op, n in decoded:
-            if ops and ops[-1][0] == op:
-                ops[-1] = (op, ops[-1][1] + n)
-            else:
-                ops.append((op, n))
-        self._raw_tokens = None
-        self._ops = ops
-        self._processed = True
-        self._derive_from_ops()
-
 
 class BatchAligner:
-    """Batched aligner on one device: pack -> K1 -> K2 -> decode.
+    """Batched aligner on one device: pack -> K1 (or K1-long) -> K2 ->
+    decode.
 
-    Pairs whose band or score leaves the configured windows are aligned
-    by the exact host oracle (``fallback=True``) or returned as None, so
-    a pipeline can retry them with larger caps.
+    Pairs whose band or score leaves the configured windows (or, on
+    K1-long, whose aux rows are too wide for int16 cells) are aligned by
+    the exact host oracle (``fallback=True``) or returned as None, so a
+    pipeline can retry them with larger caps.  ``engine`` "auto" runs K1,
+    "long" K1-long (global alignment only; the JAX package's
+    ``"pallas_long"``).
     """
 
     def __init__(self, penalties: Penalties = Penalties(),
                  options: Options = Options(),
                  adaptive: Optional[AdaptiveReductionOption] = None,
-                 k_win: int = 128, s_cap: int = 256, device="cpu") -> None:
+                 k_win: int = 128, s_cap: int = 256, device="cpu",
+                 engine: str = "auto") -> None:
         if adaptive is not None and adaptive.min_wf_len == 0:
             # constructor-path twin of the attach check (wfa.go:134-137)
             raise ValueError("cutoff step should not be 0")
+        if engine not in ("auto", "long"):
+            raise ValueError(f"unknown engine {engine!r}")
         self.cfg = EngineConfig(penalties=penalties,
                                 global_alignment=options.global_alignment,
                                 adaptive=adaptive, k_win=k_win, s_cap=s_cap)
+        self.engine = engine
         self.device = torch.device(device)
         self._oracle = OracleAligner(penalties, options, adaptive)
 
@@ -839,10 +910,14 @@ class BatchAligner:
         :meth:`finish_batch`.  The launches are asynchronous."""
         pairs = list(pairs)
         longest = max(max(len(q), len(t)) for q, t in pairs)
-        if longest > MAX_PORT_LEN:
+        ga = self.cfg.global_alignment
+        if not ga and longest > MAX_PORT_LEN:
             raise NotImplementedError(
-                f"reads longer than {MAX_PORT_LEN} are not ported yet "
-                "(ROADMAP.md queue 1, item 9)")
+                f"semi-global reads longer than {MAX_PORT_LEN} are not "
+                "ported yet (ROADMAP.md queue 1, item 10)")
+        if self.engine == "long" and not ga:
+            # as pallas_longread.supports refuses semi-global
+            raise ValueError("engine='long' runs global alignment only")
         qb, tbuf, qlen, tlen, toff, Lq, Ltb, qp, tp = _pack_all(
             pairs, self.cfg.k_win, need_raw=False,
             global_alignment=self.cfg.global_alignment)
@@ -855,7 +930,7 @@ class BatchAligner:
         out = align_full2(torch.from_numpy(seq).to(dev),
                           torch.from_numpy(lens).to(dev), cfg=self.cfg,
                           B=len(pairs), Lq=Lq, Ltb=Ltb, packed=packed,
-                          edit=edit)
+                          edit=edit, engine=self.engine)
         return pairs, out, edit
 
     def finish_batch(self, handle, fallback: bool = True
@@ -863,8 +938,12 @@ class BatchAligner:
         """Fetch a submitted batch and build its results (op decoding is
         lazy, on first access)."""
         pairs, out, edit = handle
-        meta, toks = decode_outputs(pairs, out["mtb"].cpu().numpy(),
-                                    out["lg"].cpu().numpy())
+        if "meta" in out:  # raw full streams (never edit-only)
+            meta, toks = assemble_raw(pairs, out)
+            edit = False
+        else:
+            meta, toks = decode_outputs(pairs, out["mtb"].cpu().numpy(),
+                                        out["lg"].cpu().numpy())
         scores = meta[:, M_SCORE].tolist()
         final = (out["final_s"].cpu().tolist() if "final_s" in out
                  else scores)

@@ -6,7 +6,10 @@ Pairs are grouped into length classes and run through the batched
 engine with economical window caps; pairs whose band or score overflows
 retry with larger caps (tiers 0-2), and the rest fall to the exact host
 oracle.  Results come back in input order and equal the oracle's
-whichever tier served them.
+whichever tier served them.  Global, wf-adaptive buckets of reads longer
+than 4096 bases run K1-long (engine "long", value-rebased int16 aux) at
+the tier-0 window on every tier, as ``wfa_tpu.pipeline`` routes them to
+its long-read kernel.
 """
 
 from __future__ import annotations
@@ -14,16 +17,18 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from wfa_tpu.cigar import AlignmentResult
-from wfa_tpu.constants import (MAX_SEQ_LEN, AdaptiveReductionOption,
-                               EmptySeqError, Options, Penalties,
-                               SeqTooLongError)
-from wfa_tpu.io import bucket_pairs
-from wfa_tpu.oracle import Aligner as OracleAligner
-
+from .cigar import AlignmentResult
+from .constants import (MAX_SEQ_LEN, AdaptiveReductionOption, EmptySeqError,
+                        Options, Penalties, SeqTooLongError)
 from .device_backtrace import iter_capacity
 from .engine import BatchAligner, EngineConfig
+from .io import bucket_pairs
 from .kernel_engine import scratch_ints
+from .oracle import Aligner as OracleAligner
+
+# reads longer than this keep the tier-0 window on every tier and, when
+# global and wf-adaptive, run K1-long (wfa_tpu/pipeline.py:133-141, 207-215)
+LONG_READ = 4096
 
 
 def _round_up(n: int, mult: int) -> int:
@@ -45,13 +50,24 @@ class PipelineConfig:
     mem_budget: int = 16 << 30
 
 
-def batch_bytes_per_pair(cfg: EngineConfig, longest: int) -> int:
+def aux_cell_bytes(engine: str) -> int:
+    """Bytes of one [3, S, K] aux cell triple: int32 cells on K1, the
+    value-rebased int16 cells of K1-long."""
+    return 6 if engine == "long" else 12
+
+
+def batch_bytes_per_pair(cfg: EngineConfig, longest: int,
+                         engine: str = "auto") -> int:
     """Device bytes one pair of a batch allocates on the main path: the
-    int32 aux [3, S, K] cells and window scratch of K1, the token buffers
-    and compaction temporaries of K2 (~40 B per emission slot), and the
-    sequence rows."""
+    aux [3, S, K] cells (plus K1-long's int32 row bases) and window
+    scratch of the score loop, the token buffers and compaction
+    temporaries of K2 (~40 B per emission slot), and the sequence
+    rows."""
+    long = engine == "long"
     ns = 2 * iter_capacity(cfg.s_cap, cfg.penalties) + 5
-    return (12 * cfg.s_cap * cfg.k_win + 4 * scratch_ints(cfg) + 40 * ns
+    return (aux_cell_bytes(engine) * cfg.s_cap * cfg.k_win
+            + (4 * cfg.s_cap if long else 0)
+            + 4 * scratch_ints(cfg, long) + 40 * ns
             + 4 * (2 * longest + cfg.k_win))
 
 
@@ -61,7 +77,7 @@ class AlignmentPipeline:
     def __init__(self, cfg: PipelineConfig) -> None:
         self.cfg = cfg
         self._oracle = OracleAligner(cfg.penalties, cfg.options, cfg.adaptive)
-        self._engines: Dict[Tuple[int, int], BatchAligner] = {}
+        self._engines: Dict[Tuple[int, int, str], BatchAligner] = {}
         # adaptive score-cap memory: bucket class -> max final score
         # (``DeviceResult.final_s``) seen in the most recent align_all that
         # completed pairs there
@@ -71,8 +87,8 @@ class AlignmentPipeline:
         self.served: Dict[object, int] = {}
 
     def _tier_caps(self, lq: int, lt: int, tier: int, skey=None):
-        """(k_win, s_cap, b_cap) for a bucket class and tier.  ``skey``
-        names the bucket for the adaptive score-cap memory."""
+        """(k_win, s_cap, b_cap, engine) for a bucket class and tier.
+        ``skey`` names the bucket for the adaptive score-cap memory."""
         cfg = self.cfg
         full_span = _round_up(lq + lt - 1 + 2, 128)
         longest = max(lq, lt)
@@ -88,12 +104,19 @@ class AlignmentPipeline:
             drift = int(0.75 * longest ** 0.5)
             k_win = min(full_span,
                         _round_up(max(cfg.k_win_base, band + drift), 128))
-            if tier == 1:
-                k_win = min(full_span, 4 * k_win)
-            elif tier == 2:
-                k_win = full_span
+            # long reads keep the tier-0 window: their retries raise only
+            # the score cap (the path's diagonal drifts like a random walk)
+            if longest <= LONG_READ:
+                if tier == 1:
+                    k_win = min(full_span, 4 * k_win)
+                elif tier == 2:
+                    k_win = full_span
         else:
             k_win = full_span
+        engine = ("long" if (cfg.options.global_alignment
+                             and cfg.adaptive is not None
+                             and longest > LONG_READ and k_win <= 512)
+                  else "auto")
         p = cfg.penalties
         worst = (p.mismatch * longest + p.gap_open
                  + p.gap_ext * (abs(lq - lt) + 1) + 2)
@@ -106,22 +129,24 @@ class AlignmentPipeline:
         s_cap = (s1, 3 * s1, _round_up(worst + 2, 8))[tier]
         s_cap = min(s_cap, _round_up(worst + 2, 8))
         # one pair's aux must fit the budget
-        s_cap = max(8, min(s_cap, (cfg.mem_budget // (12 * k_win)) // 8 * 8))
+        cell = aux_cell_bytes(engine)
+        s_cap = max(8, min(s_cap, (cfg.mem_budget // (cell * k_win)) // 8 * 8))
         per_pair = batch_bytes_per_pair(
             EngineConfig(penalties=p,
                          global_alignment=cfg.options.global_alignment,
                          adaptive=cfg.adaptive, k_win=k_win, s_cap=s_cap),
-            longest)
+            longest, engine)
         b_cap = max(1, min(8192, cfg.mem_budget // per_pair))
-        return k_win, s_cap, b_cap
+        return k_win, s_cap, b_cap, engine
 
-    def _engine(self, k_win: int, s_cap: int) -> BatchAligner:
-        eng = self._engines.get((k_win, s_cap))
+    def _engine(self, k_win: int, s_cap: int, engine: str) -> BatchAligner:
+        key = (k_win, s_cap, engine)
+        eng = self._engines.get(key)
         if eng is None:
             eng = BatchAligner(self.cfg.penalties, self.cfg.options,
                                self.cfg.adaptive, k_win=k_win, s_cap=s_cap,
-                               device=self.cfg.device)
-            self._engines[(k_win, s_cap)] = eng
+                               device=self.cfg.device, engine=engine)
+            self._engines[key] = eng
         return eng
 
     def align_all(self, pairs: Sequence[Tuple[bytes, bytes]]
@@ -160,8 +185,8 @@ class AlignmentPipeline:
                     nxt[key] = items
                     continue
                 prev_caps[key] = caps
-                k_win, s_cap, b_cap = caps
-                eng = self._engine(k_win, s_cap)
+                k_win, s_cap, b_cap, engine = caps
+                eng = self._engine(k_win, s_cap, engine)
                 bs = min(self.cfg.batch_size, b_cap)
                 chunks = [items[i:i + bs] for i in range(0, len(items), bs)]
                 mx = score_seen.get(key, -1)
