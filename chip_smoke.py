@@ -11,23 +11,36 @@ spaced results of each against the port's exact oracle:
 
 * global: 32768 pairs of l=1000, e=0.05, gap-affine 4/6/2, wf-adaptive
   10/50/1, kernels checked on 2048-pair batches;
-* semi-global: 8192 pairs of l=1000 and 1024 pairs of l=200, e=0.05,
-  4/6/2, 10/50/1, kernels checked in their semi-global mode on 256 pairs
-  of l=1000 (the plain version needs ~20 GB at more) and on the 1024
-  pairs of l=200;
+* semi-global l=200: 1024 pairs, e=0.05, 4/6/2, 10/50/1, on K1's
+  semi-global mode at the full span (512 diagonals), K1-semi and K2
+  checked on those pairs; K1-semi is also checked on 256 pairs of l=1000
+  at the full span (2048), the shape of the A/B below;
+* two-phase semi-global (the route of every semi-global wf-adaptive
+  bucket whose full span passes 512 diagonals): 8192 pairs of l=1000 and
+  64 pairs of l=10000 (bench.py's two rows, bench.py:183-189), e=0.05,
+  4/6/2, 10/50/1.  K3 (phase 1), K4 (phase 2) and K2 over both aux
+  tensors are checked on the very batches each path gives them (its first
+  batch at each (Kf, S0, k_win, s_cap) it runs); K3 also at Penalties(4,
+  6, 1), the penalties only the TPU's whole-K prefix kernel takes, on 256
+  pairs of l=1000, with a 64-pair two-phase run there against the oracle;
+  then one A/B of the two-phase route against K1-semi at the full span on
+  1024 pairs of l=1000, in turns;
 * long global reads: 64 pairs of l=50000, e=0.05, 4/6/2, 10/50/1
   (bench.py's matrix row), through K1-long and K2 over its rebased aux,
   both checked on those same 64 pairs, the path's one batch (the plain
-  K1-long takes ~90 s a call, ~6 ms for each of ~14,600 scores); all 64
+  K1-long takes ~100 s a call, ~6 ms for each of ~14,600 scores); all 64
   results checked against the oracle.
 
-The semi-global l=1000 path checks 256 results (its oracle takes ~0.33 s
-a pair), the long path 64, the others 512.
+The semi-global l=1000 path checks 256 results, the l=10000 and the long
+paths all 64, the others 512; the oracle runs in a pool of one process
+per CPU core.
 
-The kernels are checked at each (k_win, s_cap) the paths run: tier 0's
-first cap and the cap the score memory fits after the warm call.  A path
-that builds an engine of other caps fails the run.  Every comparison is
-integer and exact: the tolerance is 0.
+K1 and K1-long are checked at each (k_win, s_cap) the paths run: tier
+0's first cap and the cap the score memory fits after the warm call.  A
+path that builds an engine of caps that GLOBAL_CHECKS, SEMI_CHECKS,
+SEMI2_CHECKS or LONG_CHECKS lacks fails the run (after every phase has
+run, so one run shows all of them).  Every comparison is integer and
+exact: the tolerance is 0.
 
 Exits nonzero on any failure.  The last two lines are one JSON object
 per kernel (with ``bound_ms``, the least time the card could take for the
@@ -39,6 +52,7 @@ package ``wfa_tpu``.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -47,15 +61,30 @@ N_MAIN = 32768
 BATCH = 2048  # the main path's batch: K1 and K2 are checked at its shapes
 N_CHECK = 512
 N_CHECK_SEMI = 256  # the semi-global oracle takes ~0.33 s a pair at l=1000
-N_SEMI = 8192  # bench.py's semi-global rows: l=1000 and l=200
+N_SEMI = 8192  # bench.py's semi-global rows: l=1000, l=200, l=10000
 N_SEMI_SHORT = 1024
+N_SEMI_LONG = 64  # bench.py:185 and 189
 N_LONG = 64  # bench.py's l=50000 row
-N_LONG_CHECK = N_LONG  # the oracle takes ~1.4 s a pair at l=50000
+N_LONG_CHECK = N_LONG  # the oracle takes ~2.2 s a pair at l=50000
+N_AB = 1024  # the A/B batch: K1-semi's aux at the full span is 16 GiB
+# global reads whose longest lies in (4095 - k_win, 4096]: where the JAX
+# pipeline takes TPU kernel row 3 (auto:kw, wfa_tpu/pipeline.py:216-223)
+KW_LENGTH = 4000
+N_BWA = 256  # K3 at Penalties(4, 6, 1)
 # K1/K2 checks, (pairs, l, k_win, s_cap): the first of each mode is the
 # one the kernels' record reports
 GLOBAL_CHECKS = ((BATCH, 1000, 128, 640), (BATCH, 1000, 128, 512))
-SEMI_CHECKS = ((256, 1000, 2048, 640), (256, 1000, 2048, 512),
-               (N_SEMI_SHORT, 200, 512, 256))
+SEMI_CHECKS = ((256, 1000, 2048, 640), (N_SEMI_SHORT, 200, 512, 256))
+# the two-phase paths' (l, Kf, S0, k_win, s_cap), Kf the batch's full
+# span: tier 0 of the ladder (S0 64, k_win 256, s_cap 0.55 x the longest
+# read rounded up to 128) and the cap the score memory fits after the warm
+# call, then tier 1 (S0 112, k_win 512, 3 x tier 0's s_cap) for the pairs
+# still wide at S0 = 64 (179 of 8192 at l=1000, 3 of 64 at l=10000)
+SEMI2_CHECKS = ((1000, 2048, 64, 256, 640), (1000, 2048, 64, 256, 512),
+                (1000, 2048, 112, 512, 1920), (1000, 2048, 112, 512, 1536),
+                (10000, 20096, 64, 256, 5632), (10000, 20096, 64, 256, 3712),
+                (10000, 20096, 112, 512, 16896),
+                (10000, 20096, 112, 512, 11136))
 # tier 0 at l=50000 (0.55 x the bucket's longest read, 50,057 bases,
 # rounded up to 128), then the cap the score memory fits to this data's
 # largest final score (14,748, the oracle's: 1.2 x 14,748 + 16, rounded
@@ -67,6 +96,12 @@ LONG_CHECKS = ((N_LONG, 50000, 384, 27648), (N_LONG, 50000, 384, 17792))
 # loop's integer operations run at
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
+# where the kernels run (the functions below never fall back to the CPU)
+DEVICE = "cuda"
+FIELDS = ("score", "q_begin", "q_end", "t_begin", "t_end", "align_len",
+          "matches", "gaps", "gap_regions")
+# cap mismatches found by the main paths: reported after every phase ran
+DEFERRED = []
 
 
 def fail(msg: str) -> None:
@@ -86,6 +121,118 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_once(fn):
+    """(fn(), its milliseconds on the card): one call between CUDA events;
+    for plain versions whose one checked call is also their time."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def max_err(refs, gots) -> int:
+    """Largest absolute difference over pairs of integer tensors (a
+    shape or type mismatch fails the run)."""
+    err = 0
+    for a, b in zip(refs, gots):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            fail(f"{a.dtype}{tuple(a.shape)} vs {b.dtype}{tuple(b.shape)}")
+        if a.numel():
+            err = max(err, int((a.long() - b.long()).abs().max()))
+    return err
+
+
+_ORACLE = None  # (pairs, aligner) that the forked oracle workers read
+
+
+def _oracle_row(i: int):
+    pairs, aligner = _ORACLE
+    o = aligner.align(*pairs[i])
+    return o.cigar(False), tuple(getattr(o, f) for f in FIELDS)
+
+
+def oracle_check(tag: str, pairs, results, idx, aligner) -> None:
+    """Results ``idx`` against the port's oracle, every field, the oracle
+    in a pool of forked processes (one a CPU core; they run no CUDA)."""
+    import multiprocessing
+
+    global _ORACLE
+    _ORACLE = (pairs, aligner)
+    t0 = time.perf_counter()
+    workers = max(1, min(len(idx), os.cpu_count() or 1))
+    with multiprocessing.get_context("fork").Pool(workers) as pool:
+        refs = pool.map(_oracle_row, idx, chunksize=1)
+    _ORACLE = None
+    for i, (cigar, vals) in zip(idx, refs):
+        r = results[i]
+        if r.cigar(False) != cigar or tuple(
+                getattr(r, f) for f in FIELDS) != vals:
+            fail(f"{tag}: pair {i} differs from the oracle")
+    print(f"{tag}: {len(idx)} results equal the oracle "
+          f"({time.perf_counter() - t0:.1f} s, {workers} processes)")
+
+
+def counters() -> dict:
+    """Every kernel wrapper's launch counts, by mode."""
+    from wfa_tpu_torch.device_backtrace import device_backtrace
+    from wfa_tpu_torch.kernel_engine import (run_batch, run_batch_long,
+                                             run_prefix, run_resume)
+
+    return {"score_loop": run_batch.launches,
+            "score_loop_long": run_batch_long.launches,
+            "score_loop_prefix": run_prefix.launches,
+            "score_loop_resume": run_resume.launches,
+            "backtrace": device_backtrace.launches}
+
+
+def reset_counters() -> None:
+    for counts in counters().values():
+        counts.update(dict.fromkeys(counts, 0))
+
+
+def read_counters() -> dict:
+    return {name: dict(c) for name, c in counters().items()}
+
+
+class record_batches:
+    """Within the block, the first batch each engine is given, by engine
+    key: ("semi2", Kf, S0, k_win, s_cap) or (engine, k_win, s_cap)."""
+
+    def __enter__(self):
+        import numpy as np
+        from wfa_tpu_torch.engine import BatchAligner
+        from wfa_tpu_torch.semi2 import prefix_span
+
+        self.seen, self._orig = {}, BatchAligner.submit_batch
+        seen, orig = self.seen, self._orig
+
+        def submit(eng, pairs):
+            pairs = list(pairs)
+            c = eng.cfg
+            if eng.engine == "semi2":
+                lens = np.array([(len(q), len(t)) for q, t in pairs])
+                key = ("semi2", prefix_span(lens[:, 0], lens[:, 1]),
+                       eng.s_switch, c.k_win, c.s_cap)
+            else:
+                key = (eng.engine, c.k_win, c.s_cap)
+            seen.setdefault(key, pairs)
+            return orig(eng, pairs)
+
+        BatchAligner.submit_batch = submit
+        return self.seen
+
+    def __exit__(self, *exc):
+        from wfa_tpu_torch.engine import BatchAligner
+
+        BatchAligner.submit_batch = self._orig
+        return False
 
 
 def bound(nbytes: int, ops: int) -> dict:
@@ -125,7 +272,7 @@ def kernel_batch(n: int, length: int, k_win: int, s_cap: int,
                        k_win=k_win, s_cap=s_cap)
     pairs = generate_pairs(n, length, 0.05, seed=42)
     packed = _pack_all(pairs, cfg.k_win, global_alignment=global_alignment)
-    return cfg, inputs_from_packed(packed, "cuda")
+    return cfg, inputs_from_packed(packed, DEVICE)
 
 
 def check_kernels(checks, global_alignment: bool, reps: int,
@@ -323,72 +470,406 @@ def phase_k2(cfg, ins, k1_out, reps: int = 10, long: bool = False):
 
 
 def phase_main(n: int, length: int, global_alignment: bool, batch: int,
-               n_check: int, card: str, checks, long: bool = False):
-    """One main path; returns the launch counts of its timed call.  Fails
-    if it ran the kernels at a (k_win, s_cap) that ``checks`` lacks."""
+               n_check: int, card: str, checks, need, semi2_checks=()):
+    """One main path: a warm call, then the timed call with the launch
+    counts set to 0 just before it.  Fails if a kernel of ``need``
+    ((counter, mode) pairs) was launched no time; defers a failure for
+    caps that ``checks`` ((pairs, l, k_win, s_cap) of K1 and K1-long) or
+    ``semi2_checks`` ((l, Kf, S0, k_win, s_cap)) lack.  Returns the timed
+    call's launch counts and the first batch each engine was given in
+    either call (``record_batches``)."""
     import torch
     from wfa_tpu_torch import (AdaptiveReductionOption, OracleAligner,
                                Options, Penalties)
     from wfa_tpu_torch.datagen import generate_pairs
-    from wfa_tpu_torch.device_backtrace import device_backtrace
-    from wfa_tpu_torch.kernel_engine import run_batch, run_batch_long
     from wfa_tpu_torch.pipeline import AlignmentPipeline, PipelineConfig
 
-    mode = "long" if long else "global" if global_alignment else "semi"
     tag = f"main {'global' if global_alignment else 'semi'} l={length}"
     pen, opts = Penalties(4, 6, 2), Options(global_alignment)
     ad = AdaptiveReductionOption(10, 50, 1)
     pipe = AlignmentPipeline(PipelineConfig(pen, opts, ad, batch_size=batch,
-                                            device="cuda"))
+                                            device=DEVICE))
     t0 = time.perf_counter()
     pairs = generate_pairs(n, length, 0.05, seed=42)
     print(f"{tag}: {n} pairs generated in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    pipe.align_all(pairs)  # warm
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t0
-    counters = (run_batch.launches, run_batch_long.launches,
-                device_backtrace.launches)
-    for counts in counters:
-        counts.update(dict.fromkeys(counts, 0))
-    t0 = time.perf_counter()
-    results = pipe.align_all(pairs)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    k1 = run_batch_long.launches if long else run_batch.launches
-    launches = {"score_loop": k1[mode],
-                "backtrace": device_backtrace.launches[mode]}
-    caps = sorted({k[:2] for k in pipe._engines})
+    with record_batches() as seen:
+        t0 = time.perf_counter()
+        pipe.align_all(pairs)  # warm
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        reset_counters()
+        t0 = time.perf_counter()
+        results = pipe.align_all(pairs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_counters()
+    caps, runs = set(), set()
+    for (k_win, s_cap, _), eng in pipe._engines.items():
+        if eng.engine == "semi2":
+            runs |= {(length, kf, eng.s_switch, k_win, s_cap)
+                     for kf in eng.spans}
+        else:
+            caps.add((k_win, s_cap))
     engines = sorted({k[2] for k in pipe._engines})
     print(f"{tag}: align_all {n} pairs in {secs:.3f} s = {n / secs:.1f} "
           f"aln/s (warm call {warm:.3f} s) on {card}")
-    print(f"{tag}: launches {mode} {launches} (mean batch "
-          f"{n / max(1, launches['score_loop']):.1f} pairs), all "
-          f"{{'score_loop': {run_batch.launches}, 'score_loop_long': "
-          f"{run_batch_long.launches}, 'backtrace': "
-          f"{device_backtrace.launches}}}; pairs served per tier "
-          f"{pipe.served}; (k_win, s_cap) engines {caps} {engines}")
-    for name, count in launches.items():
-        if count <= 0:
-            fail(f"{tag} launched {name} ({mode}) no time")
-    unchecked = set(caps) - {c[2:] for c in checks}
+    print(f"{tag}: launches {launches}; pairs served per tier "
+          f"{pipe.served}; engines {engines}, (k_win, s_cap) {sorted(caps)}, "
+          f"two-phase (l, Kf, S0, k_win, s_cap) {sorted(runs)}")
+    for counter, mode in need:
+        if launches[counter][mode] <= 0:
+            fail(f"{tag} launched {counter} ({mode}) no time")
+    unchecked = caps - {c[2:] for c in checks}
     if unchecked:
-        fail(f"{tag} ran the kernels at unchecked (k_win, s_cap) "
-             f"{sorted(unchecked)}")
+        DEFERRED.append(f"{tag} ran K1 at unchecked (k_win, s_cap) "
+                        f"{sorted(unchecked)}")
+    unchecked = runs - set(semi2_checks)
+    if unchecked:
+        DEFERRED.append(f"{tag} ran the two-phase route at unchecked (l, "
+                        f"Kf, S0, k_win, s_cap) {sorted(unchecked)}")
     if len(results) != n or any(r is None or r.error for r in results):
         fail(f"{tag} returned missing or failed results")
-    oracle = OracleAligner(pen, opts, ad)
-    fields = ("score", "q_begin", "q_end", "t_begin", "t_end", "align_len",
-              "matches", "gaps", "gap_regions")
-    t0 = time.perf_counter()
-    for i in range(0, n, max(1, n // n_check))[:n_check]:
-        r, o = results[i], oracle.align(*pairs[i])
-        if r.cigar(False) != o.cigar(False) or any(
-                getattr(r, f) != getattr(o, f) for f in fields):
-            fail(f"{tag}: pair {i} differs from the oracle")
-    print(f"{tag}: {min(n_check, n)} sampled results equal the oracle "
-          f"({time.perf_counter() - t0:.1f} s)")
-    return launches
+    idx = list(range(0, n, max(1, n // n_check)))[:n_check]
+    oracle_check(tag, pairs, results, idx, OracleAligner(pen, opts, ad))
+    return launches, seen
+
+
+def phase_semi2(pairs, pen, S0: int, k_win: int, s_cap: int, reps: int,
+                tag: str):
+    """K3, K4 and K2 over both aux tensors against their plain versions on
+    one batch of the two-phase route: K3 on the packed pairs, K4 on K3's
+    exports and the re-placed targets, K2 on K4's aux and K3's aux_old.
+    The exports and aux rows the kernels leave unspecified are zeroed in
+    both (``semi2.canonical_exports`` / ``canonical_resume``).  Each plain
+    version's one checked call is also its time.  Returns the three
+    records."""
+    import dataclasses
+
+    import torch
+    from wfa_tpu_torch import AdaptiveReductionOption
+    from wfa_tpu_torch import semi2 as ts
+    from wfa_tpu_torch.device_backtrace import (device_backtrace,
+                                                device_backtrace_plain,
+                                                iter_capacity)
+    from wfa_tpu_torch.engine import (EngineConfig, _pack_all, _token_plan,
+                                      inputs_from_packed,
+                                      run_batch_resume_plain, windows)
+    from wfa_tpu_torch.kernel_engine import run_prefix, run_resume
+
+    cfg = EngineConfig(penalties=pen, global_alignment=False,
+                       adaptive=AdaptiveReductionOption(10, 50, 1),
+                       k_win=k_win, s_cap=s_cap)
+    packed = _pack_all(pairs, k_win, global_alignment=False)
+    qb, tbuf, qlen, tlen, toff, Lq, Ltb = inputs_from_packed(packed, DEVICE)
+    B = qb.shape[0]
+    Kf = ts.prefix_span(packed[2], packed[3])
+    wm, we = windows(pen)
+    export_bytes = 4 * B * ((wm + 2 * we + 3) * k_win
+                            + 3 * (wm + 2 * we) + len(ts.META1_COLS))
+    src = "wfa_tpu_torch/csrc/score_loop.cu"
+
+    # ---- K3
+    args = (qb, tbuf, qlen, tlen, toff)
+    pkw = dict(cfg=dataclasses.replace(cfg, k_win=Kf), Lq=Lq, Ltb=Ltb,
+               S0=S0, K2=k_win)
+    torch.cuda.synchronize()
+    ref, plain_ms = timed_once(lambda: ts.prefix_export_plain(*args, **pkw))
+    ex = run_prefix(*args, **pkw)
+    torch.cuda.synchronize()
+    ref, got = ts.canonical_exports(ref), ts.canonical_exports(ex)
+    err = max_err([ref[k] for k in ref], [got[k] for k in ref])
+    del ref, got
+    if err:
+        fail(f"{tag} K3 exports differ (max_abs_err {err})")
+    ms = cuda_ms(lambda: run_prefix(*args, **pkw), reps)
+    m1 = ex["meta1"]
+    done1 = m1[:, ts.M1_DONE] > 0
+    rows = int(torch.where(done1, (m1[:, ts.M1_FS] + 1).clamp(max=S0),
+                           S0).sum())
+    cells = 3 * rows * Kf
+    nbytes = (qb.numel() + tbuf.numel() + 12 * B + export_bytes
+              + cells * ex["aux_old"].element_size())
+    rec3 = {"name": "score_loop_prefix", "route": "cuda", "source": src,
+            "replaces": "wfa_tpu/pallas_prefix.py:92", "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, **bound(nbytes, cells)}
+    live = int((~done1 & (m1[:, ts.M1_OVF] == 0)).sum())
+    print(f"K3 {tag}: {B} pairs, Kf {Kf}, S0 {S0}, K2 {k_win}, "
+          f"{int(done1.sum())} done and {live} live at S0, max_abs_err "
+          f"{err} (tolerance 0); kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+          f"bound {rec3['bound_ms']:.4f} ms ({rec3['bound_by']})")
+
+    # ---- K4 on K3's exports
+    k02 = m1[:, ts.M1_K02].cpu().numpy()
+    t2raw, _, toff2, Ltb2 = ts.replace_targets([t for _, t in pairs], k02)
+    tb2 = torch.from_numpy(t2raw).to(DEVICE)
+    toff2 = torch.from_numpy(toff2).to(DEVICE)
+    keys = ("win_m", "win_i", "win_d", "ainit", "b_m", "b_ie", "meta1")
+    r_args = (qb, tb2, qlen, tlen, toff2, *(ex[k] for k in keys))
+    rkw = dict(cfg=cfg, Lq=Lq, Ltb2=Ltb2, Ltb_full=Ltb, S0=S0)
+    ref, plain_ms = timed_once(lambda: run_batch_resume_plain(*r_args, **rkw))
+    res = run_resume(*r_args, **rkw)
+    torch.cuda.synchronize()
+    ref, got = ts.canonical_resume(ref, S0), ts.canonical_resume(res, S0)
+    err = max_err(ref[:5] + ref[5], got[:5] + got[5])
+    del ref, got
+    if err:
+        fail(f"{tag} K4 differs (max_abs_err {err})")
+    ms = cuda_ms(lambda: run_resume(*r_args, **rkw), reps)
+    final_s, done, overflow = res[:3]
+    ok = done & ~overflow
+    ran = ok & (final_s >= S0)
+    rows = int((final_s - S0 + 1)[ran].sum())
+    cells = 3 * rows * k_win
+    nbytes = (qb.numel() + tb2.numel() + 12 * B + export_bytes + 28 * B
+              + cells * res[4].element_size())
+    rec4 = {"name": "score_loop_resume", "route": "cuda", "source": src,
+            "replaces": "wfa_tpu/pallas_engine.py:1394", "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, **bound(nbytes, cells)}
+    print(f"K4 {tag}: {B} pairs, K {k_win}, s_cap {s_cap}, Ltb2 {Ltb2}, "
+          f"{int(ran.sum())} finished in phase 2, {int(ok.sum())} done in "
+          f"all, max_abs_err {err} (tolerance 0); kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.1f} ms, bound {rec4['bound_ms']:.4f} ms "
+          f"({rec4['bound_by']})")
+
+    # ---- K2 over both aux tensors, from K4's ends
+    shift, _ = _token_plan(s_cap, pen, Lq, Ltb)
+    end_s, end_k, end_cell = res[5]
+    bt_args = (res[4], end_cell, -toff2, end_s, end_k, qlen, tlen, ok)
+    kw = dict(penalties=pen, S=s_cap, K=k_win, token_shift=shift,
+              global_alignment=False, aux_old=ex["aux_old"],
+              k0_old=-(qlen - 1), s_split=S0, return_iters=True)
+    ref, plain_ms = timed_once(lambda: device_backtrace_plain(*bt_args, **kw))
+    got = device_backtrace(*bt_args, **kw)
+    torch.cuda.synchronize()
+    err = max_err(ref, got)
+    if err:
+        fail(f"{tag} K2 over both aux tensors differs (max_abs_err {err})")
+    ms = cuda_ms(lambda: device_backtrace(*bt_args, **kw), reps)
+    steps = int(got[3].long().sum())
+    slots = 1 + 2 * iter_capacity(s_cap, pen) + 4
+    nbytes = (25 * B + steps * 4 + slots * B * got[0].element_size()
+              + 4 * B)
+    rec2 = {"name": "backtrace_semi2", "route": "cuda",
+            "source": "wfa_tpu_torch/csrc/backtrace.cu",
+            "replaces": "wfa_tpu/device_backtrace.py:276",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **bound(nbytes, steps)}
+    print(f"K2 {tag} (both aux tensors): {B} pairs, {steps} chase steps, "
+          f"max_abs_err {err} (tolerance 0); kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.1f} ms, bound {rec2['bound_ms']:.4f} ms "
+          f"({rec2['bound_by']})")
+    del ex, res, got, ref
+    torch.cuda.empty_cache()
+    return rec3, rec4, rec2
+
+
+def merge(recs, new) -> None:
+    """Fold later checks into the first: max_abs_err over all."""
+    for rec, n in zip(recs, new):
+        rec["max_abs_err"] = max(rec["max_abs_err"], n["max_abs_err"])
+
+
+def check_own_batches(seen, length: int, reps: int, recs, k1_recs):
+    """The two-phase route's kernels on each batch a path gave them (its
+    first at each engine key), and K1-semi and K2 on the batches of its
+    full-span last tier; the first batch's times stay in ``recs`` (K3, K4,
+    K2) unless it is already filled."""
+    import torch
+    from wfa_tpu_torch import AdaptiveReductionOption, Penalties
+    from wfa_tpu_torch.engine import EngineConfig, _pack_all, inputs_from_packed
+
+    pen = Penalties(4, 6, 2)
+    for key, pairs in seen.items():
+        if key[0] == "semi2":
+            _, Kf, S0, k_win, s_cap = key
+            new = phase_semi2(pairs, pen, S0, k_win, s_cap, reps,
+                              f"l={length} Kf {Kf} S0 {S0} ({len(pairs)} "
+                              f"pairs, s_cap {s_cap})")
+            if not recs:
+                recs.extend(new)
+            else:
+                merge(recs, new)
+            continue
+        _, k_win, s_cap = key
+        cfg = EngineConfig(penalties=pen, global_alignment=False,
+                           adaptive=AdaptiveReductionOption(10, 50, 1),
+                           k_win=k_win, s_cap=s_cap)
+        ins = inputs_from_packed(
+            _pack_all(pairs, k_win, global_alignment=False), DEVICE)
+        rec1, out = phase_k1(cfg, ins, reps)
+        merge(k1_recs, (rec1, phase_k2(cfg, ins, out)))
+        del out, ins
+        torch.cuda.empty_cache()
+
+
+def phase_bwa(reps: int, recs, card: str):
+    """K3, K4 and K2 at Penalties(4, 6, 1) (x, e or o+e below 2: the
+    TPU's whole-K EXPORT kernel, pallas_engine.py:1259) on 256 pairs of
+    l=1000, then a 64-pair two-phase run at those penalties against the
+    oracle, its launch counts read around it.  Returns K3's record there."""
+    import torch
+    from wfa_tpu_torch import (AdaptiveReductionOption, OracleAligner,
+                               Options, Penalties)
+    from wfa_tpu_torch.datagen import generate_pairs
+    from wfa_tpu_torch.engine import BatchAligner
+
+    pen, ad = Penalties(4, 6, 1), AdaptiveReductionOption(10, 50, 1)
+    pairs = generate_pairs(N_BWA, 1000, 0.05, seed=42)
+    rec3, rec4, rec2 = phase_semi2(pairs, pen, 64, 256, 640, reps,
+                                   "4/6/1 l=1000")
+    merge(recs[1:], (rec4, rec2))
+    rec3.update(name="score_loop_prefix_4_6_1",
+                replaces="wfa_tpu/pallas_engine.py:1259")
+    eng = BatchAligner(pen, Options(False), ad, k_win=256, s_cap=640,
+                       engine="semi2:64", device=DEVICE)
+    run = pairs[:64]
+    eng.align_batch(run, fallback=False)  # warm
+    reset_counters()
+    res = eng.align_batch(run, fallback=False)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    rec3["launches"] = launches["score_loop_prefix"]["prefix"]
+    served = [i for i, r in enumerate(res) if r is not None]
+    print(f"4/6/1 l=1000 two-phase: {len(served)} of {len(run)} pairs served "
+          f"at tier-0 caps on {card}; launches {launches}")
+    if len(served) < len(run) // 2 or rec3["launches"] <= 0:
+        fail("4/6/1 two-phase run served too few pairs or launched no K3")
+    oracle_check("4/6/1 l=1000 two-phase", run, res, served,
+                 OracleAligner(pen, Options(False), ad))
+    return rec3
+
+
+def phase_ab(card: str) -> None:
+    """The two-phase route (engine "semi2:64", k_win 256) against K1-semi
+    at the full span (engine "auto", k_win 2048) on the same 1024 pairs of
+    l=1000, s_cap 640 both: align_batch wall times in turns (A B B A after
+    one warm call each), the pairs each serves, their results equal where
+    both serve, and each route's kernel times on the card."""
+    import torch
+    from wfa_tpu_torch import AdaptiveReductionOption, Options, Penalties
+    from wfa_tpu_torch import semi2 as ts
+    from wfa_tpu_torch.datagen import generate_pairs
+    from wfa_tpu_torch.device_backtrace import device_backtrace
+    from wfa_tpu_torch.engine import (BatchAligner, EngineConfig, _pack_all,
+                                      _token_plan, inputs_from_packed)
+    from wfa_tpu_torch.kernel_engine import run_batch, run_prefix, run_resume
+
+    pen, ad = Penalties(4, 6, 2), AdaptiveReductionOption(10, 50, 1)
+    pairs = generate_pairs(N_AB, 1000, 0.05, seed=42)
+    routes = {"two-phase": BatchAligner(pen, Options(False), ad, k_win=256,
+                                        s_cap=640, engine="semi2:64",
+                                        device=DEVICE),
+              "full span": BatchAligner(pen, Options(False), ad, k_win=2048,
+                                        s_cap=640, engine="auto",
+                                        device=DEVICE)}
+    out = {name: eng.align_batch(pairs, fallback=False)
+           for name, eng in routes.items()}  # warm
+    wall = {name: [] for name in routes}
+    for name in ("two-phase", "full span", "full span", "two-phase"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = routes[name].align_batch(pairs, fallback=False)
+        torch.cuda.synchronize()
+        wall[name].append((time.perf_counter() - t0) * 1e3)
+    a, b = out["two-phase"], out["full span"]
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x is not None and y is not None and (
+                x.score, x.cigar(False)) != (y.score, y.cigar(False)):
+            fail(f"A/B: pair {i} differs between the routes")
+    served = {name: sum(r is not None for r in res)
+              for name, res in out.items()}
+
+    # each route's kernels on this batch (CUDA events, 3 launches each)
+    cfg = EngineConfig(penalties=pen, global_alignment=False, adaptive=ad,
+                       k_win=256, s_cap=640)
+    packed = _pack_all(pairs, 256, global_alignment=False)
+    qb, tbuf, qlen, tlen, toff, Lq, Ltb = inputs_from_packed(packed, DEVICE)
+    args = (qb, tbuf, qlen, tlen, toff)
+    Kf = ts.prefix_span(packed[2], packed[3])
+    pkw = dict(cfg=EngineConfig(penalties=pen, global_alignment=False,
+                                adaptive=ad, k_win=Kf, s_cap=640),
+               Lq=Lq, Ltb=Ltb, S0=64, K2=256)
+    ex = run_prefix(*args, **pkw)
+    t3 = cuda_ms(lambda: run_prefix(*args, **pkw), 3)
+    k02 = ex["meta1"][:, ts.M1_K02].cpu().numpy()
+    t2raw, _, toff2, Ltb2 = ts.replace_targets([t for _, t in pairs], k02)
+    tb2 = torch.from_numpy(t2raw).to(DEVICE)
+    toff2 = torch.from_numpy(toff2).to(DEVICE)
+    r_args = (qb, tb2, qlen, tlen, toff2,
+              *(ex[k] for k in ("win_m", "win_i", "win_d", "ainit", "b_m",
+                                "b_ie", "meta1")))
+    rkw = dict(cfg=cfg, Lq=Lq, Ltb2=Ltb2, Ltb_full=Ltb, S0=64)
+    res = run_resume(*r_args, **rkw)
+    t4 = cuda_ms(lambda: run_resume(*r_args, **rkw), 3)
+    shift, _ = _token_plan(640, pen, Lq, Ltb)
+    end_s, end_k, end_cell = res[5]
+    bt = (res[4], end_cell, -toff2, end_s, end_k, qlen, tlen,
+          res[1] & ~res[2])
+    bkw = dict(penalties=pen, S=640, K=256, token_shift=shift,
+               global_alignment=False, aux_old=ex["aux_old"],
+               k0_old=-(qlen - 1), s_split=64)
+    t2 = cuda_ms(lambda: device_backtrace(*bt, **bkw), 3)
+    del ex, res, bt, r_args
+    full = EngineConfig(penalties=pen, global_alignment=False, adaptive=ad,
+                        k_win=2048, s_cap=640)
+    k1 = run_batch(*args, cfg=full, Lq=Lq, Ltb=Ltb)
+    t1 = cuda_ms(lambda: run_batch(*args, cfg=full, Lq=Lq, Ltb=Ltb), 3)
+    end_s, end_k, end_cell = k1[5]
+    bt = (k1[4], end_cell, -toff, end_s, end_k, qlen, tlen, k1[1] & ~k1[2])
+    bkw = dict(penalties=pen, S=640, K=2048, token_shift=shift,
+               global_alignment=False)
+    t2f = cuda_ms(lambda: device_backtrace(*bt, **bkw), 3)
+    del k1, bt
+    torch.cuda.empty_cache()
+    print(f"A/B l=1000 semi, {N_AB} pairs, s_cap 640, on {card}: align_batch "
+          f"two-phase {wall['two-phase']} ms (serves {served['two-phase']}), "
+          f"full span {wall['full span']} ms (serves {served['full span']}); "
+          f"kernels two-phase K3 {t3:.3f} + K4 {t4:.3f} + K2 {t2:.3f} = "
+          f"{t3 + t4 + t2:.3f} ms, full span K1-semi {t1:.3f} + K2 "
+          f"{t2f:.3f} = {t1 + t2f:.3f} ms")
+
+
+def phase_kw_bound(card: str) -> None:
+    """The bound of TPU kernel row 3, which the port has not ported
+    (``pallas_engine._kernel`` with KW > 0, engine ``auto:kw<k_win>``): the
+    JAX pipeline takes it for global wf-adaptive reads whose longest lies
+    in (4095 - k_win, 4096], at tier 0's k_win.  Its least time for one
+    batch: the int16 aux rows at KW = k_win plus one int32 sbase a row, up
+    to each pair's final_s, and the inputs and out rows, at the card's
+    memory rate.  final_s comes from K1 (int32 aux), which serves these
+    reads in the port; its time is printed beside the bound."""
+    from wfa_tpu_torch import AdaptiveReductionOption, Options, Penalties
+    from wfa_tpu_torch.datagen import generate_pairs
+    from wfa_tpu_torch.engine import (EngineConfig, _pack_all,
+                                      inputs_from_packed)
+    from wfa_tpu_torch.kernel_engine import run_batch
+    from wfa_tpu_torch.pipeline import AlignmentPipeline, PipelineConfig
+
+    pen, ad = Penalties(4, 6, 2), AdaptiveReductionOption(10, 50, 1)
+    pairs = generate_pairs(BATCH, KW_LENGTH, 0.05, seed=42)
+    lq = max(len(q) for q, _ in pairs)
+    lt = max(len(t) for _, t in pairs)
+    pipe = AlignmentPipeline(PipelineConfig(pen, Options(True), ad,
+                                            device=DEVICE))
+    k_win, s_cap, _, engine = pipe._tier_caps(lq, lt, 0)
+    if not 4095 - k_win < max(lq, lt) <= 4096 or engine != "auto":
+        fail(f"l={KW_LENGTH} is not in TPU row 3's range at k_win {k_win}")
+    cfg = EngineConfig(penalties=pen, adaptive=ad, k_win=k_win, s_cap=s_cap)
+    ins = inputs_from_packed(_pack_all(pairs, k_win), DEVICE)
+    kw = dict(cfg=cfg, Lq=ins[5], Ltb=ins[6])
+    final_s, done, overflow = run_batch(*ins[:5], **kw)[:3]
+    ms = cuda_ms(lambda: run_batch(*ins[:5], **kw), 3)
+    ok = done & ~overflow
+    B = len(pairs)
+    rows = int((final_s.long() + 1)[ok].sum())
+    nbytes = (ins[0].numel() + ins[1].numel() + 12 * B + 28 * B
+              + rows * (3 * k_win * 2 + 4))
+    b = bound(nbytes, 3 * rows * k_win)
+    print(f"TPU kernel row 3 (auto:kw{k_win}, to port): {B} global pairs of "
+          f"l={KW_LENGTH}, longest {max(lq, lt)}, s_cap {s_cap}, {int(ok.sum())}"
+          f" done, {rows} aux rows to final_s; bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}: int16 rows at KW {k_win} and int32 sbase); K1 "
+          f"(int32 aux) serves the batch in {ms:.3f} ms on {card}")
 
 
 def blocked_modules() -> set:
@@ -419,30 +900,51 @@ def main() -> None:
     phase_build()
     # global: kernels at the main path's batch, then the main path
     rec1, rec2 = check_kernels(GLOBAL_CHECKS, True, reps=10)
-    launches = phase_main(N_MAIN, 1000, True, BATCH, N_CHECK, card,
-                          GLOBAL_CHECKS)
-    rec1["launches"] = launches["score_loop"]
-    rec2["launches"] = launches["backtrace"]
-    # semi-global: the kernels' semi-global mode, then both main paths
+    launches, _ = phase_main(N_MAIN, 1000, True, BATCH, N_CHECK, card,
+                             GLOBAL_CHECKS, need=(("score_loop", "global"),
+                                                  ("backtrace", "global")))
+    rec1["launches"] = launches["score_loop"]["global"]
+    rec2["launches"] = launches["backtrace"]["global"]
+    # semi-global at spans up to 512: K1-semi and K2 (also at the A/B's
+    # full-span shape), then the l=200 path
     rec3, rec4 = check_kernels(SEMI_CHECKS, False, reps=3)
-    launches = phase_main(N_SEMI, 1000, False, BATCH, N_CHECK_SEMI, card,
-                          SEMI_CHECKS)
-    rec3["launches"] = launches["score_loop"]
-    rec4["launches"] = launches["backtrace"]
-    phase_main(N_SEMI_SHORT, 200, False, BATCH, N_CHECK, card, SEMI_CHECKS)
+    launches, _ = phase_main(N_SEMI_SHORT, 200, False, BATCH, N_CHECK, card,
+                             SEMI_CHECKS, need=(("score_loop", "semi"),
+                                                ("backtrace", "semi")))
+    rec3["launches"] = launches["score_loop"]["semi"]
+    rec4["launches"] = launches["backtrace"]["semi"]
+    # the two-phase route: each path, then its kernels on its own batches
+    need2 = (("score_loop_prefix", "prefix"), ("score_loop_resume", "resume"),
+             ("backtrace", "semi2"))
+    semi2_recs = []
+    launches, seen = phase_main(N_SEMI, 1000, False, BATCH, N_CHECK_SEMI,
+                                card, SEMI_CHECKS, need2, SEMI2_CHECKS)
+    check_own_batches(seen, 1000, 3, semi2_recs, (rec3, rec4))
+    for rec, (counter, mode) in zip(semi2_recs, need2):
+        rec["launches"] = launches[counter][mode]
+    _, seen = phase_main(N_SEMI_LONG, 10000, False, BATCH, N_SEMI_LONG, card,
+                         SEMI_CHECKS, need2, SEMI2_CHECKS)
+    check_own_batches(seen, 10000, 3, semi2_recs, (rec3, rec4))
+    rec_bwa = phase_bwa(3, semi2_recs, card)
+    phase_ab(card)
+    phase_kw_bound(card)
     # long global reads: K1-long and K2 over its rebased aux, then the path
     rec5, rec6 = check_kernels(LONG_CHECKS, True, reps=3, long=True)
-    launches = phase_main(N_LONG, 50000, True, BATCH, N_LONG_CHECK, card,
-                          LONG_CHECKS, long=True)
-    rec5["launches"] = launches["score_loop"]
-    rec6["launches"] = launches["backtrace"]
+    launches, _ = phase_main(N_LONG, 50000, True, BATCH, N_LONG_CHECK, card,
+                             LONG_CHECKS, need=(("score_loop_long", "long"),
+                                                ("backtrace", "long")))
+    rec5["launches"] = launches["score_loop_long"]["long"]
+    rec6["launches"] = launches["backtrace"]["long"]
     imported = sorted(blocked_modules() - preloaded)
     if imported:
         fail(f"the run imported JAX or wfa_tpu modules: {imported[:5]}")
+    if DEFERRED:
+        fail("; ".join(DEFERRED))
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    recs = [rec1, rec3, rec5, rec2, rec4, rec6]
+    k3, k4, k2d = semi2_recs
+    recs = [rec1, rec3, rec5, k3, rec_bwa, k4, rec2, rec4, rec6, k2d]
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in recs]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

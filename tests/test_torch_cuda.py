@@ -10,9 +10,14 @@ imports JAX, which the card machine lacks, so run them there with
 these cover the other shapes the main path can give the kernels (tier-1
 and tier-2 windows, no reduction, degenerate penalties, overflows, raw
 bytes, semi-global full-span windows; K1-long and K2 over its rebased
-aux at long-read lengths, the int16 guard and the raw outputs).  Integer
-outputs: exact equality.
+aux at long-read lengths, the int16 guard and the raw outputs; K3, K4
+and K2 over both aux tensors of the two-phase semi-global route at its
+tier-0 and tier-1 caps, at l=5000, at penalties the TPU's chunked prefix
+kernel refuses, and with a target row that holds only a suffix).
+Integer outputs: exact equality.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -231,3 +236,123 @@ def test_wrappers_check_their_inputs(card):
     assert torch.equal(run_batch(*ins[:5], cfg=cfg, Lq=Lq, Ltb=Ltb)[0],
                        te.run_batch_plain(*ins[:5], cfg=cfg, Lq=Lq,
                                           Ltb=Ltb)[0])
+
+
+def _suffix_pair(length, err, seed):
+    """A read of the last ``length`` bases of a target twice as long, a
+    share ``err`` of its bases substituted: its path runs near diagonal
+    ``length``, so the narrow window lies past diagonal 0 (k02 > 0) and
+    phase 2's target row holds only the target's suffix (toff2 < 0)."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    t = acgt[rng.integers(0, 4, 2 * length)]
+    q = t[length:].copy()
+    hit = rng.random(length) < err
+    q[hit] = acgt[(rng.integers(1, 4, length)[hit]
+                   + np.searchsorted(acgt, q[hit])) % 4]
+    return q.tobytes(), t.tobytes()
+
+
+def _band_union(ex, b):
+    """(lowest, highest) diagonal of pair b's live band slots in the
+    phase-1 exports: M, then I and D."""
+    lo, hi = [], []
+    half = len(ex["b_ie"]) // 2
+    for rows in (ex["b_m"], ex["b_ie"][:half], ex["b_ie"][half:]):
+        w = len(rows) // 3
+        live = rows[2 * w:, b] > 0
+        lo += rows[:w, b][live].tolist()
+        hi += rows[w:2 * w, b][live].tolist()
+    return min(lo), max(hi)
+
+
+# (penalties, S0, k_win, s_cap, length, error, pairs): tier 0 and tier 1
+# of the ladder at l=1000, l=5000, and penalties whose x, e or o+e is
+# below 2 (the TPU's whole-K EXPORT kernel, row 6 of PERF.md's table).
+# "edge" sizes phase 2's window to the suffix pair's band union, so its
+# band starts at the window's left edge.
+SEMI2_CASES = {
+    "tier0_l1000": (Penalties(4, 6, 2), 64, 256, 640, 1000, 0.05, 64),
+    "tier1_l1000": (Penalties(4, 6, 2), 112, 512, 1920, 1000, 0.1, 32),
+    "tier0_l5000": (Penalties(4, 6, 2), 64, 256, 2816, 5000, 0.05, 8),
+    "penalties_4_6_1": (Penalties(4, 6, 1), 64, 256, 640, 1000, 0.05, 32),
+    "edge": (Penalties(2, 1, 1), 40, None, 256, 200, 0.2, 8),
+}
+
+
+@pytest.mark.parametrize("case", list(SEMI2_CASES))
+def test_semi2_kernels_match_plain(card, case):
+    """K3 against prefix_export_plain (the exports with their don't-cares
+    zeroed), K4 against run_batch_resume_plain on K3's exports (every out
+    row, aux rows S0..final_s of pairs finished in phase 2), and K2 over
+    both aux tensors against its plain version (tokens and chase
+    iterations)."""
+    from wfa_tpu_torch import engine as te
+    from wfa_tpu_torch import semi2 as ts
+    from wfa_tpu_torch.device_backtrace import (device_backtrace,
+                                                device_backtrace_plain)
+    from wfa_tpu_torch.kernel_engine import run_prefix, run_resume
+
+    pen, S0, k_win, s_cap, length, err, n = SEMI2_CASES[case]
+    pairs = generate_pairs(n, length, err, seed=17)
+    if case == "edge":
+        pairs[0] = _suffix_pair(length, err, 3)
+    packed = te._pack_all(pairs, 128, global_alignment=False)
+    qb, tbuf, qlen, tlen, toff, Lq, Ltb = te.inputs_from_packed(packed, card)
+    Kf = ts.prefix_span(packed[2], packed[3])
+    args = (qb, tbuf, qlen, tlen, toff)
+    if k_win is None:
+        # the suffix pair's band union at S0 (K2 = Kf holds every band)
+        wide = ts.prefix_export_plain(
+            *args, cfg=te.EngineConfig(penalties=pen, global_alignment=False,
+                                       adaptive=ADAPTIVE, k_win=Kf,
+                                       s_cap=s_cap),
+            Lq=Lq, Ltb=Ltb, S0=S0, K2=Kf)
+        lo, hi = _band_union(wide, 0)
+        ak = int(packed[3][0]) - int(packed[2][0])
+        k_win = max(hi, ak) - min(lo, ak) + 1
+    cfg = te.EngineConfig(penalties=pen, global_alignment=False,
+                          adaptive=ADAPTIVE, k_win=k_win, s_cap=s_cap)
+    pkw = dict(cfg=dataclasses.replace(cfg, k_win=Kf), Lq=Lq, Ltb=Ltb,
+               S0=S0, K2=k_win)
+    ref = ts.canonical_exports(ts.prefix_export_plain(*args, **pkw))
+    ex = run_prefix(*args, **pkw)
+    got = ts.canonical_exports(ex)
+    for key in ref:
+        assert ref[key].dtype == got[key].dtype, key
+        assert torch.equal(ref[key], got[key]), key
+    m1 = ex["meta1"].cpu()
+    live = (m1[:, ts.M1_DONE] == 0) & (m1[:, ts.M1_OVF] == 0)
+    assert bool(live.any())
+    k02 = m1[:, ts.M1_K02].numpy()
+    if case == "edge":
+        # the window starts past diagonal 0, at the band's low end
+        assert bool(live[0]) and k02[0] > 0
+        assert _band_union(ex, 0)[0] == k02[0]
+
+    t2raw, _, toff2, Ltb2 = ts.replace_targets([t for _, t in pairs], k02)
+    tb2 = torch.from_numpy(t2raw).to(card)
+    toff2 = torch.from_numpy(toff2).to(card)
+    keys = ("win_m", "win_i", "win_d", "ainit", "b_m", "b_ie", "meta1")
+    r_args = (qb, tb2, qlen, tlen, toff2, *(ex[k] for k in keys))
+    rkw = dict(cfg=cfg, Lq=Lq, Ltb2=Ltb2, Ltb_full=Ltb, S0=S0)
+    ref2 = ts.canonical_resume(te.run_batch_resume_plain(*r_args, **rkw), S0)
+    res = run_resume(*r_args, **rkw)
+    got2 = ts.canonical_resume(res, S0)
+    for a, b in zip(ref2[:5] + ref2[5], got2[:5] + got2[5]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    ok = res[1] & ~res[2]
+    if case == "edge":
+        assert bool(toff2[0] < 0)
+    else:
+        assert bool((ok & (res[0] >= S0)).any())
+
+    shift, _ = te._token_plan(s_cap, pen, Lq, Ltb)
+    end_s, end_k, end_cell = res[5]
+    bt_args = (res[4], end_cell, -toff2, end_s, end_k, qlen, tlen, ok)
+    kw = dict(penalties=pen, S=s_cap, K=k_win, token_shift=shift,
+              global_alignment=False, aux_old=ex["aux_old"],
+              k0_old=-(qlen - 1), s_split=S0, return_iters=True)
+    for a, b in zip(device_backtrace_plain(*bt_args, **kw),
+                    device_backtrace(*bt_args, **kw)):
+        assert a.dtype == b.dtype and torch.equal(a, b)

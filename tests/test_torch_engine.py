@@ -256,13 +256,13 @@ def test_config_from_jax_rejects_unported_modes():
     cfg = EngineConfig(penalties=Penalties(4, 6, 2), adaptive=ADAPTIVE)
     assert te.config_from_jax(cfg) == te.EngineConfig(
         penalties=Penalties(4, 6, 2), adaptive=ADAPTIVE)
-    for change in ({"w_win": 32}, {"v_win": 256}, {"aux_kw": 128},
-                   {"prefix": True}):
+    for change in ({"w_win": 32}, {"v_win": 256}, {"aux_kw": 128}):
         with pytest.raises(NotImplementedError):
             te.config_from_jax(dataclasses.replace(cfg, **change))
-    # semi-global is ported
+    # semi-global and the two-phase route's prefix mode are ported
     semi = te.config_from_jax(dataclasses.replace(cfg, global_alignment=False))
     assert not semi.global_alignment
+    assert te.config_from_jax(dataclasses.replace(cfg, prefix=True)).prefix
 
 
 def test_window_origin_and_direct_pack_match_jax():

@@ -57,7 +57,7 @@ pairs = generate_pairs(6, 150, 0.05, seed=9)
 q = generate_pairs(1, 300, 0.0, seed=3)[0][0]
 pairs.append((q, q[:150]))  # its band leaves the tier-0 window
 long_pair = generate_pairs(1, 4300, 0.002, seed=5)  # the long-read engine
-pipe = AlignmentPipeline(PipelineConfig(*args, batch_size=4))
+pipe = AlignmentPipeline(PipelineConfig(*args, batch_size=4, device="cpu"))
 oracle = OracleAligner(*args)
 for (q, t), r in zip(pairs + long_pair, pipe.align_all(pairs + long_pair)):
     o = oracle.align(q, t)
@@ -65,15 +65,18 @@ for (q, t), r in zip(pairs + long_pair, pipe.align_all(pairs + long_pair)):
         o.score, o.cigar(False), o.q_end, o.matches), (q, t)
 assert pipe.served[1] >= 1, pipe.served
 assert any(e == "long" for _, _, e in pipe._engines), pipe._engines
-# semi-global: full token streams, decoded without JAX
+# semi-global: full token streams, decoded without JAX; l=320 takes the
+# two-phase route
 semi = (args[0], Options(False), args[2])
-pipe = AlignmentPipeline(PipelineConfig(*semi, batch_size=4))
+pipe = AlignmentPipeline(PipelineConfig(*semi, batch_size=4, device="cpu"))
 oracle = OracleAligner(*semi)
+pairs += generate_pairs(2, 320, 0.05, seed=11)
 for (q, t), r in zip(pairs, pipe.align_all(pairs)):
     o = oracle.align(q, t)
     assert (r.score, r.cigar(False), r.q_end, r.t_begin, r.matches) == (
         o.score, o.cigar(False), o.q_end, o.t_begin, o.matches), (q, t)
 assert pipe.served["oracle"] == 0, pipe.served
+assert any(e.startswith("semi2:") for _, _, e in pipe._engines), pipe._engines
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r})
 assert not loaded, loaded
 print("no-jax run ok")

@@ -35,8 +35,8 @@ FIELDS = ("score", "q_begin", "q_end", "t_begin", "t_end", "align_len",
 PENALTIES = {"4-6-2": Penalties(4, 6, 2), "2-3-1": Penalties(2, 3, 1)}
 
 
-def _assert_oracle(pairs, results, penalties, adaptive):
-    oracle = OracleAligner(penalties, Options(True), adaptive)
+def _assert_oracle(pairs, results, penalties, adaptive, ga=True):
+    oracle = OracleAligner(penalties, Options(ga), adaptive)
     assert len(results) == len(pairs)
     for (q, t), res in zip(pairs, results):
         ref = oracle.align(q, t)
@@ -193,7 +193,8 @@ def test_raw_outputs_match_jax():
         a, b = np.asarray(jout[key]), tout[key].numpy()
         assert a.dtype == b.dtype and np.array_equal(a, b), key
     assert int(tout["meta"][0, te.M_TRIM]) > 0
-    eng = te.BatchAligner(p, Options(True), ADAPTIVE, k_win=32, s_cap=S)
+    eng = te.BatchAligner(p, Options(True), ADAPTIVE, k_win=32, s_cap=S,
+                          device="cpu")
     res = eng.align_batch(pairs, fallback=False)
     assert all(isinstance(r, te.DeviceResult) for r in res)
     _assert_oracle(pairs, res, p, ADAPTIVE)
@@ -227,7 +228,7 @@ def test_int16_guard_overflows_to_oracle():
     for a, b in zip(plain[:4], (final_s, done, overflow, term_cell)):
         assert torch.equal(a[1:], b[1:])
     eng = te.BatchAligner(p, Options(True), None, k_win=64, s_cap=64,
-                          engine="long")
+                          engine="long", device="cpu")
     assert eng.align_batch(pairs, fallback=False)[0] is None
     _assert_oracle(pairs, eng.align_batch(pairs, fallback=True), p, None)
 
@@ -241,7 +242,7 @@ def test_pipeline_long_reads_match_oracle():
     pairs = (generate_pairs(2, 4500, 0.01, seed=41)
              + generate_pairs(1, 6000, 0.005, seed=42))
     pipe = AlignmentPipeline(PipelineConfig(p, Options(True), ADAPTIVE,
-                                            batch_size=4))
+                                            batch_size=4, device="cpu"))
     _assert_oracle(pairs, pipe.align_all(pairs), p, ADAPTIVE)
     assert pipe.served[0] == len(pairs)
     noisy = pairs + generate_pairs(1, 4500, 0.04, seed=43)
@@ -264,7 +265,7 @@ def test_tier_ladder_matches_jax():
 
     for adaptive in (ADAPTIVE, None):
         args = (Penalties(4, 6, 2), Options(True), adaptive)
-        ours = AlignmentPipeline(PipelineConfig(*args))
+        ours = AlignmentPipeline(PipelineConfig(*args, device="cpu"))
         ref = JaxPipeline(JaxConfig(*args, n_devices=1))
         for length in (1000, 4096, 4500, 50000, 100000):
             for tier in (0, 1, 2):
@@ -282,15 +283,22 @@ def test_tier_ladder_matches_jax():
 
 def test_long_engine_guards():
     """engine="long" runs global alignment only; semi-global reads over
-    4096 bases still raise NotImplementedError."""
+    4096 bases are served (the two-phase route, engine "semi2:<S0>") and
+    equal the oracle."""
     p = Penalties(4, 6, 2)
-    semi = te.BatchAligner(p, Options(False), ADAPTIVE, engine="long")
+    semi = te.BatchAligner(p, Options(False), ADAPTIVE, engine="long",
+                           device="cpu")
     with pytest.raises(ValueError):
         semi.align_batch([(b"ACGT", b"ACGA")])
-    with pytest.raises(NotImplementedError):
-        semi.align_batch([(b"A" * 4097, b"A" * 4097)])
+    semi2 = te.BatchAligner(p, Options(False), ADAPTIVE, k_win=256,
+                            s_cap=256, engine="semi2:64", device="cpu")
+    long = [(b"A" * 4097, b"A" * 4097)]
+    res = semi2.align_batch(long, fallback=False)
+    assert isinstance(res[0], te.DeviceResult)
+    _assert_oracle(long, res, p, ADAPTIVE, ga=False)
     with pytest.raises(ValueError):
-        te.BatchAligner(p, Options(True), ADAPTIVE, engine="pallas")
+        te.BatchAligner(p, Options(True), ADAPTIVE, engine="pallas",
+                        device="cpu")
     cfg = te.EngineConfig(penalties=p, global_alignment=False)
     ins = te.inputs_from_packed(
         te._pack_all([(b"ACGT", b"ACGA")], 128, global_alignment=False),

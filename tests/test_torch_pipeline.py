@@ -5,6 +5,7 @@ must equal ``wfa_tpu.oracle`` on score, CIGAR, q/t begin/end, align_len,
 matches, gaps and gap_regions, whichever tier served the pair, in global
 and semi-global mode."""
 
+import inspect
 import random
 
 import pytest
@@ -60,7 +61,8 @@ def test_pipeline_matches_oracle(penalties, adaptive, ga):
     pairs += list(read_pairs("tests/data/seqs.txt"))[:3]
     pairs += [(q, t) for q, t, _, _ in GOLDEN + SEMI_GOLDEN]
     pipe = AlignmentPipeline(PipelineConfig(penalties, Options(ga),
-                                            adaptive, batch_size=16))
+                                            adaptive, batch_size=16,
+                                            device="cpu"))
     _assert_oracle(pairs, pipe.align_all(pairs), penalties, adaptive, ga)
     # a second call runs at the score caps the first one learned
     _assert_oracle(pairs, pipe.align_all(pairs), penalties, adaptive, ga)
@@ -68,7 +70,7 @@ def test_pipeline_matches_oracle(penalties, adaptive, ga):
 
 def test_pipeline_golden_values():
     pipe = AlignmentPipeline(PipelineConfig(Penalties(4, 6, 2), Options(True),
-                                            ADAPTIVE))
+                                            ADAPTIVE, device="cpu"))
     seqs = list(read_pairs("tests/data/seqs.txt"))[0]
     res = pipe.align_all([(q, t) for q, t, _, _ in GOLDEN] + [seqs])
     for r, (_, _, score, cigar) in zip(res, GOLDEN):
@@ -81,7 +83,8 @@ def test_pipeline_golden_values():
 
 def test_pipeline_semi_golden_values():
     pipe = AlignmentPipeline(PipelineConfig(Penalties(4, 6, 2),
-                                            Options(False), ADAPTIVE))
+                                            Options(False), ADAPTIVE,
+                                            device="cpu"))
     res = pipe.align_all([(q, t) for q, t, _, _ in SEMI_GOLDEN])
     for r, (_, _, score, cigar) in zip(res, SEMI_GOLDEN):
         assert isinstance(r, DeviceResult)
@@ -97,7 +100,8 @@ def test_pipeline_full_token_stream(monkeypatch):
     p = Penalties(4, 6, 2)
     pairs = generate_pairs(8, 120, 0.05, seed=6)
     pairs += [(q, t) for q, t, _, _ in GOLDEN]
-    eng = BatchAligner(p, Options(True), ADAPTIVE, k_win=128, s_cap=256)
+    eng = BatchAligner(p, Options(True), ADAPTIVE, k_win=128, s_cap=256,
+                       device="cpu")
     res = eng.align_batch(pairs)
     assert all(not isinstance(r._raw_tokens, tuple) for r in res)
     _assert_oracle(pairs, res, p, ADAPTIVE)
@@ -109,7 +113,8 @@ def test_token_format_fixed_at_submit(monkeypatch):
     says by then."""
     p = Penalties(4, 6, 2)
     pairs = generate_pairs(4, 120, 0.05, seed=8)
-    eng = BatchAligner(p, Options(True), ADAPTIVE, k_win=128, s_cap=256)
+    eng = BatchAligner(p, Options(True), ADAPTIVE, k_win=128, s_cap=256,
+                       device="cpu")
     monkeypatch.setenv("WFA_EDIT_TOKENS", "0")
     full = eng.submit_batch(pairs)
     monkeypatch.delenv("WFA_EDIT_TOKENS")
@@ -133,7 +138,7 @@ def test_semi_score_memory_holds_the_global_end():
         read, target = generate_pairs(1, 300, 0.02, seed=seed)[0]
         pairs.append((read[off:off + 150], target))
     pipe = AlignmentPipeline(PipelineConfig(p, Options(False), ADAPTIVE,
-                                            s_cap_base=64))
+                                            s_cap_base=64, device="cpu"))
     first = pipe.align_all(pairs)
     _assert_oracle(pairs, first, p, ADAPTIVE, ga=False)
     assert pipe.served[0] == len(pairs), pipe.served
@@ -151,38 +156,59 @@ def test_pipeline_tier_retry_and_oracle_tier():
     q = generate_pairs(1, 300, 0.0, seed=3)[0][0]
     pairs = [(q, q[:150]), (q[:140], q)] + generate_pairs(6, 120, 0.05, seed=4)
     pipe = AlignmentPipeline(PipelineConfig(p, Options(True), ADAPTIVE,
-                                            batch_size=4))
+                                            batch_size=4, device="cpu"))
     _assert_oracle(pairs, pipe.align_all(pairs), p, ADAPTIVE)
     assert pipe.served[1] >= 2 and pipe.served["oracle"] == 0
 
     noisy = generate_pairs(5, 200, 0.3, seed=5)
     small = AlignmentPipeline(PipelineConfig(
-        p, Options(True), ADAPTIVE, batch_size=4, mem_budget=12 * 128 * 64))
+        p, Options(True), ADAPTIVE, batch_size=4, mem_budget=12 * 128 * 64,
+        device="cpu"))
     _assert_oracle(noisy, small.align_all(noisy), p, ADAPTIVE)
     assert small.served["oracle"] == len(noisy)
 
 
 def test_guards_and_unported_modes():
     p = Penalties(4, 6, 2)
-    pipe = AlignmentPipeline(PipelineConfig(p, Options(True), ADAPTIVE))
+    pipe = AlignmentPipeline(PipelineConfig(p, Options(True), ADAPTIVE,
+                                            device="cpu"))
     res = pipe.align_all([(b"", b"ACGT"), (b"ACGT", b"ACGA")])
     assert isinstance(res[0].error, EmptySeqError)
     assert res[1].error is None and res[1].score == 4
     with pytest.raises(EmptySeqError):
-        BatchAligner(p, Options(True), ADAPTIVE).align_batch([(b"A", b"")])
+        BatchAligner(p, Options(True), ADAPTIVE, device="cpu").align_batch(
+            [(b"A", b"")])
     with pytest.raises(ValueError):
-        BatchAligner(p, Options(True), AdaptiveReductionOption(0, 50, 1))
+        BatchAligner(p, Options(True), AdaptiveReductionOption(0, 50, 1),
+                     device="cpu")
     # semi-global is ported: the pipeline and the aligner take it
-    semi = AlignmentPipeline(PipelineConfig(p, Options(False), ADAPTIVE))
+    semi = AlignmentPipeline(PipelineConfig(p, Options(False), ADAPTIVE,
+                                            device="cpu"))
     res = semi.align_all([(b"", b"ACGT"), (b"ACGT", b"TTACGTTT")])
     assert isinstance(res[0].error, EmptySeqError)
     assert res[1].error is None and res[1].cigar(False) == "2I4M2I"
-    assert BatchAligner(p, Options(False), ADAPTIVE).align_batch(
+    assert BatchAligner(p, Options(False), ADAPTIVE, device="cpu").align_batch(
         [(b"ACGT", b"ACGA")])[0].score == res[1].score + 4
-    # global reads over 4096 bases align (the long-read engine); semi-
-    # global ones are not ported yet
+    # reads over 4096 bases align: global ones on the long-read engine,
+    # semi-global ones on the two-phase route
     long = [(b"A" * 4097, b"A" * 4097), (b"AC" * 2100, b"AG" + b"AC" * 2099)]
     _assert_oracle(long, pipe.align_all(long), p, ADAPTIVE)
     assert {e for _, _, e in pipe._engines} == {"auto", "long"}
-    with pytest.raises(NotImplementedError):
-        semi.align_all([(b"A" * 4097, b"A" * 4097)])
+    _assert_oracle(long[:1], semi.align_all(long[:1]), p, ADAPTIVE, ga=False)
+    assert semi.served[0] == 1
+    assert {e for _, _, e in semi._engines} == {"auto", "semi2:64"}
+
+
+def test_default_device_is_the_card():
+    """Both entry points run on the card unless the caller asks for the
+    CPU; with no card the default raises instead of running on the CPU."""
+    assert PipelineConfig().device == "cuda"
+    assert inspect.signature(BatchAligner).parameters["device"].default == (
+        "cuda")
+    if torch.cuda.is_available():
+        assert BatchAligner().device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BatchAligner()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AlignmentPipeline(PipelineConfig()).align_all([(b"ACGT", b"ACGA")])

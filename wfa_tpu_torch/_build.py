@@ -35,10 +35,19 @@ _SIGNATURES = {
     # qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S, K, x, oe, e, reduce_on,
     # min_wf_len, max_dist_diff, mode, win, out, aux, aux_base, stream
     "wfa_score_loop": [_P] * 5 + [_I] * 12 + [_P] * 5,
-    # aux, aux_base, start_cell, k0, start_s, start_k, qlen, tlen, active0,
-    # B, S, K, x, oe, e, it_cap, token_shift, split, semi, tok0, buf, tail,
-    # iters, stream
-    "wfa_backtrace": [_P] * 9 + [_I] * 10 + [_P] * 5,
+    # qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S0, Kf, K2, x, oe, e,
+    # reduce_on, min_wf_len, max_dist_diff, cell16, win, aux_old, win_m,
+    # win_i, win_d, ainit, b_m, b_ie, meta1, stream
+    "wfa_prefix": [_P] * 5 + [_I] * 13 + [_P] * 10,
+    # qb, tbuf2, qlen, tlen, toff2, B, Lq, Ltb2, S, S0, K, x, oe, e,
+    # reduce_on, min_wf_len, max_dist_diff, cell16, win, out, aux2, win_m,
+    # win_i, win_d, ainit, b_m, b_ie, meta1, stream
+    "wfa_resume": [_P] * 5 + [_I] * 13 + [_P] * 11,
+    # aux, aux_c16, aux_base, aux_old, old_c16, s_split, Kf, k0_old,
+    # start_cell, k0, start_s, start_k, qlen, tlen, active0, B, S, K, x, oe,
+    # e, it_cap, token_shift, split, semi, tok0, buf, tail, iters, stream
+    "wfa_backtrace": ([_P, _I, _P, _P, _I, _I, _I] + [_P] * 8 + [_I] * 10
+                      + [_P] * 5),
 }
 
 _lib = None

@@ -1,15 +1,22 @@
 // Kernel K2: the backtrace chase, one thread per pair.
 //
 // Replaces the XLA while_loop of wfa_tpu/device_backtrace.py:276-547
-// (device_backtrace, global or semi-global alignment, one aux tensor,
-// pairs not on lanes).  That loop steps every pair of the batch in lockstep; written
-// as torch ops it would cost one launch per op per step, for up to
+// (device_backtrace, global or semi-global alignment, one aux tensor or
+// the two-phase route's two, pairs not on lanes).  That loop steps every
+// pair of the batch in lockstep; written as torch ops it would cost one
+// launch per op per step, for up to
 // iter_capacity steps.  Here each thread walks its own pair to the end.
 //
-// Two aux forms: int32 cells (offset0 << 3 | tag) from the score loop, or
-// the long-read score loop's value-rebased int16 cells, whose found cells
-// hold offset0 - aux_base[b, s] + 1 (device_backtrace.py:327-331,
-// 379-383); read_aux is templated on the cell type and adds the base back.
+// Aux forms: int32 or int16 cells (offset0 << 3 | tag) from the score
+// loop, or the long-read score loop's value-rebased int16 cells, whose
+// found cells hold offset0 - aux_base[b, s] + 1 (device_backtrace.py:
+// 327-331, 379-383); read_aux adds the base back.  The two-phase
+// semi-global route hands in two aux tensors (device_backtrace.py:281,
+// 335-375): scores below s_split read phase 1's full-span aux_old
+// [3, s_split, B, Kf] at window origin k0_old = -(qlen - 1), the rest
+// phase 2's aux [3, S - s_split, B, K] at origin k0; each tensor's cell
+// width is its own.  The choice is per step and costs one select of the
+// view and origin, so the chains do not diverge on it.
 //
 // What bounds it on the card: one dependent 4-byte aux read per step
 // (an L2 or HBM latency, ~iter_capacity steps per pair; a rebased read
@@ -48,17 +55,40 @@ struct AuxCell {
   bool found;
 };
 
-// One aux cell at (s, comp, k); `base` (int32[B, S]) is null for int32
-// cells and the per-row value base of rebased int16 cells.
-template <typename Cell>
-__device__ __forceinline__ AuxCell read_aux(const Cell* __restrict__ aux,
+// An aux tensor [3, rows, B, K] of int16 or int32 cells holding scores
+// s_lo .. s_lo + rows - 1
+struct AuxView {
+  const void* p;
+  int rows;
+  int K;
+  int s_lo;
+  bool c16;
+};
+
+__device__ __forceinline__ int load_cell(const AuxView& a, int comp, int s,
+                                         int B, int b, int j) {
+  const int64_t i = ((int64_t)(comp * a.rows + s - a.s_lo) * B + b) * a.K + j;
+  return a.c16 ? static_cast<const int16_t*>(a.p)[i]
+               : static_cast<const int32_t*>(a.p)[i];
+}
+
+// One aux cell at (s, comp, k): from `old` at origin k0_old below cur's
+// first score (the two-phase split; `old` is empty otherwise), else from
+// `cur` at origin k0.  `base` (int32[B, S]) is null but for rebased cells,
+// where it holds each row's value base.
+__device__ __forceinline__ AuxCell read_aux(const AuxView& cur,
+                                            const AuxView& old,
                                             const int32_t* __restrict__ base,
-                                            int S, int B, int K, int b,
-                                            int k0, int s, int comp, int k) {
-  int j = k - k0;
+                                            int S, int B, int b, int k0,
+                                            int k0_old, int s, int comp,
+                                            int k) {
+  const bool use_old = s < cur.s_lo;
+  const AuxView& a = use_old ? old : cur;
+  const int j = k - (use_old ? k0_old : k0);
+  const int s_end = use_old ? cur.s_lo : S;
   AuxCell r{0, 0, false};
-  if (s >= 0 && s < S && j >= 0 && j < K) {
-    int cell = aux[((int64_t)(comp * S + s) * B + b) * K + j];
+  if (s >= a.s_lo && s < s_end && j >= 0 && j < a.K) {
+    const int cell = load_cell(a, comp, s, B, b, j);
     if (cell > 0) {
       int off = cell >> 3;
       if (base != nullptr) off += base[(int64_t)b * S + s] - 1;
@@ -68,9 +98,10 @@ __device__ __forceinline__ AuxCell read_aux(const Cell* __restrict__ aux,
   return r;
 }
 
-template <typename Tok, typename Cell>
+template <typename Tok>
 __global__ void backtrace_kernel(
-    const Cell* __restrict__ aux, const int32_t* __restrict__ aux_base,
+    AuxView cur, AuxView old, const int32_t* __restrict__ k0_old,
+    const int32_t* __restrict__ aux_base,
     const int32_t* __restrict__ start_cell,
     const int32_t* __restrict__ k0s, const int32_t* __restrict__ start_s,
     const int32_t* __restrict__ start_k, const int32_t* __restrict__ qlen,
@@ -84,6 +115,7 @@ __global__ void backtrace_kernel(
   auto pack = [shift](int code, int n) { return (Tok)((code << shift) | n); };
 
   const int ql = qlen[b], tl = tlen[b], k0 = k0s[b];
+  const int k0o = k0_old != nullptr ? k0_old[b] : 0;
   const bool act = active0[b] != 0;
   const int raw = start_cell[b];
   int tag = raw & 7;
@@ -105,7 +137,7 @@ __global__ void backtrace_kernel(
   int comp = 0;
   int it = 0;
   while (alive) {
-    AuxCell c = read_aux(aux, aux_base, S, B, K, b, k0, s, comp, k);
+    AuxCell c = read_aux(cur, old, aux_base, S, B, b, k0, k0o, s, comp, k);
     if (pending) {
       if (c.found) tag = c.tag;
       else alive = false;
@@ -151,7 +183,7 @@ __global__ void backtrace_kernel(
   }
   // the reference updates the tag before its loop check (wfa.go:915-920)
   if (pending) {
-    AuxCell c = read_aux(aux, aux_base, S, B, K, b, k0, s, comp, k);
+    AuxCell c = read_aux(cur, old, aux_base, S, B, b, k0, k0o, s, comp, k);
     if (c.found) tag = c.tag;
   }
 
@@ -174,37 +206,34 @@ __global__ void backtrace_kernel(
 }
 
 template <typename Tok>
-void launch_tok(const void* aux, const int32_t* aux_base,
-                const int32_t* start_cell, const int32_t* k0,
-                const int32_t* start_s, const int32_t* start_k,
-                const int32_t* qlen, const int32_t* tlen,
-                const uint8_t* active0, int B, int S, int K, int x, int oe,
-                int e, int it_cap, int token_shift, int split, int semi,
-                void* tok0, void* buf, void* tail, int32_t* iters,
-                cudaStream_t st) {
+void launch_tok(AuxView cur, AuxView old, const int32_t* k0_old,
+                const int32_t* aux_base, const int32_t* start_cell,
+                const int32_t* k0, const int32_t* start_s,
+                const int32_t* start_k, const int32_t* qlen,
+                const int32_t* tlen, const uint8_t* active0, int B, int S,
+                int K, int x, int oe, int e, int it_cap, int token_shift,
+                int split, int semi, void* tok0, void* buf, void* tail,
+                int32_t* iters, cudaStream_t st) {
   const int threads = 128;
   const int blocks = (B + threads - 1) / threads;
-  Tok* t0 = static_cast<Tok*>(tok0);
-  Tok* bf = static_cast<Tok*>(buf);
-  Tok* tl = static_cast<Tok*>(tail);
-  if (aux_base != nullptr) {
-    backtrace_kernel<Tok, int16_t><<<blocks, threads, 0, st>>>(
-        static_cast<const int16_t*>(aux), aux_base, start_cell, k0, start_s,
-        start_k, qlen, tlen, active0, B, S, K, x, oe, e, it_cap, token_shift,
-        split, semi, t0, bf, tl, iters);
-  } else {
-    backtrace_kernel<Tok, int32_t><<<blocks, threads, 0, st>>>(
-        static_cast<const int32_t*>(aux), nullptr, start_cell, k0, start_s,
-        start_k, qlen, tlen, active0, B, S, K, x, oe, e, it_cap, token_shift,
-        split, semi, t0, bf, tl, iters);
-  }
+  backtrace_kernel<Tok><<<blocks, threads, 0, st>>>(
+      cur, old, k0_old, aux_base, start_cell, k0, start_s, start_k, qlen,
+      tlen, active0, B, S, K, x, oe, e, it_cap, token_shift, split, semi,
+      static_cast<Tok*>(tok0), static_cast<Tok*>(buf),
+      static_cast<Tok*>(tail), iters);
 }
 
 }  // namespace
 
-// aux is int32[3, S, B, K] when aux_base is null, else the value-rebased
-// int16[3, S, B, K] with its bases int32[B, S]; iters is int32[B]
-extern "C" int wfa_backtrace(const void* aux, const int32_t* aux_base,
+// aux is [3, S - s_split, B, K] of int16 (aux_c16) or int32 cells; with
+// aux_base (int32[B, S]) the value-rebased int16 cells of the long-read
+// score loop.  With s_split > 0, aux_old [3, s_split, B, Kf] (int16 when
+// old_c16) holds the scores below s_split at window origins k0_old.
+// iters is int32[B].
+extern "C" int wfa_backtrace(const void* aux, int aux_c16,
+                             const int32_t* aux_base, const void* aux_old,
+                             int old_c16, int s_split, int Kf,
+                             const int32_t* k0_old,
                              const int32_t* start_cell, const int32_t* k0,
                              const int32_t* start_s, const int32_t* start_k,
                              const int32_t* qlen, const int32_t* tlen,
@@ -214,18 +243,13 @@ extern "C" int wfa_backtrace(const void* aux, const int32_t* aux_base,
                              void* tok0, void* buf, void* tail,
                              int32_t* iters, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const AuxView cur{aux, S - s_split, K, s_split, aux_c16 != 0};
+  const AuxView old{aux_old, s_split, Kf, 0, old_c16 != 0};
   if (B > 0) {
-    if (token_shift <= 12) {
-      launch_tok<int16_t>(aux, aux_base, start_cell, k0, start_s, start_k,
-                          qlen, tlen, active0, B, S, K, x, oe, e, it_cap,
-                          token_shift, split, semi, tok0, buf, tail, iters,
-                          st);
-    } else {
-      launch_tok<int32_t>(aux, aux_base, start_cell, k0, start_s, start_k,
-                          qlen, tlen, active0, B, S, K, x, oe, e, it_cap,
-                          token_shift, split, semi, tok0, buf, tail, iters,
-                          st);
-    }
+    auto run = token_shift <= 12 ? &launch_tok<int16_t> : &launch_tok<int32_t>;
+    run(cur, old, k0_old, aux_base, start_cell, k0, start_s, start_k, qlen,
+        tlen, active0, B, S, K, x, oe, e, it_cap, token_shift, split, semi,
+        tok0, buf, tail, iters, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

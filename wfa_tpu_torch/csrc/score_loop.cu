@@ -72,19 +72,55 @@
 // sequence bytes, so nothing outruns: a pair the TPU kernel overflows for
 // an outrun is served here at tier 0.
 //
+// Two-phase semi-global route (PHASE != kFull, semi-global only): the
+// port of wfa_tpu/semi2.py's phase 1 and phase 2, with the same extend,
+// terminate, reduce, next and end-finder code.
+//  * K3, the prefix export (PHASE = kPrefix): replaces the TPU kernels
+//    wfa_tpu/pallas_prefix.py::_kernel (92-904, via
+//    pallas_run_prefix_chunked) and pallas_engine.py::_kernel in its
+//    EXPORT+VSPACE mode (via pallas_run_prefix, 1259-1391, the penalties
+//    the chunked kernel refuses); K3 runs at any penalties.  The pair
+//    seeds over the full span Kf and runs scores 0 .. S0 - 1 with the
+//    fused end finder; aux rows 0 .. S0 - 1 go to aux_old[3, S0, B, Kf]
+//    (int16 cells when the buffer allows), the aux row S0 that next() of
+//    step S0 - 1 writes is staged in the pair's scratch.  At exit the
+//    kernel computes meta1 (done, final_s, term_cell, the end finder's
+//    raw state, overflow2, k02: wfa_tpu/semi2.py:48-52, 182-206) from the
+//    band union of every slot next() can still read plus Ak, and writes
+//    the window rows, ainit and the band slots ALREADY REBASED to the
+//    narrow window of origin k02 and width K2, in JAX's slot order (slot r
+//    holds the score in (S0 - W, S0] congruent to r mod W, which is where
+//    the circular windows keep it), so no gather pass follows.
+//  * K4, the resume (PHASE = kResume): replaces pallas_engine.py::_kernel
+//    with RESUME = S0 (via pallas_run_resume, 1394-1578).  No seeding: the
+//    windows, band slots and aux row S0 come from those exports, done,
+//    final_s, term_cell and the end finder's state from meta1, and the
+//    pair runs scores S0 .. S - 1 in the narrow window (origin k02 =
+//    -toff2; toff2 < 0 means the target row holds the target's suffix
+//    from k02 on, and every read stays at h >= k > k02).  Aux rows S0 ..
+//    go to aux2[3, S - S0, B, K].  Pairs done or escaped at S0 (meta1, or
+//    Ak outside the window) do not run.  The TPU kernel's streamed table
+//    window can overflow a pair or cancel a termination on an outrun; K4
+//    compares bytes and has no such window.
+// What neither carries over: the REORDER pass order, the KC chunks and
+// guard rows, the v-space shear, 128-lane padding.
+//
 // What bounds it: each step is a short chain of dependent L1/L2 reads
 // and block barriers per pair; K = 128 diagonals give one cell per
 // thread, and 2048 pairs fill the card's 132 SMs with ~16 blocks each.
 // Semi-global windows are the full span (K = 2048 at l = 1000), and every
 // pass strides over all K columns even after the band has collapsed to
 // tens of diagonals: the whole-window aux rows and window passes are its
-// cost.  Long reads: at l = 50000, e = 0.05 (s_cap ~27,520 at tier 0,
+// cost.  K3 strides the full span (Kf = 20,096 at l = 10000) for only
+// S0 = 64 steps, K4 the narrow window (256 or 512).  Long reads: at
+// l = 50000, e = 0.05 (s_cap ~27,520 at tier 0,
 // K = 384, final_s ~14,500) each pair is a serial chain of ~14,500 steps of
 // block barriers; the aux rows, 6 B x 14,500 x 384 x 64 pairs ~ 2.1 GB,
 // take ~0.64 ms at 3.35 TB/s, so the chain latency, not memory, sets the
 // time, and a 64-pair batch fills only 64 of the 132 SMs.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -95,6 +131,28 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kInsOpen = 1, kInsExt = 2, kDelOpen = 3, kDelExt = 4;
 constexpr int kMismatch = 5, kMatch = 6;
 constexpr int kMaxRebased = 4095;  // (v << 3) | tag must fit int16
+// score-loop phases: the whole run, or phase 1 / phase 2 of the two-phase
+// semi-global route
+constexpr int kFull = 0, kPrefix = 1, kResume = 2;
+// meta1 columns (wfa_tpu/semi2.py:48-52)
+constexpr int kM1Done = 0, kM1Fs = 1, kM1Term = 2, kM1EFound = 3, kM1Es = 4,
+              kM1Ek = 5, kM1ECell = 6, kM1Ovf = 7, kM1K02 = 8, kM1Cols = 9;
+
+// The phase-1 exports in the JAX layouts: win_m[WM, B, K2],
+// win_i/win_d[WE, B, K2], ainit[3, B, K2], b_m[3 WM, B] (lo, hi, ex rows),
+// b_ie[6 WE, B] (I lo, hi, ex, then D), meta1[B, 9].  K3 writes them, K4
+// reads them; null in the other phases.
+struct Handoff {
+  int32_t* win_m;
+  int32_t* win_i;
+  int32_t* win_d;
+  int32_t* ainit;
+  int32_t* b_m;
+  int32_t* b_ie;
+  int32_t* meta1;
+  int S0;  // the score phase 2 resumes at
+  int K2;  // the narrow window's width
+};
 
 // Block-wide minimum of N values at once (a maximum passes its negation;
 // all values lie in [-kBig, kBig]).  Every thread gets the results.
@@ -155,16 +213,28 @@ __device__ __forceinline__ bool src(const int32_t* row, bool present, int lo,
   return true;
 }
 
-// Cell: int32 aux cells, or the value-rebased int16 cells of REBASE mode
-template <bool GLOBAL, bool REBASE, typename Cell>
+// Cell: int32 aux cells, the value-rebased int16 cells of REBASE mode, or
+// the int16 cells of a two-phase semi-global phase whose offsets fit them
+template <bool GLOBAL, bool REBASE, int PHASE, typename Cell>
 __global__ void __launch_bounds__(kThreads) score_loop_kernel(
     const uint8_t* __restrict__ qb, const uint8_t* __restrict__ tbuf,
     const int32_t* __restrict__ qlen, const int32_t* __restrict__ tlen,
     const int32_t* __restrict__ toff, int B, int Lq, int Ltb, int S, int K,
     int x, int oe, int e, int reduce_on, int min_wf_len, int max_dist_diff,
     int32_t* __restrict__ win, int32_t* __restrict__ out,
-    Cell* __restrict__ aux, int32_t* __restrict__ aux_base) {
+    Cell* __restrict__ aux, int32_t* __restrict__ aux_base, Handoff ho) {
   static_assert(GLOBAL || !REBASE, "the long-read mode is global only");
+  static_assert(PHASE == kFull || (!GLOBAL && !REBASE),
+                "the two-phase route is semi-global");
+  // staged aux rows in the pair's scratch: REBASE's newest rows, or the
+  // prefix's aux row S0 (ainit)
+  constexpr bool kStage = REBASE || PHASE == kPrefix;
+  using Dst = std::conditional_t<REBASE, int32_t, Cell>;
+  const int S0 = PHASE == kFull ? 0 : ho.S0;
+  // aux rows held and the score of the first: S rows, the prefix's S0,
+  // the resume's S - S0 from score S0
+  const int Sa = PHASE == kFull ? S : (PHASE == kPrefix ? S0 : S - S0);
+  const int s_lo = PHASE == kResume ? S0 : 0;
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int WM = max(x, oe) + 1, WE = e + 1;
@@ -179,19 +249,25 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
 
   const int ql = qlen[b], tl = tlen[b], tof = toff[b];
   const int k0 = -tof, Ak = tl - ql, jak = Ak - k0;
-  // per-pair scratch: the windows, then (REBASE) the three staged rows
-  int32_t* Mw = win + (int64_t)b * (WM + 2 * WE + (REBASE ? 3 : 0)) * K;
+  // per-pair scratch: the windows, then the three staged rows
+  int32_t* Mw = win + (int64_t)b * (WM + 2 * WE + (kStage ? 3 : 0)) * K;
   int32_t* Iw = Mw + (int64_t)WM * K;
   int32_t* Dw = Iw + (int64_t)WE * K;
   auto aux_row = [&](int comp, int s) {
-    return aux + ((int64_t)(comp * S + s) * B + b) * K;
+    return aux + ((int64_t)(comp * Sa + s - s_lo) * B + b) * K;
   };
-  // where seeding, reduce and next put a row's aux: the output row, or
-  // in REBASE mode the int32 staging rows after the I and D windows
+  // where seeding, reduce and next put a row's aux: the output row, in
+  // REBASE mode the int32 staging rows after the I and D windows, and for
+  // the prefix's row S0 the same staging rows, holding Cell values
   int32_t* stage = Dw + (int64_t)WE * K;
-  auto aux_dst = [&](int comp, int s) -> int32_t* {
-    if constexpr (REBASE) return stage + (int64_t)comp * K;
-    else return reinterpret_cast<int32_t*>(aux_row(comp, s));
+  auto aux_dst = [&](int comp, int s) -> Dst* {
+    if constexpr (REBASE) {
+      return stage + (int64_t)comp * K;
+    } else {
+      if (PHASE == kPrefix && s == S0)
+        return reinterpret_cast<Cell*>(stage + (int64_t)comp * K);
+      return aux_row(comp, s);
+    }
   };
   // REBASE: write the staged row s rebased; false when a value is too
   // wide for the int16 cell
@@ -221,9 +297,17 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
     return r[0] == kBig || -r[1] - base + 1 <= kMaxRebased;
   };
 
-  // the window must hold the seed diagonals and the terminal one
-  bool overflow = Ak < k0 || Ak >= k0 + K || 0 < k0 || 0 >= k0 + K;
-  if (!GLOBAL) overflow = overflow || tl - 1 >= k0 + K;
+  // the window must hold the seed diagonals and the terminal one; the
+  // resume's holds the terminal one, and meta1 says who escaped phase 1
+  const int32_t* m1 =
+      PHASE == kResume ? ho.meta1 + (int64_t)b * kM1Cols : nullptr;
+  bool overflow;
+  if (PHASE == kResume) {
+    overflow = m1[kM1Ovf] != 0 || Ak < k0 || Ak >= k0 + K;
+  } else {
+    overflow = Ak < k0 || Ak >= k0 + K || 0 < k0 || 0 >= k0 + K;
+    if (!GLOBAL) overflow = overflow || tl - 1 >= k0 + K;
+  }
   const uint8_t* q = qb + (int64_t)b * Lq;
   const uint8_t* t = tbuf + (int64_t)b * Ltb + tof;  // t[h], valid if !overflow
   bool done = false;
@@ -231,8 +315,32 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
   // semi-global end finder: the first success over ascending s
   bool end_found = false;
   int end_s = 0, end_k = 0, end_cell = 0;
+  if (PHASE == kResume) {  // phase 1's results and end-finder state
+    done = m1[kM1Done] != 0;
+    final_s = m1[kM1Fs];
+    term_cell = m1[kM1Term];
+    end_found = m1[kM1EFound] != 0;
+    end_s = m1[kM1Es];
+    end_k = m1[kM1Ek];
+    end_cell = m1[kM1ECell];
+  }
+  // the prefix's per-pair summary (wfa_tpu/semi2.py:235-238)
+  auto write_meta1 = [&](int k02, bool ovf2) {
+    if (PHASE == kPrefix && tid == 0) {
+      int32_t* m = ho.meta1 + (int64_t)b * kM1Cols;
+      m[kM1Done] = done;
+      m[kM1Fs] = final_s;
+      m[kM1Term] = term_cell;
+      m[kM1EFound] = end_found;
+      m[kM1Es] = end_s;
+      m[kM1Ek] = end_k;
+      m[kM1ECell] = end_cell;
+      m[kM1Ovf] = ovf2;
+      m[kM1K02] = k02;
+    }
+  };
   auto write_out = [&]() {
-    if (tid == 0) {
+    if (PHASE != kPrefix && tid == 0) {
       const bool use_end = !GLOBAL && done && !overflow && end_found;
       out[b] = final_s;
       out[B + b] = done;
@@ -249,81 +357,116 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
     // a mismatch seed beyond the score cap can never be reached
     if (!eq00 && x >= S && x > 0) overflow = true;
   }
-  if (overflow) {
+  if (overflow || (PHASE == kResume && done)) {
     write_out();
+    write_meta1(-(ql - 1), true);
     return;
   }
 
-  for (int i = tid; i < WM * K; i += kThreads) Mw[i] = 0;
-  for (int i = tid; i < WE * K; i += kThreads) Iw[i] = Dw[i] = 0;
-  if (REBASE)
-    for (int i = tid; i < 3 * K; i += kThreads) stage[i] = 0;
-  __syncthreads();
-  if constexpr (GLOBAL) {
-    // ---- seeding (wfa.go:143-184): one cell, diagonal 0 at offset 1
-    const int j0 = -k0;
-    const int cell0 = (1 << 3) | (eq00 ? kMatch : kMismatch);
-    const int seed_row = (eq00 || x == 0) ? 0 : x;
-    if (tid == 0) {
-      Mw[seed_row * K + j0] = cell0;
-      for (int r = 0; r < WM; ++r) {
-        mb.lo[r] = r == seed_row ? 0 : kBig;
-        mb.hi[r] = r == seed_row ? 0 : -kBig;
-        mb.ex[r] = r == seed_row;
+  if constexpr (PHASE == kResume) {
+    // ---- the phase-1 handoff: window rows, band slots, aux row S0
+    for (int r = 0; r < WM; ++r)
+      for (int j = tid; j < K; j += kThreads)
+        Mw[r * K + j] = ho.win_m[((int64_t)r * B + b) * K + j];
+    for (int r = 0; r < WE; ++r)
+      for (int j = tid; j < K; j += kThreads) {
+        Iw[r * K + j] = ho.win_i[((int64_t)r * B + b) * K + j];
+        Dw[r * K + j] = ho.win_d[((int64_t)r * B + b) * K + j];
       }
+    for (int c = 0; c < 3; ++c)
+      for (int j = tid; j < K; j += kThreads)
+        aux_row(c, S0)[j] =
+            static_cast<Cell>(ho.ainit[((int64_t)c * B + b) * K + j]);
+    if (tid == 0) {
+      for (int r = 0; r < WM; ++r) {
+        mb.lo[r] = ho.b_m[(int64_t)r * B + b];
+        mb.hi[r] = ho.b_m[(int64_t)(WM + r) * B + b];
+        mb.ex[r] = ho.b_m[(int64_t)(2 * WM + r) * B + b];
+      }
+      const Band* cb[2] = {&ib, &db};
+      for (int c = 0; c < 2; ++c)
+        for (int r = 0; r < WE; ++r) {
+          const int32_t* src_b = ho.b_ie + (int64_t)(3 * c * WE + r) * B + b;
+          cb[c]->lo[r] = src_b[0];
+          cb[c]->hi[r] = src_b[(int64_t)WE * B];
+          cb[c]->ex[r] = src_b[(int64_t)2 * WE * B];
+        }
     }
-    // aux row 0: seed cells have no sources, so their aux is the tag bits
-    for (int j = tid; j < K; j += kThreads) {
-      aux_dst(0, 0)[j] = (seed_row == 0 && j == j0) ? (cell0 & 7) : 0;
-      aux_dst(1, 0)[j] = 0;
-      aux_dst(2, 0)[j] = 0;
-    }
+    __syncthreads();
   } else {
-    // ---- semi-global seeding (wfa.go:163-183): k in [-(qlen-1), tlen-1],
-    // k >= 0 at offset k+1 from q[0] == t[k], k < 0 at offset 1 from
-    // q[-k] == t[0]; match seeds in row 0, mismatch seeds in row x
-    int rs[4] = {kBig, kBig, kBig, kBig};  // min k, -max k of rows 0, x
-    for (int j = tid; j < K; j += kThreads) {
-      const int k = k0 + j;
-      int aux0 = 0;
-      if (k <= tl - 1 && k >= -(ql - 1)) {
-        const bool eq = k >= 0 ? q[0] == t[k] : q[-k] == t[0];
-        const int seed = ((k >= 0 ? k + 1 : 1) << 3) | (eq ? kMatch : kMismatch);
-        const int r = (eq || x == 0) ? 0 : 1;
-        rs[2 * r] = min(rs[2 * r], k);
-        rs[2 * r + 1] = min(rs[2 * r + 1], -k);
-        Mw[(r ? x : 0) * K + j] = seed;  // x < WM
-        if (r == 0) aux0 = seed & 7;
+    for (int i = tid; i < WM * K; i += kThreads) Mw[i] = 0;
+    for (int i = tid; i < WE * K; i += kThreads) Iw[i] = Dw[i] = 0;
+    if (kStage)
+      for (int i = tid; i < 3 * K; i += kThreads) stage[i] = 0;
+    __syncthreads();
+    if constexpr (GLOBAL) {
+      // ---- seeding (wfa.go:143-184): one cell, diagonal 0 at offset 1
+      const int j0 = -k0;
+      const int cell0 = (1 << 3) | (eq00 ? kMatch : kMismatch);
+      const int seed_row = (eq00 || x == 0) ? 0 : x;
+      if (tid == 0) {
+        Mw[seed_row * K + j0] = cell0;
+        for (int r = 0; r < WM; ++r) {
+          mb.lo[r] = r == seed_row ? 0 : kBig;
+          mb.hi[r] = r == seed_row ? 0 : -kBig;
+          mb.ex[r] = r == seed_row;
+        }
       }
-      aux_dst(0, 0)[j] = aux0;
-      aux_dst(1, 0)[j] = 0;
-      aux_dst(2, 0)[j] = 0;
-    }
-    block_min(rs, red);
-    // a mismatch seed beyond the score cap can never be reached
-    if (x >= S && rs[2] < kBig) {
-      overflow = true;
-      write_out();
-      return;
+      // aux row 0: seed cells have no sources, so their aux is the tag bits
+      for (int j = tid; j < K; j += kThreads) {
+        aux_dst(0, 0)[j] = (seed_row == 0 && j == j0) ? (cell0 & 7) : 0;
+        aux_dst(1, 0)[j] = 0;
+        aux_dst(2, 0)[j] = 0;
+      }
+    } else {
+      // ---- semi-global seeding (wfa.go:163-183): k in [-(qlen-1), tlen-1],
+      // k >= 0 at offset k+1 from q[0] == t[k], k < 0 at offset 1 from
+      // q[-k] == t[0]; match seeds in row 0, mismatch seeds in row x
+      int rs[4] = {kBig, kBig, kBig, kBig};  // min k, -max k of rows 0, x
+      for (int j = tid; j < K; j += kThreads) {
+        const int k = k0 + j;
+        int aux0 = 0;
+        if (k <= tl - 1 && k >= -(ql - 1)) {
+          const bool eq = k >= 0 ? q[0] == t[k] : q[-k] == t[0];
+          const int seed =
+              ((k >= 0 ? k + 1 : 1) << 3) | (eq ? kMatch : kMismatch);
+          const int r = (eq || x == 0) ? 0 : 1;
+          rs[2 * r] = min(rs[2 * r], k);
+          rs[2 * r + 1] = min(rs[2 * r + 1], -k);
+          Mw[(r ? x : 0) * K + j] = seed;  // x < WM
+          if (r == 0) aux0 = seed & 7;
+        }
+        aux_dst(0, 0)[j] = aux0;
+        aux_dst(1, 0)[j] = 0;
+        aux_dst(2, 0)[j] = 0;
+      }
+      block_min(rs, red);
+      // a mismatch seed beyond the score cap can never be reached
+      if (x >= S && rs[2] < kBig) {
+        overflow = true;
+        write_out();
+        write_meta1(-(ql - 1), true);
+        return;
+      }
+      if (tid == 0) {
+        for (int r = 0; r < WM; ++r) {
+          const int i = r == 0 ? 0 : (r == x ? 2 : -1);
+          const bool ex = i >= 0 && rs[i] < kBig;
+          mb.lo[r] = ex ? rs[i] : kBig;
+          mb.hi[r] = ex ? -rs[i + 1] : -kBig;
+          mb.ex[r] = ex;
+        }
+      }
     }
     if (tid == 0) {
-      for (int r = 0; r < WM; ++r) {
-        const int i = r == 0 ? 0 : (r == x ? 2 : -1);
-        const bool ex = i >= 0 && rs[i] < kBig;
-        mb.lo[r] = ex ? rs[i] : kBig;
-        mb.hi[r] = ex ? -rs[i + 1] : -kBig;
-        mb.ex[r] = ex;
+      for (int r = 0; r < WE; ++r) {
+        ib.lo[r] = db.lo[r] = kBig;
+        ib.hi[r] = db.hi[r] = -kBig;
+        ib.ex[r] = db.ex[r] = 0;
       }
     }
-  }
-  if (tid == 0) {
-    for (int r = 0; r < WE; ++r) {
-      ib.lo[r] = db.lo[r] = kBig;
-      ib.hi[r] = db.hi[r] = -kBig;
-      ib.ex[r] = db.ex[r] = 0;
-    }
-  }
-  __syncthreads();
+    __syncthreads();
+  }  // seeding
 
   // the nearest stop cell on each side of Ak in an M row (wfa.go:270-375):
   // the largest 2j + succ at k <= Ak and the smallest 2j + !succ above it
@@ -351,7 +494,7 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
     }
   };
 
-  for (int s = 0; s < S - 1; ++s) {
+  for (int s = s_lo; s < S - 1; ++s) {
     const int sm = s % WM, se = s % WE;
     const int lo_ms = mb.lo[sm], hi_ms = mb.hi[sm];
     const bool ex_ms = mb.ex[sm] != 0;
@@ -456,7 +599,7 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
         delete_range_asc(new_hi + 1, hi_ms, l1, h1, nlo[c], nhi[c], z[c][2],
                          z[c][3]);
       }
-      int32_t* aux_m = aux_dst(0, s);
+      Dst* aux_m = aux_dst(0, s);
       for (int j = tid; j < K; j += kThreads) {
         int k = k0 + j;
         int cell = row_m[j];
@@ -527,9 +670,9 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
     int32_t* m_new = Mw + (int64_t)s2m * K;
     int32_t* i_new = Iw + (int64_t)s2e * K;
     int32_t* d_new = Dw + (int64_t)s2e * K;
-    int32_t* am_new = aux_dst(0, s2);
-    int32_t* ai_new = aux_dst(1, s2);
-    int32_t* ad_new = aux_dst(2, s2);
+    Dst* am_new = aux_dst(0, s2);
+    Dst* ai_new = aux_dst(1, s2);
+    Dst* ad_new = aux_dst(2, s2);
     // band reductions: min k and -max k of the written I, D, M cells
     int rb[6] = {kBig, kBig, kBig, kBig, kBig, kBig};
     for (int j = tid; j < K; j += kThreads) {
@@ -611,7 +754,84 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
     __syncthreads();
   }
 
-  write_out();
+  if constexpr (PHASE == kPrefix) {
+    // ---- the narrow window (wfa_tpu/semi2.py:182-206): the union of
+    // every band slot next() can still read, plus Ak, centred in K2
+    // columns and clipped to the diagonals that exist
+    const int K2 = ho.K2;
+    int lo_u = kBig, hi_u = -kBig;
+    const Band* bands[3] = {&mb, &ib, &db};
+    for (int c = 0; c < 3; ++c)
+      for (int r = 0; r < (c ? WE : WM); ++r)
+        if (bands[c]->ex[r]) {
+          lo_u = min(lo_u, bands[c]->lo[r]);
+          hi_u = max(hi_u, bands[c]->hi[r]);
+        }
+    const int win_lo = min(lo_u, Ak), win_hi = max(hi_u, Ak);
+    const int width = win_hi - win_lo + 1;
+    const int slack = K2 - width;
+    int k02 = win_lo - (slack - (slack < 0 ? 1 : 0)) / 2;  // floor division
+    k02 = min(max(k02, -(ql - 1)), max(tl - K2, -(ql - 1)));
+    // pairs still holding a wide band escape to the wider tiers; done
+    // pairs skip phase 2, so any placement serves them
+    write_meta1(k02, overflow || (width > K2 && !done));
+    // ---- the exports, rebased: narrow column j is window column j + d
+    // (0 <= d < K after the clip), zero past the window
+    const int d = k02 - k0;
+    auto rebased = [&](const int32_t* row, int j) {
+      return j + d < K ? row[j + d] : 0;
+    };
+    for (int r = 0; r < WM; ++r)
+      for (int j = tid; j < K2; j += kThreads)
+        ho.win_m[((int64_t)r * B + b) * K2 + j] = rebased(Mw + r * K, j);
+    for (int r = 0; r < WE; ++r)
+      for (int j = tid; j < K2; j += kThreads) {
+        ho.win_i[((int64_t)r * B + b) * K2 + j] = rebased(Iw + r * K, j);
+        ho.win_d[((int64_t)r * B + b) * K2 + j] = rebased(Dw + r * K, j);
+      }
+    for (int c = 0; c < 3; ++c) {
+      const Cell* row = reinterpret_cast<const Cell*>(stage + (int64_t)c * K);
+      for (int j = tid; j < K2; j += kThreads)
+        ho.ainit[((int64_t)c * B + b) * K2 + j] = j + d < K ? row[j + d] : 0;
+    }
+    if (tid == 0) {
+      for (int r = 0; r < WM; ++r) {
+        ho.b_m[(int64_t)r * B + b] = mb.lo[r];
+        ho.b_m[(int64_t)(WM + r) * B + b] = mb.hi[r];
+        ho.b_m[(int64_t)(2 * WM + r) * B + b] = mb.ex[r];
+      }
+      for (int c = 0; c < 2; ++c)
+        for (int r = 0; r < WE; ++r) {
+          int32_t* dst = ho.b_ie + (int64_t)(3 * c * WE + r) * B + b;
+          dst[0] = bands[1 + c]->lo[r];
+          dst[(int64_t)WE * B] = bands[1 + c]->hi[r];
+          dst[(int64_t)2 * WE * B] = bands[1 + c]->ex[r];
+        }
+    }
+  } else {
+    write_out();
+  }
+}
+
+// Launch one instantiation: B blocks of kThreads, dynamic shared memory
+// for the reduction and band slots.  Over the 48 KB default (penalties
+// near 4000) the launch fails and the error is returned.
+template <bool GLOBAL, bool REBASE, int PHASE, typename Cell>
+int launch_loop(const uint8_t* qb, const uint8_t* tbuf, const int32_t* qlen,
+                const int32_t* tlen, const int32_t* toff, int B, int Lq,
+                int Ltb, int S, int K, int x, int oe, int e, int reduce_on,
+                int min_wf_len, int max_dist_diff, int32_t* win,
+                int32_t* out, void* aux, int32_t* aux_base, Handoff ho,
+                void* stream) {
+  const int WM = (x > oe ? x : oe) + 1, WE = e + 1;
+  const int smem = (8 * kWarps + 3 * WM + 6 * WE) * (int)sizeof(int);
+  if (B > 0)
+    score_loop_kernel<GLOBAL, REBASE, PHASE, Cell>
+        <<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+            qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S, K, x, oe, e,
+            reduce_on, min_wf_len, max_dist_diff, win, out,
+            static_cast<Cell*>(aux), aux_base, ho);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -628,26 +848,58 @@ extern "C" int wfa_score_loop(const uint8_t* qb, const uint8_t* tbuf,
                               int max_dist_diff, int mode, int32_t* win,
                               int32_t* out, void* aux, int32_t* aux_base,
                               void* stream) {
-  // dynamic shared memory: the reduction slots and the band slots.  Over
-  // the 48 KB default (penalties near 4000) the launch fails and the
-  // error is returned.
-  const int WM = (x > oe ? x : oe) + 1, WE = e + 1;
-  const int smem = (8 * kWarps + 3 * WM + 6 * WE) * (int)sizeof(int);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int32_t* aux32 = static_cast<int32_t*>(aux);
-  if (B > 0 && mode == 2) {
-    score_loop_kernel<true, true, int16_t><<<B, kThreads, smem, st>>>(
+  const Handoff none{};
+  if (mode == 2)
+    return launch_loop<true, true, kFull, int16_t>(
         qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S, K, x, oe, e, reduce_on,
-        min_wf_len, max_dist_diff, win, out, static_cast<int16_t*>(aux),
-        aux_base);
-  } else if (B > 0 && mode == 1) {
-    score_loop_kernel<false, false, int32_t><<<B, kThreads, smem, st>>>(
+        min_wf_len, max_dist_diff, win, out, aux, aux_base, none, stream);
+  if (mode == 1)
+    return launch_loop<false, false, kFull, int32_t>(
         qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S, K, x, oe, e, reduce_on,
-        min_wf_len, max_dist_diff, win, out, aux32, nullptr);
-  } else if (B > 0) {
-    score_loop_kernel<true, false, int32_t><<<B, kThreads, smem, st>>>(
-        qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S, K, x, oe, e, reduce_on,
-        min_wf_len, max_dist_diff, win, out, aux32, nullptr);
-  }
-  return static_cast<int>(cudaGetLastError());
+        min_wf_len, max_dist_diff, win, out, aux, nullptr, none, stream);
+  return launch_loop<true, false, kFull, int32_t>(
+      qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S, K, x, oe, e, reduce_on,
+      min_wf_len, max_dist_diff, win, out, aux, nullptr, none, stream);
+}
+
+// K3, phase 1 of the two-phase semi-global route: scores 0 .. S0 - 1 at
+// the full span Kf, aux_old[3, S0, B, Kf] (int16 cells when cell16), the
+// exports of Handoff at the narrow width K2.  win is the int32 scratch,
+// (WM + 2 WE + 3) * Kf a pair.
+extern "C" int wfa_prefix(const uint8_t* qb, const uint8_t* tbuf,
+                          const int32_t* qlen, const int32_t* tlen,
+                          const int32_t* toff, int B, int Lq, int Ltb,
+                          int S0, int Kf, int K2, int x, int oe, int e,
+                          int reduce_on, int min_wf_len, int max_dist_diff,
+                          int cell16, int32_t* win, void* aux_old,
+                          int32_t* win_m, int32_t* win_i, int32_t* win_d,
+                          int32_t* ainit, int32_t* b_m, int32_t* b_ie,
+                          int32_t* meta1, void* stream) {
+  const Handoff ho{win_m, win_i, win_d, ainit, b_m, b_ie, meta1, S0, K2};
+  auto run = cell16 ? &launch_loop<false, false, kPrefix, int16_t>
+                    : &launch_loop<false, false, kPrefix, int32_t>;
+  return run(qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S0 + 1, Kf, x, oe, e,
+             reduce_on, min_wf_len, max_dist_diff, win, nullptr, aux_old,
+             nullptr, ho, stream);
+}
+
+// K4, phase 2: resumes at S0 from the Handoff exports (width K) and runs
+// to S - 1 in the narrow window of origin -toff2; aux2[3, S - S0, B, K]
+// (int16 cells when cell16); out as wfa_score_loop's.  win is the int32
+// scratch, (WM + 2 WE) * K a pair.
+extern "C" int wfa_resume(const uint8_t* qb, const uint8_t* tbuf2,
+                          const int32_t* qlen, const int32_t* tlen,
+                          const int32_t* toff2, int B, int Lq, int Ltb2,
+                          int S, int S0, int K, int x, int oe, int e,
+                          int reduce_on, int min_wf_len, int max_dist_diff,
+                          int cell16, int32_t* win, int32_t* out,
+                          void* aux2, int32_t* win_m, int32_t* win_i,
+                          int32_t* win_d, int32_t* ainit, int32_t* b_m,
+                          int32_t* b_ie, int32_t* meta1, void* stream) {
+  const Handoff ho{win_m, win_i, win_d, ainit, b_m, b_ie, meta1, S0, K};
+  auto run = cell16 ? &launch_loop<false, false, kResume, int16_t>
+                    : &launch_loop<false, false, kResume, int32_t>;
+  return run(qb, tbuf2, qlen, tlen, toff2, B, Lq, Ltb2, S, K, x, oe, e,
+             reduce_on, min_wf_len, max_dist_diff, win, out, aux2, nullptr,
+             ho, stream);
 }

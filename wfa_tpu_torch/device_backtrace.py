@@ -1,5 +1,6 @@
 """Device backtrace, semi-global end finder and token compaction,
-PyTorch port of :mod:`wfa_tpu.device_backtrace` (one aux tensor).
+PyTorch port of :mod:`wfa_tpu.device_backtrace` (one aux tensor, or the
+two-phase semi-global route's two).
 
 Kernel K2 (``csrc/backtrace.cu``, wrapper :func:`device_backtrace`)
 replaces the JAX package's ``device_backtrace`` ``lax.while_loop``
@@ -105,16 +106,21 @@ def device_backtrace_plain(
     aux, start_cell, k0, start_s, start_k, qlen, tlen, active0, *,
     penalties, S: int, K: int, token_shift: int,
     split_ext_codes: bool = False, global_alignment: bool = True,
-    aux_base=None, return_iters: bool = False,
+    aux_base=None, aux_old=None, k0_old=None, s_split: int = 0,
+    return_iters: bool = False,
 ):
     """Plain PyTorch version of kernel K2.
 
-    ``aux`` is int32[3, S, B, K], or with ``aux_base`` (int32[B, S]) the
-    value-rebased int16[3, S, B, K] of the long-read score loop, whose
-    found cells hold ``offset0 - aux_base[b, s] + 1``
+    ``aux`` is int32 or int16 [3, S, B, K], or with ``aux_base``
+    (int32[B, S]) the value-rebased int16[3, S, B, K] of the long-read
+    score loop, whose found cells hold ``offset0 - aux_base[b, s] + 1``
     (wfa_tpu/device_backtrace.py:379-383); ``start_cell`` the raw M cell
-    at (start_s, start_k).  Returns (tok0 [B], buf [it_cap, B, 2],
-    tail [B, 4]): op tokens in emission order tok0, buf[0], buf[1], ...,
+    at (start_s, start_k).  The two-phase semi-global route passes
+    ``aux`` [3, S - s_split, B, K] for scores s_split .. S - 1 and
+    ``aux_old`` [3, s_split, B, Kf] for the scores below, read at window
+    origins ``k0_old`` (device_backtrace.py:281, 335-375).
+
+    Returns (tok0 [B], buf [it_cap, B, 2], tail [B, 4]): op tokens in emission order tok0, buf[0], buf[1], ...,
     tail, zero = empty slot, int16 when ``token_shift`` <= 12; with
     ``return_iters`` also int32[B], the chase iterations each pair ran
     (their maximum is the JAX loop's iteration count).  A semi-global
@@ -127,7 +133,12 @@ def device_backtrace_plain(
     e = penalties.gap_ext
     it_cap = iter_capacity(S, penalties)
     tok_dtype = _tok_dtype(token_shift)
-    flat = aux.reshape(3 * S * B, K)
+    Sn = S - s_split  # rows held by aux
+    flat = aux.reshape(3 * Sn * B, K)
+    if aux_old is not None:
+        Kf = aux_old.shape[3]
+        flat_old = aux_old.reshape(3 * s_split * B, Kf)
+        k0_old = k0_old.to(torch.int32)
     bidx = torch.arange(B, device=dev, dtype=torch.long)
     code_tab = torch.as_tensor(
         _TAG2CODE_SPLIT if split_ext_codes else _TAG2CODE, device=dev)
@@ -139,10 +150,19 @@ def device_backtrace_plain(
     def read_aux(s, comp, k):
         """(offset0, tag, found) of the aux cell at (s, comp, k)."""
         j = k - k0
-        ok = (s >= 0) & (s < S) & (j >= 0) & (j < K)
+        ok = (s >= s_split) & (s < S) & (j >= 0) & (j < K)
         sc = s.clamp(0, S - 1).long()
-        row = (comp.long() * S + sc) * B + bidx
+        row = (comp.long() * Sn + (s - s_split).clamp(0, Sn - 1)) * B + bidx
         cell = flat[row, j.clamp(0, K - 1).long()].to(i32)
+        if aux_old is not None:
+            j_o = k - k0_old
+            ok_o = (s >= 0) & (s < s_split) & (j_o >= 0) & (j_o < Kf)
+            row_o = ((comp.long() * s_split + s.clamp(0, s_split - 1)) * B
+                     + bidx)
+            cell_o = flat_old[row_o, j_o.clamp(0, Kf - 1).long()].to(i32)
+            use_old = s < s_split
+            cell = torch.where(use_old, cell_o, cell)
+            ok = torch.where(use_old, ok_o, ok)
         found = ok & (cell > 0)
         cell = torch.where(found, cell, 0)
         off = cell >> TYPE_BITS
@@ -247,7 +267,8 @@ def device_backtrace(
     aux, start_cell, k0, start_s, start_k, qlen, tlen, active0, *,
     penalties, S: int, K: int, token_shift: int,
     split_ext_codes: bool = False, global_alignment: bool = True,
-    aux_base=None, return_iters: bool = False,
+    aux_base=None, aux_old=None, k0_old=None, s_split: int = 0,
+    return_iters: bool = False,
 ):
     """Kernel K2 (same contract as :func:`device_backtrace_plain`).
 
@@ -261,14 +282,20 @@ def device_backtrace(
             penalties=penalties, S=S, K=K, token_shift=token_shift,
             split_ext_codes=split_ext_codes,
             global_alignment=global_alignment, aux_base=aux_base,
+            aux_old=aux_old, k0_old=k0_old, s_split=s_split,
             return_iters=return_iters)
     from ._build import check_inputs, launch, stream_ptr
 
     B = qlen.shape[0]
     i32 = torch.int32
     rebased = aux_base is not None
+    dual = aux_old is not None
+    if rebased and (dual or aux.dtype != torch.int16):
+        raise ValueError("device_backtrace: rebased aux is int16 and alone")
+    if aux.dtype not in (torch.int16, i32):
+        raise TypeError(f"device_backtrace: aux is {aux.dtype}")
     check_inputs("device_backtrace", aux.device,
-                 aux=(aux, torch.int16 if rebased else i32, (3, S, B, K)),
+                 aux=(aux, aux.dtype, (3, S - s_split, B, K)),
                  start_cell=(start_cell, i32, (B,)), k0=(k0, i32, (B,)),
                  start_s=(start_s, i32, (B,)), start_k=(start_k, i32, (B,)),
                  qlen=(qlen, i32, (B,)), tlen=(tlen, i32, (B,)),
@@ -276,6 +303,16 @@ def device_backtrace(
     if rebased:
         check_inputs("device_backtrace", aux.device,
                      aux_base=(aux_base, i32, (B, S)))
+    Kf = 0
+    if dual:
+        Kf = aux_old.shape[3]
+        if aux_old.dtype not in (torch.int16, i32):
+            raise TypeError(f"device_backtrace: aux_old is {aux_old.dtype}")
+        check_inputs("device_backtrace", aux.device,
+                     aux_old=(aux_old, aux_old.dtype, (3, s_split, B, Kf)),
+                     k0_old=(k0_old, i32, (B,)))
+    elif s_split:
+        raise ValueError("device_backtrace: s_split needs aux_old")
     it_cap = iter_capacity(S, penalties)
     tok_dtype = _tok_dtype(token_shift)
     dev = aux.device
@@ -284,15 +321,19 @@ def device_backtrace(
     tail = torch.empty((B, 4), dtype=tok_dtype, device=dev)
     iters = torch.empty(B, dtype=i32, device=dev)
     p = penalties
+    c16 = [ctypes.c_int(int(a is not None and a.dtype == torch.int16))
+           for a in (aux, aux_old)]
     launch("wfa_backtrace",
-           aux, aux_base, start_cell, k0, start_s, start_k, qlen, tlen,
+           aux, c16[0], aux_base, aux_old, c16[1], ctypes.c_int(s_split),
+           ctypes.c_int(Kf), k0_old if dual else None,
+           start_cell, k0, start_s, start_k, qlen, tlen,
            active0, ctypes.c_int(B), ctypes.c_int(S), ctypes.c_int(K),
            ctypes.c_int(p.mismatch), ctypes.c_int(p.gap_open + p.gap_ext),
            ctypes.c_int(p.gap_ext), ctypes.c_int(it_cap),
            ctypes.c_int(token_shift), ctypes.c_int(int(split_ext_codes)),
            ctypes.c_int(int(not global_alignment)), tok0, buf, tail, iters,
            stream_ptr(dev))
-    mode = ("long" if rebased
+    mode = ("long" if rebased else "semi2" if dual
             else "global" if global_alignment else "semi")
     device_backtrace.launches[mode] += 1
     if return_iters:
@@ -300,9 +341,10 @@ def device_backtrace(
     return tok0, buf, tail
 
 
-# launches per mode of the kernel (global, semi-global, and global over
-# the long-read score loop's value-rebased int16 aux)
-device_backtrace.launches = {"global": 0, "semi": 0, "long": 0}
+# launches per mode of the kernel (global, semi-global, global over the
+# long-read score loop's value-rebased int16 aux, and semi-global over the
+# two-phase route's two aux tensors)
+device_backtrace.launches = {"global": 0, "semi": 0, "long": 0, "semi2": 0}
 
 
 def compact_tokens_flat_u8(tok0, buf, tail, token_shift: int,

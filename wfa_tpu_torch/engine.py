@@ -52,10 +52,6 @@ from .oracle import Aligner as OracleAligner
 _BIG = 1 << 30
 _I32 = torch.int32
 
-# longest semi-global read of the ported path; longer ones need the
-# two-phase route (ROADMAP.md queue 1, item 10).  Global reads take any
-# length up to MAX_SEQ_LEN.
-MAX_PORT_LEN = 4096
 # largest rebased offset an int16 aux cell of the long-read mode holds
 MAX_REBASED = 4095
 
@@ -67,6 +63,9 @@ class EngineConfig:
     adaptive: Optional[AdaptiveReductionOption] = None
     k_win: int = 128  # diagonal window width
     s_cap: int = 256  # max score + 1
+    # phase 1 of the two-phase semi-global route: run scores
+    # 0 .. s_cap - 2 and keep the state (run_batch_plain)
+    prefix: bool = False
 
 
 def edit_only(cfg: EngineConfig) -> bool:
@@ -84,11 +83,23 @@ def config_from_jax(cfg) -> EngineConfig:
     for name in ("w_win", "v_win", "aux_kw"):
         if getattr(cfg, name, None) is not None:
             raise NotImplementedError(f"EngineConfig.{name} is not ported")
-    if getattr(cfg, "prefix", False):
-        raise NotImplementedError("EngineConfig.prefix is not ported")
     return EngineConfig(
         penalties=cfg.penalties, global_alignment=cfg.global_alignment,
-        adaptive=cfg.adaptive, k_win=cfg.k_win, s_cap=cfg.s_cap)
+        adaptive=cfg.adaptive, k_win=cfg.k_win, s_cap=cfg.s_cap,
+        prefix=bool(getattr(cfg, "prefix", False)))
+
+
+def resolve_device(device) -> torch.device:
+    """The device a :class:`BatchAligner` or pipeline runs on: the card
+    unless the caller asks for the CPU.  A CUDA device where none is
+    available raises; nothing falls back to the CPU quietly."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "wfa_tpu_torch runs on a CUDA card by default and none is "
+            "available here; pass device='cpu' to run the plain PyTorch "
+            "versions of the kernels on the CPU")
+    return dev
 
 
 def window_origin(qlen: int, tlen: int, k_win: int,
@@ -318,22 +329,28 @@ def _stop_tables(qb, tbuf, qlen, tlen, toff, K: int, Lq: int, Ltb: int):
     qpad = torch.zeros((B, K + Lc), dtype=torch.uint8, device=dev)
     qpad[:, K:K + n] = qb[:, :n]
     cs = torch.arange(Lc, device=dev, dtype=_I32)
-    js = torch.arange(K, device=dev, dtype=_I32)
-    q_sh = qpad[:, (K + cs[None, :] - js[:, None]).long()]  # [B, K, Lc]
     tpad = torch.zeros((B, Lc), dtype=torch.uint8, device=dev)
     tpad[:, :Ltb] = tbuf
-    vs = (cs[None, :] - js[:, None])[None]
     csb = cs[None, None, :]
-    valid = ((vs >= 0) & (vs < qlen[:, None, None])
-             & (csb >= toff[:, None, None])
-             & (csb < (toff + tlen)[:, None, None]))
-    stop = ~(valid & (q_sh == tpad[:, None, :]))
-    bits = stop.reshape(B, K, Lwc, 32).to(_I32)
     # bits 30..0 sum exactly in int32; bit 31 is or-ed in as the sign bit
     w31 = (1 << (30 - torch.arange(31, device=dev, dtype=_I32))).to(_I32)
-    words = (bits[..., 1:] * w31).sum(dim=-1, dtype=_I32)
     sign = torch.tensor(-(1 << 31), dtype=_I32, device=dev)
-    words = torch.where(bits[..., 0] > 0, words | sign, words)
+    # a chunk of diagonals at a time keeps the [B, chunk, Lc] temporaries
+    # near 2**26 cells at full-span widths
+    kc = max(1, min(K, (1 << 26) // max(1, B * Lc)))
+    parts = []
+    for j0 in range(0, K, kc):
+        js = torch.arange(j0, min(K, j0 + kc), device=dev, dtype=_I32)
+        q_sh = qpad[:, (K + cs[None, :] - js[:, None]).long()]  # [B, kc, Lc]
+        vs = (cs[None, :] - js[:, None])[None]
+        valid = ((vs >= 0) & (vs < qlen[:, None, None])
+                 & (csb >= toff[:, None, None])
+                 & (csb < (toff + tlen)[:, None, None]))
+        stop = ~(valid & (q_sh == tpad[:, None, :]))
+        bits = stop.reshape(B, len(js), Lwc, 32).to(_I32)
+        w = (bits[..., 1:] * w31).sum(dim=-1, dtype=_I32)
+        parts.append(torch.where(bits[..., 0] > 0, w | sign, w))
+    words = torch.cat(parts, dim=1)
     wpos = torch.where(
         words != 0,
         torch.arange(Lwc, device=dev, dtype=_I32) * 32 + _clz32(words),
@@ -373,31 +390,40 @@ def _shift_kp1(row):
 
 
 # ---------------------------------------------------------------------------
-# the plain version of kernel K1
+# the plain versions of kernels K1 and K4
 
 
-def run_batch_plain(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig,
-                    Lq: int, Ltb: int):
-    """Plain PyTorch version of kernel K1: the score loop of
-    ``wfa_tpu.engine._run_batch_impl`` (no ``w_win``/``v_win``), all pairs
-    in lockstep, one score per iteration, global or semi-global.
+def _plain_state(B: int, S: int, K: int, dev) -> dict:
+    """The lockstep engine's state (``wfa_tpu.engine._State``): the M, I
+    and D histories int32[S, B, K], the aux int32[3, S, B, K], each row's
+    band bounds and existence [S, B], and per pair done, overflow,
+    final_s and term_cell [B]."""
+    st = {f"hist_{c}": torch.zeros((S, B, K), dtype=_I32, device=dev)
+          for c in "mid"}
+    st["aux"] = torch.zeros((3, S, B, K), dtype=_I32, device=dev)
+    for c in "mid":
+        st[f"lo_{c}"] = torch.full((S, B), _BIG, dtype=_I32, device=dev)
+        st[f"hi_{c}"] = torch.full((S, B), -_BIG, dtype=_I32, device=dev)
+        st[f"ex_{c}"] = torch.zeros((S, B), dtype=torch.bool, device=dev)
+    for name in ("done", "overflow"):
+        st[name] = torch.zeros(B, dtype=torch.bool, device=dev)
+    for name in ("final_s", "term_cell"):
+        st[name] = torch.zeros(B, dtype=_I32, device=dev)
+    return st
 
-    Returns (final_s int32[B], done bool[B], overflow bool[B],
-    term_cell int32[B], aux int32[3, S, B, K], end) where ``term_cell`` is
-    the raw M cell at (final_s, Ak), ``aux`` is the backtrace aux
-    (``offset0 << 3 | tag`` per cell; components M, I, D) and ``end`` is
-    the backtrace start (end_s, end_k, end_cell), int32[B] each: global
-    (final_s, Ak, term_cell); semi-global the end finder's pick over the
-    stored M history (``device_backtrace.end_finder_plain``) and its raw
-    cell, as ``wfa_tpu.engine._align_full_impl`` takes it, for pairs done
-    and not overflowed, else the global triple."""
+
+def _plain_loop(st: dict, qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig,
+                Lq: int, Ltb: int, s_first: int) -> None:
+    """The lockstep score loop of ``wfa_tpu.engine._run_batch_impl`` over
+    the state ``st`` (updated in place), scores ``s_first`` .. s_cap - 2,
+    all pairs in lockstep, one score per iteration, in the fixed window of
+    origin -toff and width k_win."""
     p = cfg.penalties
     x, oe, e = p.mismatch, p.gap_open + p.gap_ext, p.gap_ext
     S, K = cfg.s_cap, cfg.k_win
     reduce_on = cfg.adaptive is not None
     dev = qb.device
     B = qb.shape[0]
-    qlen, tlen, toff = qlen.to(_I32), tlen.to(_I32), toff.to(_I32)
     k0 = -toff
     words, fsa = _stop_tables(qb, tbuf, qlen, tlen, toff, K, Lq, Ltb)
     Lw = words.shape[-1]
@@ -406,37 +432,13 @@ def run_batch_plain(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig,
     Ak = tlen - qlen
     j_ak = (Ak - k0)[:, None]
     ql, tl, tf = qlen[:, None], tlen[:, None], toff[:, None]
-
-    def zeros_sbk():
-        return torch.zeros((S, B, K), dtype=_I32, device=dev)
-
-    hist_m, hist_i, hist_d = zeros_sbk(), zeros_sbk(), zeros_sbk()
-    aux = torch.zeros((3, S, B, K), dtype=_I32, device=dev)
-    aux_m, aux_i, aux_d = aux[0], aux[1], aux[2]
-    lo_m, lo_i, lo_d = (torch.full((S, B), _BIG, dtype=_I32, device=dev)
-                        for _ in range(3))
-    hi_m, hi_i, hi_d = (torch.full((S, B), -_BIG, dtype=_I32, device=dev)
-                        for _ in range(3))
-    ex_m, ex_i, ex_d = (torch.zeros((S, B), dtype=torch.bool, device=dev)
-                        for _ in range(3))
-
-    # the window must hold the seed diagonals and the terminal one
-    overflow = (Ak < k0) | (Ak >= k0 + K) | (0 < k0) | (0 >= k0 + K)
-    if not cfg.global_alignment:
-        overflow = overflow | ((tlen - 1) >= k0 + K)
-    (row0, lo0, hi0, ex0), (rowx, lox, hix, exx) = _seed_rows(
-        qb, tbuf, qlen, tlen, toff, mismatch=x, K=K, Ltb=Ltb,
-        global_alignment=cfg.global_alignment)
-    hist_m[0], aux_m[0] = row0, row0 & 7  # seeds have no sources
-    lo_m[0], hi_m[0], ex_m[0] = lo0, hi0, ex0
-    if 0 < x < S:
-        hist_m[x], aux_m[x] = rowx, rowx & 7
-        lo_m[x], hi_m[x], ex_m[x] = lox, hix, exx
-    elif x >= S:
-        overflow = overflow | exx
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
-    final_s = torch.zeros(B, dtype=_I32, device=dev)
-    term_cell = torch.zeros(B, dtype=_I32, device=dev)
+    hist_m, hist_i, hist_d = st["hist_m"], st["hist_i"], st["hist_d"]
+    aux_m, aux_i, aux_d = st["aux"][0], st["aux"][1], st["aux"][2]
+    lo_m, lo_i, lo_d = st["lo_m"], st["lo_i"], st["lo_d"]
+    hi_m, hi_i, hi_d = st["hi_m"], st["hi_i"], st["hi_d"]
+    ex_m, ex_i, ex_d = st["ex_m"], st["ex_i"], st["ex_d"]
+    done, overflow = st["done"], st["overflow"]
+    final_s, term_cell = st["final_s"], st["term_cell"]
     zB = torch.zeros(B, dtype=_I32, device=dev)
 
     def krange(lo_c, hi_c, ex_c, s_cur, diff):
@@ -457,11 +459,10 @@ def run_batch_plain(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig,
                  & (row > 0) & ex_c[sp][:, None] & (diff <= s_cur))
         return torch.where(found, row >> TYPE_BITS, 0), found
 
-    for s in range(S - 1):
+    for s in range(s_first, S - 1):
         if not bool((~(done | overflow)).any()):
             break
         lo_ms, hi_ms, ex_ms = lo_m[s].clone(), hi_m[s].clone(), ex_m[s]
-
         # ---------------- extend (wfa.go:381-458) ----------------
         cell = hist_m[s]
         h0 = cell >> TYPE_BITS
@@ -650,21 +651,173 @@ def run_batch_plain(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig,
                                torch.where(keep_m, hi_m_n, -_BIG))
         ex_m[s2] = torch.where(frz, ex_m_old, keep_m)
 
-    overflow = overflow | ~done
+    st.update(done=done, overflow=overflow, final_s=final_s,
+              term_cell=term_cell)
+
+
+def run_batch_plain(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig,
+                    Lq: int, Ltb: int):
+    """Plain PyTorch version of kernel K1: the score loop of
+    ``wfa_tpu.engine._run_batch_impl`` (no ``w_win``/``v_win``), all pairs
+    in lockstep, one score per iteration, global or semi-global.
+
+    Returns (final_s int32[B], done bool[B], overflow bool[B],
+    term_cell int32[B], aux int32[3, S, B, K], end) where ``term_cell`` is
+    the raw M cell at (final_s, Ak), ``aux`` is the backtrace aux
+    (``offset0 << 3 | tag`` per cell; components M, I, D) and ``end`` is
+    the backtrace start (end_s, end_k, end_cell), int32[B] each: global
+    (final_s, Ak, term_cell); semi-global the end finder's pick over the
+    stored M history (``device_backtrace.end_finder_plain``) and its raw
+    cell, as ``wfa_tpu.engine._align_full_impl`` takes it, for pairs done
+    and not overflowed, else the global triple.
+
+    ``cfg.prefix`` (phase 1 of the two-phase semi-global route,
+    ``wfa_tpu.engine.EngineConfig.prefix``) runs scores 0 .. s_cap - 2,
+    keeps still-running pairs out of overflow and returns the lockstep
+    state itself (:func:`_plain_state`'s dict, rows 0 .. s_cap - 1)."""
+    x = cfg.penalties.mismatch
+    S, K = cfg.s_cap, cfg.k_win
+    B = qb.shape[0]
+    qlen, tlen, toff = qlen.to(_I32), tlen.to(_I32), toff.to(_I32)
+    k0 = -toff
+    Ak = tlen - qlen
+    st = _plain_state(B, S, K, qb.device)
+    # the window must hold the seed diagonals and the terminal one
+    overflow = (Ak < k0) | (Ak >= k0 + K) | (0 < k0) | (0 >= k0 + K)
+    if not cfg.global_alignment:
+        overflow = overflow | ((tlen - 1) >= k0 + K)
+    (row0, lo0, hi0, ex0), (rowx, lox, hix, exx) = _seed_rows(
+        qb, tbuf, qlen, tlen, toff, mismatch=x, K=K, Ltb=Ltb,
+        global_alignment=cfg.global_alignment)
+    hist_m, aux_m = st["hist_m"], st["aux"][0]
+    hist_m[0], aux_m[0] = row0, row0 & 7  # seeds have no sources
+    st["lo_m"][0], st["hi_m"][0], st["ex_m"][0] = lo0, hi0, ex0
+    if 0 < x < S:
+        hist_m[x], aux_m[x] = rowx, rowx & 7
+        st["lo_m"][x], st["hi_m"][x], st["ex_m"][x] = lox, hix, exx
+    elif x >= S:
+        overflow = overflow | exx
+    st["overflow"] = overflow
+    _plain_loop(st, qb, tbuf, qlen, tlen, toff, cfg=cfg, Lq=Lq, Ltb=Ltb,
+                s_first=0)
+    if cfg.prefix:  # still-running pairs continue in phase 2
+        return st
+    final_s, done, term_cell = st["final_s"], st["done"], st["term_cell"]
+    overflow = st["overflow"] | ~done
     end = (final_s, Ak, term_cell)
     if not cfg.global_alignment:
-        from .device_backtrace import end_finder_plain
+        end = _semi_end(st["hist_m"], k0, final_s, qlen, tlen, done,
+                        overflow, term_cell, S, K)
+    return final_s, done, overflow, term_cell, st["aux"], end
 
-        end_s, end_k, _ = end_finder_plain(hist_m, k0, final_s, qlen, tlen,
+
+def _semi_end(hist_m, k0, final_s, qlen, tlen, done, overflow, term_cell,
+              S: int, K: int, found_before=None):
+    """The backtrace start of semi-global pairs: the end finder's pick over
+    the M history rows <= final_s and its raw cell (GetRaw, wfa.go:738),
+    for pairs done and not overflowed; (final_s, Ak, term_cell) otherwise
+    and where nothing was found.  ``found_before`` ((found, end_s, end_k,
+    end_cell), the phase-1 pick of the two-phase route) wins where found."""
+    from .device_backtrace import end_finder_plain
+
+    B = final_s.shape[0]
+    Ak = tlen - qlen
+    end_s, end_k, found = end_finder_plain(hist_m, k0, final_s, qlen, tlen,
                                            S, K)
-        # GetRaw of the start cell (wfa.go:738)
-        j = (end_k - k0).clamp(0, K - 1).long()
-        end_cell = hist_m[end_s.clamp(0, S - 1).long(),
-                          torch.arange(B, device=dev), j]
-        ok = done & ~overflow
-        end = (torch.where(ok, end_s, final_s), torch.where(ok, end_k, Ak),
-               torch.where(ok, end_cell, term_cell))
-    return final_s, done, overflow, term_cell, aux, end
+    j = (end_k - k0).clamp(0, K - 1).long()
+    end_cell = hist_m[end_s.clamp(0, S - 1).long(),
+                      torch.arange(B, device=hist_m.device), j]
+    if found_before is not None:
+        f1, s1, k1, c1 = found_before
+        found = found | f1
+        end_s = torch.where(f1, s1, end_s)
+        end_k = torch.where(f1, k1, end_k)
+        end_cell = torch.where(f1, c1, end_cell)
+    ok = done & ~overflow & found
+    return (torch.where(ok, end_s, final_s), torch.where(ok, end_k, Ak),
+            torch.where(ok, end_cell, term_cell))
+
+
+def windows(penalties) -> Tuple[int, int]:
+    """(WM, WE): the circular window rows of M (max(x, o+e) + 1) and of
+    I and D (e + 1)."""
+    p = penalties
+    return max(p.mismatch, p.gap_open + p.gap_ext) + 1, p.gap_ext + 1
+
+
+def semi_cell16(Ltb: int) -> bool:
+    """Whether a semi-global aux cell (offset0 <= tlen + 1) fits int16
+    for a target buffer of Ltb columns (wfa_tpu/semi2.py:244,
+    pallas_engine.py:1490-1493)."""
+    return Ltb + 2 <= 4095
+
+
+def run_batch_resume_plain(qb, tbuf2, qlen, tlen, toff2, win_m, win_i,
+                           win_d, ainit, b_m, b_ie, meta1, *,
+                           cfg: EngineConfig, Lq: int, Ltb2: int,
+                           Ltb_full: int, S0: int):
+    """Plain PyTorch version of kernel K4, the narrow resume of the
+    two-phase semi-global route (``wfa_tpu.pallas_engine
+    .pallas_run_resume``): the lockstep loop of :func:`run_batch_plain`
+    started at score ``S0`` from the phase-1 handoff
+    (``semi2.prefix_export``) in the narrow window of origin
+    k02 = -toff2 and width k_win, scores S0 .. s_cap - 2.
+
+    ``tbuf2`` holds each target re-placed for its window (column c is
+    target position c - toff2; toff2 < 0 means the row holds the target's
+    suffix from k02 on).  The slot-ordered exports fill the window rows
+    (slot r of a W-row window is the score in (S0 - W, S0] congruent to r
+    mod W) and their band rows, ``ainit`` the aux row S0; ``meta1`` gives
+    done, final_s, term_cell, the phase-1 end finder's state and the
+    pairs that escape (overflow2).  Pairs done or escaped at S0 do not
+    run.  The end finder goes on from score S0 where phase 1 found
+    nothing.
+
+    Returns (final_s, done, overflow, term_cell, aux2, (end_s, end_k,
+    end_cell)), :func:`run_batch_plain`'s contract with aux2
+    [3, s_cap - S0, B, K] holding scores S0 .. s_cap - 1, int16 cells when
+    ``semi_cell16(Ltb_full)`` (offsets are target positions, so the full
+    buffer decides, not Ltb2)."""
+    from .semi2 import (M1_DONE, M1_ECELL, M1_EFOUND, M1_EK, M1_ES, M1_FS,
+                        M1_OVF, M1_TERM)
+
+    WM, WE = windows(cfg.penalties)
+    S, K = cfg.s_cap, cfg.k_win
+    B = qb.shape[0]
+    qlen, tlen, toff2 = qlen.to(_I32), tlen.to(_I32), toff2.to(_I32)
+    k0 = -toff2
+    Ak = tlen - qlen
+    m1 = meta1.to(_I32)
+    st = _plain_state(B, S, K, qb.device)
+    done = m1[:, M1_DONE] > 0
+    overflow = (m1[:, M1_OVF] > 0) | (Ak < k0) | (Ak >= k0 + K)
+    # pairs that do not run import nothing, so nothing of theirs moves
+    run = (~done & ~overflow)[:, None]
+    for c, win, bands, base, W in (("m", win_m, b_m, 0, WM),
+                                   ("i", win_i, b_ie, 0, WE),
+                                   ("d", win_d, b_ie, 3 * WE, WE)):
+        for r in range(W):
+            srow = S0 - ((S0 - r) % W)
+            st[f"hist_{c}"][srow] = torch.where(run, win[r], 0)
+            st[f"lo_{c}"][srow] = bands[base + r]
+            st[f"hi_{c}"][srow] = bands[base + W + r]
+            st[f"ex_{c}"][srow] = (bands[base + 2 * W + r] > 0) & run[:, 0]
+    st["aux"][:, S0] = torch.where(run, ainit, 0)
+    st.update(done=done, overflow=overflow, final_s=m1[:, M1_FS].clone(),
+              term_cell=m1[:, M1_TERM].clone())
+    _plain_loop(st, qb, tbuf2, qlen, tlen, toff2, cfg=cfg, Lq=Lq, Ltb=Ltb2,
+                s_first=S0)
+    final_s, done, term_cell = st["final_s"], st["done"], st["term_cell"]
+    overflow = st["overflow"] | ~done
+    hist_m = st["hist_m"]
+    hist_m[:S0] = 0  # phase 1 searched the rows below S0
+    end = _semi_end(hist_m, k0, final_s, qlen, tlen, done, overflow,
+                    term_cell, S, K,
+                    found_before=(m1[:, M1_EFOUND] > 0, m1[:, M1_ES],
+                                  m1[:, M1_EK], m1[:, M1_ECELL]))
+    aux2 = st["aux"][:, S0:]
+    aux2 = aux2.to(torch.int16 if semi_cell16(Ltb_full) else _I32)
+    return final_s, done, overflow, term_cell, aux2, end
 
 
 def rebase_aux(aux):
@@ -723,10 +876,15 @@ def run_batch_long_plain(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig,
 
 def _finish_outputs(aux, start_cell, k0, start_s, start_k, qlen, tlen, done,
                     overflow, *, cfg: EngineConfig, Lq: int, Ltb: int,
-                    edit: bool, aux_base=None):
+                    edit: bool, aux_base=None, aux_old=None, k0_old=None,
+                    s_split: int = 0):
     """Backtrace (kernel K2), token compaction and the meta header, equal
     to ``wfa_tpu.engine._finish_outputs(..., flat=True)``.  ``aux_base``
-    marks the long-read score loop's value-rebased int16 aux.
+    marks the long-read score loop's value-rebased int16 aux.  The
+    two-phase semi-global route (``semi2.phase2``) passes phase 2's aux
+    (scores s_split .. s_cap - 1) as ``aux`` and phase 1's full-span aux
+    (scores below s_split, window origin ``k0_old``) as ``aux_old``
+    (wfa_tpu/engine.py:1301-1332).
 
     When ``_token_plan`` calls the stream compact: ``{"mtb": uint8,
     "lg": int16/int32}``, byte-identical to JAX's ``compact and flat``
@@ -745,7 +903,8 @@ def _finish_outputs(aux, start_cell, k0, start_s, start_k, qlen, tlen, done,
         aux, start_cell, k0, start_s, start_k, qlen, tlen, done & ~overflow,
         penalties=cfg.penalties, S=S, K=K, token_shift=token_shift,
         split_ext_codes=edit, global_alignment=cfg.global_alignment,
-        aux_base=aux_base, return_iters=not compact)
+        aux_base=aux_base, aux_old=aux_old, k0_old=k0_old, s_split=s_split,
+        return_iters=not compact)
     tok0, buf, tail = bt[:3]
     ns_cap = 2 * iter_capacity(S, cfg.penalties) + 5
     meta16 = max(Lq + Ltb, S, ns_cap) <= 32000
@@ -872,25 +1031,38 @@ class BatchAligner:
     the exact host oracle (``fallback=True``) or returned as None, so a
     pipeline can retry them with larger caps.  ``engine`` "auto" runs K1,
     "long" K1-long (global alignment only; the JAX package's
-    ``"pallas_long"``).
+    ``"pallas_long"``), "semi2:<S0>" the two-phase semi-global route
+    (:mod:`wfa_tpu_torch.semi2`: K3 at the full span to score S0, then K4
+    in a ``k_win``-wide window, then K2 over both aux tensors).  The card
+    is the default device; ``device="cpu"`` runs the plain versions.
     """
 
     def __init__(self, penalties: Penalties = Penalties(),
                  options: Options = Options(),
                  adaptive: Optional[AdaptiveReductionOption] = None,
-                 k_win: int = 128, s_cap: int = 256, device="cpu",
+                 k_win: int = 128, s_cap: int = 256, device="cuda",
                  engine: str = "auto") -> None:
         if adaptive is not None and adaptive.min_wf_len == 0:
             # constructor-path twin of the attach check (wfa.go:134-137)
             raise ValueError("cutoff step should not be 0")
-        if engine not in ("auto", "long"):
+        self.s_switch = 0
+        if engine.startswith("semi2:"):
+            # "semi2:<S0>" carries the score phase 2 resumes at
+            # (wfa_tpu/engine.py:1456-1461)
+            self.s_switch = int(engine.split(":", 1)[1])
+            engine = "semi2"
+            if options.global_alignment:
+                raise ValueError("the two-phase route is semi-global only")
+        elif engine not in ("auto", "long"):
             raise ValueError(f"unknown engine {engine!r}")
         self.cfg = EngineConfig(penalties=penalties,
                                 global_alignment=options.global_alignment,
                                 adaptive=adaptive, k_win=k_win, s_cap=s_cap)
         self.engine = engine
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._oracle = OracleAligner(penalties, options, adaptive)
+        # full spans phase 1 ran at ("semi2")
+        self.spans = set()
 
     def align_batch(self, pairs: Sequence[Tuple[bytes, bytes]],
                     fallback: bool = True) -> List[Optional[AlignmentResult]]:
@@ -909,15 +1081,12 @@ class BatchAligner:
         """Pack, upload and launch a batch; returns a handle for
         :meth:`finish_batch`.  The launches are asynchronous."""
         pairs = list(pairs)
-        longest = max(max(len(q), len(t)) for q, t in pairs)
         ga = self.cfg.global_alignment
-        if not ga and longest > MAX_PORT_LEN:
-            raise NotImplementedError(
-                f"semi-global reads longer than {MAX_PORT_LEN} are not "
-                "ported yet (ROADMAP.md queue 1, item 10)")
         if self.engine == "long" and not ga:
             # as pallas_longread.supports refuses semi-global
             raise ValueError("engine='long' runs global alignment only")
+        if self.engine == "semi2":
+            return self._submit_semi2(pairs)
         qb, tbuf, qlen, tlen, toff, Lq, Ltb, qp, tp = _pack_all(
             pairs, self.cfg.k_win, need_raw=False,
             global_alignment=self.cfg.global_alignment)
@@ -932,6 +1101,44 @@ class BatchAligner:
                           B=len(pairs), Lq=Lq, Ltb=Ltb, packed=packed,
                           edit=edit, engine=self.engine)
         return pairs, out, edit
+
+    def _submit_semi2(self, pairs):
+        """The two-phase semi-global submit (wfa_tpu/engine.py:1774-1892):
+        pack -> K3 at the full span -> fetch meta1 (the one mid-point
+        sync) -> re-place each target for its window -> upload -> K4 ->
+        K2 over both aux tensors -> compaction.  Returns the same handle
+        as :meth:`submit_batch`."""
+        from .semi2 import (M1_K02, phase2, prefix_export, prefix_span,
+                            replace_targets)
+
+        # the raw query rows go with a re-placed target that is not ACGT
+        qb, tbuf, qlen, tlen, toff, Lq, Ltb, qp, tp = _pack_all(
+            pairs, self.cfg.k_win, global_alignment=False)
+        packed = tp is not None
+        seq = np.concatenate([qp if packed else qb, tp if packed else tbuf],
+                             axis=1)
+        lens = np.stack([qlen, tlen, toff], axis=1).astype(np.int32)
+        dev = self.device
+        S0 = self.s_switch
+        Kf = prefix_span(qlen, tlen)
+        self.spans.add(Kf)
+        pcfg = dataclasses.replace(self.cfg, k_win=Kf)
+        exports = prefix_export(
+            torch.from_numpy(seq).to(dev), torch.from_numpy(lens).to(dev),
+            cfg=pcfg, Lq=Lq, Ltb=Ltb, S0=S0, K2=self.cfg.k_win,
+            packed=packed)
+        k02 = exports["meta1"][:, M1_K02].cpu().numpy()
+        t2raw, t2p, toff2, Ltb2 = replace_targets([t for _, t in pairs], k02)
+        packed2 = packed and t2p is not None
+        seq2 = np.concatenate([qp, t2p] if packed2 else [qb, t2raw], axis=1)
+        lens2 = np.stack([qlen, tlen, toff2], axis=1).astype(np.int32)
+        out = phase2(
+            torch.from_numpy(seq2).to(dev), torch.from_numpy(lens2).to(dev),
+            *(exports[k] for k in ("win_m", "win_i", "win_d", "ainit", "b_m",
+                                   "b_ie", "meta1", "aux_old")),
+            cfg=self.cfg, Lq=Lq, Ltb_full=Ltb, Ltb2=Ltb2, S0=S0,
+            packed=packed2)
+        return pairs, out, False
 
     def finish_batch(self, handle, fallback: bool = True
                      ) -> List[Optional[AlignmentResult]]:

@@ -6,8 +6,15 @@ with its fused end finder (:func:`run_batch`; plain version
 :func:`wfa_tpu_torch.engine.run_batch_plain`), and of the long-read TPU
 kernel ``wfa_tpu.pallas_longread._kernel`` (:func:`run_batch_long`, K1's
 value-rebased int16 aux mode; plain version
-:func:`wfa_tpu_torch.engine.run_batch_long_plain`).  Each wrapper runs its
-plain version for CPU tensors.
+:func:`wfa_tpu_torch.engine.run_batch_long_plain`).  The two phases of the
+two-phase semi-global route are the same kernel's prefix and resume
+modes: K3 (:func:`run_prefix`, the port of ``wfa_tpu.pallas_prefix
+._kernel`` and of ``pallas_engine._kernel`` in EXPORT mode; plain version
+:func:`wfa_tpu_torch.semi2.prefix_export_plain`) and K4
+(:func:`run_resume`, ``pallas_engine._kernel`` with RESUME; plain version
+:func:`wfa_tpu_torch.engine.run_batch_resume_plain`).  Each wrapper runs
+its plain version for CPU tensors and launches its kernel, or raises, for
+CUDA tensors.
 """
 
 from __future__ import annotations
@@ -16,16 +23,17 @@ import ctypes
 
 import torch
 
-from .engine import EngineConfig, run_batch_long_plain, run_batch_plain
+from .engine import (EngineConfig, run_batch_long_plain, run_batch_plain,
+                     run_batch_resume_plain, semi_cell16, windows)
+from .semi2 import META1_COLS, prefix_export_plain
 
 
-def scratch_ints(cfg: EngineConfig, rebase: bool = False) -> int:
+def scratch_ints(cfg: EngineConfig, staged: bool = False) -> int:
     """int32 cells of window scratch per pair: WM rows of M and WE rows
-    each of I and D, K diagonals wide, plus the three staged aux rows of
-    the long-read (``rebase``) mode."""
-    p = cfg.penalties
-    wm = max(p.mismatch, p.gap_open + p.gap_ext) + 1
-    return (wm + 2 * (p.gap_ext + 1) + (3 if rebase else 0)) * cfg.k_win
+    each of I and D, K diagonals wide, plus three staged aux rows (the
+    long-read mode's, or the prefix's aux row S0) when ``staged``."""
+    wm, we = windows(cfg.penalties)
+    return (wm + 2 * we + (3 if staged else 0)) * cfg.k_win
 
 
 def _launch(qb, tbuf, qlen, tlen, toff, cfg: EngineConfig, Lq: int,
@@ -42,7 +50,7 @@ def _launch(qb, tbuf, qlen, tlen, toff, cfg: EngineConfig, Lq: int,
     check_inputs("run_batch", dev, qb=(qb, torch.uint8, (B, Lq)),
                  tbuf=(tbuf, torch.uint8, (B, Ltb)), qlen=(qlen, i32, (B,)),
                  tlen=(tlen, i32, (B,)), toff=(toff, i32, (B,)))
-    win = torch.empty((B, scratch_ints(cfg, mode == 2)), dtype=i32,
+    win = torch.empty((B, scratch_ints(cfg, staged=mode == 2)), dtype=i32,
                       device=dev)
     out = torch.empty((7, B), dtype=i32, device=dev)
     ad = cfg.adaptive
@@ -110,3 +118,112 @@ def run_batch_long(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig,
 
 # launches of the long-read instantiation
 run_batch_long.launches = {"long": 0}
+
+
+def run_prefix(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig, Lq: int,
+               Ltb: int, S0: int, K2: int) -> dict:
+    """K3, phase 1 of the two-phase semi-global route: scores 0 .. S0 - 1
+    at the full span ``cfg.k_win`` and the handoff to a narrow window of
+    K2 diagonals; returns the dict of
+    :func:`wfa_tpu_torch.semi2.prefix_export_plain` (JAX layouts).
+    Exports of pairs done or escaped at S0 are unspecified, and so are
+    aux_old rows above a done pair's final_s.
+
+    CUDA tensors launch ``wfa_prefix`` on the current stream; CPU tensors
+    take :func:`prefix_export_plain`."""
+    if qb.device.type == "cpu":
+        return prefix_export_plain(qb, tbuf, qlen, tlen, toff, cfg=cfg,
+                                   Lq=Lq, Ltb=Ltb, S0=S0, K2=K2)
+    from ._build import check_inputs, launch, stream_ptr
+
+    B, Kf = qb.shape[0], cfg.k_win
+    wm, we = windows(cfg.penalties)
+    if S0 < wm:
+        raise ValueError(f"run_prefix: S0 {S0} below the window depth {wm}")
+    i32, dev = torch.int32, qb.device
+    check_inputs("run_prefix", dev, qb=(qb, torch.uint8, (B, Lq)),
+                 tbuf=(tbuf, torch.uint8, (B, Ltb)), qlen=(qlen, i32, (B,)),
+                 tlen=(tlen, i32, (B,)), toff=(toff, i32, (B,)))
+    cell16 = semi_cell16(Ltb)
+    ex = {"win_m": torch.empty((wm, B, K2), dtype=i32, device=dev),
+          "win_i": torch.empty((we, B, K2), dtype=i32, device=dev),
+          "win_d": torch.empty((we, B, K2), dtype=i32, device=dev),
+          "ainit": torch.empty((3, B, K2), dtype=i32, device=dev),
+          "b_m": torch.empty((3 * wm, B), dtype=i32, device=dev),
+          "b_ie": torch.empty((6 * we, B), dtype=i32, device=dev),
+          "meta1": torch.empty((B, len(META1_COLS)), dtype=i32, device=dev),
+          "aux_old": torch.empty((3, S0, B, Kf), device=dev,
+                                 dtype=torch.int16 if cell16 else i32)}
+    win = torch.empty((B, scratch_ints(cfg, staged=True)), dtype=i32,
+                      device=dev)
+    p, ad = cfg.penalties, cfg.adaptive
+    launch("wfa_prefix", qb, tbuf, qlen, tlen, toff,
+           *(ctypes.c_int(v) for v in (
+               B, Lq, Ltb, S0, Kf, K2, p.mismatch, p.gap_open + p.gap_ext,
+               p.gap_ext, int(ad is not None), ad.min_wf_len if ad else 0,
+               ad.max_dist_diff if ad else 0, int(cell16))),
+           win, ex["aux_old"], *(ex[k] for k in (
+               "win_m", "win_i", "win_d", "ainit", "b_m", "b_ie", "meta1")),
+           stream_ptr(dev))
+    run_prefix.launches["prefix"] += 1
+    return ex
+
+
+# launches of the prefix mode
+run_prefix.launches = {"prefix": 0}
+
+
+def run_resume(qb, tbuf2, qlen, tlen, toff2, win_m, win_i, win_d, ainit,
+               b_m, b_ie, meta1, *, cfg: EngineConfig, Lq: int, Ltb2: int,
+               Ltb_full: int, S0: int):
+    """K4, phase 2 of the two-phase semi-global route: resumes at score S0
+    from the phase-1 exports in the narrow window (origin -toff2, width
+    ``cfg.k_win``) up to ``cfg.s_cap``; returns (final_s, done, overflow,
+    term_cell, aux2 [3, s_cap - S0, B, K], (end_s, end_k, end_cell)), the
+    contract of :func:`run_batch_resume_plain`.  Aux rows above a pair's
+    final_s, and every row of a pair that did not run in phase 2, are
+    unspecified.
+
+    CUDA tensors launch ``wfa_resume`` on the current stream; CPU tensors
+    take :func:`run_batch_resume_plain`."""
+    args = (qb, tbuf2, qlen, tlen, toff2, win_m, win_i, win_d, ainit, b_m,
+            b_ie, meta1)
+    if qb.device.type == "cpu":
+        return run_batch_resume_plain(*args, cfg=cfg, Lq=Lq, Ltb2=Ltb2,
+                                      Ltb_full=Ltb_full, S0=S0)
+    from ._build import check_inputs, launch, stream_ptr
+
+    B, S, K = qb.shape[0], cfg.s_cap, cfg.k_win
+    wm, we = windows(cfg.penalties)
+    if not wm <= S0 < S:
+        raise ValueError(f"run_resume: S0 {S0} outside [{wm}, {S})")
+    i32, dev = torch.int32, qb.device
+    check_inputs("run_resume", dev, qb=(qb, torch.uint8, (B, Lq)),
+                 tbuf2=(tbuf2, torch.uint8, (B, Ltb2)),
+                 qlen=(qlen, i32, (B,)), tlen=(tlen, i32, (B,)),
+                 toff2=(toff2, i32, (B,)), win_m=(win_m, i32, (wm, B, K)),
+                 win_i=(win_i, i32, (we, B, K)),
+                 win_d=(win_d, i32, (we, B, K)),
+                 ainit=(ainit, i32, (3, B, K)), b_m=(b_m, i32, (3 * wm, B)),
+                 b_ie=(b_ie, i32, (6 * we, B)),
+                 meta1=(meta1, i32, (B, len(META1_COLS))))
+    cell16 = semi_cell16(Ltb_full)
+    aux2 = torch.empty((3, S - S0, B, K), device=dev,
+                       dtype=torch.int16 if cell16 else i32)
+    win = torch.empty((B, scratch_ints(cfg)), dtype=i32, device=dev)
+    out = torch.empty((7, B), dtype=i32, device=dev)
+    p, ad = cfg.penalties, cfg.adaptive
+    launch("wfa_resume", qb, tbuf2, qlen, tlen, toff2,
+           *(ctypes.c_int(v) for v in (
+               B, Lq, Ltb2, S, S0, K, p.mismatch, p.gap_open + p.gap_ext,
+               p.gap_ext, int(ad is not None), ad.min_wf_len if ad else 0,
+               ad.max_dist_diff if ad else 0, int(cell16))),
+           win, out, aux2, win_m, win_i, win_d, ainit, b_m, b_ie, meta1,
+           stream_ptr(dev))
+    run_resume.launches["resume"] += 1
+    return (out[0], out[1] > 0, out[2] > 0, out[3], aux2,
+            (out[4], out[5], out[6]))
+
+
+# launches of the resume mode
+run_resume.launches = {"resume": 0}

@@ -4,12 +4,15 @@ alignment.
 
 Pairs are grouped into length classes and run through the batched
 engine with economical window caps; pairs whose band or score overflows
-retry with larger caps (tiers 0-2), and the rest fall to the exact host
+retry with larger caps (tiers 0-3), and the rest fall to the exact host
 oracle.  Results come back in input order and equal the oracle's
 whichever tier served them.  Global, wf-adaptive buckets of reads longer
 than 4096 bases run K1-long (engine "long", value-rebased int16 aux) at
 the tier-0 window on every tier, as ``wfa_tpu.pipeline`` routes them to
-its long-read kernel.
+its long-read kernel.  Semi-global wf-adaptive buckets whose full span
+passes 512 diagonals take the two-phase route (engine ``"semi2:<S0>"``,
+:mod:`wfa_tpu_torch.semi2`) on tiers 0-2 and K1-semi at the full span on
+tier 3, as ``wfa_tpu.pipeline`` routes them (pipeline.py:112-123).
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ from .cigar import AlignmentResult
 from .constants import (MAX_SEQ_LEN, AdaptiveReductionOption, EmptySeqError,
                         Options, Penalties, SeqTooLongError)
 from .device_backtrace import iter_capacity
-from .engine import BatchAligner, EngineConfig
+from .engine import (BatchAligner, EngineConfig, _pad_len, semi_cell16,
+                     windows)
 from .io import bucket_pairs
 from .kernel_engine import scratch_ints
 from .oracle import Aligner as OracleAligner
@@ -44,7 +48,8 @@ class PipelineConfig:
     # base score cap (tier 0) and diagonal window
     s_cap_base: int = 256
     k_win_base: int = 128
-    device: str = "cpu"
+    # the card unless the caller asks for the CPU (plain PyTorch versions)
+    device: str = "cuda"
     # device memory one batch may allocate (the pipeline keeps up to two
     # batches in flight); bounds the batch size where s_cap * k_win grows
     mem_budget: int = 16 << 30
@@ -71,6 +76,35 @@ def batch_bytes_per_pair(cfg: EngineConfig, longest: int,
             + 4 * (2 * longest + cfg.k_win))
 
 
+# the two-phase semi-global ladder, tiers 0-2 (wfa_tpu/pipeline.py:112-121):
+# the score phase 2 resumes at (each tier's prefix must outlast the band
+# collapse of a rising error rate) and phase 2's window
+SEMI2_S0 = (64, 112, 200)
+SEMI2_K_WIN = (256, 512, 512)
+
+
+def semi2_bytes_per_pair(cfg: EngineConfig, Kf: int, S0: int, Ltb: int,
+                         longest: int) -> int:
+    """Device bytes one pair of a two-phase batch holds until K2 has run
+    (``cfg`` is phase 2's: k_win the narrow window, s_cap the total cap):
+    phase 1's full-span aux ``aux_old`` (3 x S0 x Kf cells) and K3's window
+    scratch at Kf, the exports at k_win, phase 2's aux (3 x (s_cap - S0) x
+    k_win cells) and K4's scratch, K2's token buffers and compaction
+    temporaries (~40 B per emission slot), and the sequence rows (the
+    re-placed target beside the first).  Cells are int16 when the phase-1
+    buffer of Ltb columns allows (``engine.semi_cell16``), for both
+    phases."""
+    K2, S = cfg.k_win, cfg.s_cap
+    cell = 2 if semi_cell16(Ltb) else 4
+    wm, we = windows(cfg.penalties)
+    rows = wm + 2 * we
+    ns = 2 * iter_capacity(S, cfg.penalties) + 5
+    return (3 * S0 * Kf * cell + 4 * (rows + 3) * Kf
+            + 4 * (rows + 3) * K2 + 4 * (3 * rows + 9)
+            + 3 * (S - S0) * K2 * cell + 4 * rows * K2 + 40 * ns
+            + 4 * (3 * longest + K2))
+
+
 class AlignmentPipeline:
     """Aligns arbitrary lists of pairs at batch throughput."""
 
@@ -87,16 +121,23 @@ class AlignmentPipeline:
         self.served: Dict[object, int] = {}
 
     def _tier_caps(self, lq: int, lt: int, tier: int, skey=None):
-        """(k_win, s_cap, b_cap, engine) for a bucket class and tier.
-        ``skey`` names the bucket for the adaptive score-cap memory."""
+        """(k_win, s_cap, b_cap, engine) for a bucket class and tier
+        (0-3).  ``skey`` names the bucket for the adaptive score-cap
+        memory."""
         cfg = self.cfg
         full_span = _round_up(lq + lt - 1 + 2, 128)
         longest = max(lq, lt)
+        s0 = None
         if not cfg.options.global_alignment:
-            # the semi-global seeds span every diagonal, so every tier
-            # holds the full span (K1 keeps its window in device memory,
-            # so any width serves); only the score cap climbs
-            k_win = full_span
+            # the semi-global seeds span every diagonal; with wf-adaptive
+            # the band collapses to tens once the best path pulls ahead,
+            # so tiers 0-2 run the two-phase route (full span to S0, then
+            # a narrow window) and tier 3 the full span throughout, the
+            # exact last tier.  Spans of 512 or fewer stay on K1-semi.
+            if cfg.adaptive is not None and full_span > 512 and tier <= 2:
+                s0, k_win = SEMI2_S0[tier], SEMI2_K_WIN[tier]
+            else:
+                k_win = full_span
         elif cfg.adaptive is not None:
             # wf-adaptive trims the band to ~2 * max_dist_diff around the
             # optimal path, whose diagonal drifts like a random walk
@@ -109,14 +150,17 @@ class AlignmentPipeline:
             if longest <= LONG_READ:
                 if tier == 1:
                     k_win = min(full_span, 4 * k_win)
-                elif tier == 2:
+                elif tier >= 2:
                     k_win = full_span
         else:
             k_win = full_span
-        engine = ("long" if (cfg.options.global_alignment
-                             and cfg.adaptive is not None
-                             and longest > LONG_READ and k_win <= 512)
-                  else "auto")
+        if s0 is not None:
+            engine = f"semi2:{s0}"
+        elif (cfg.options.global_alignment and cfg.adaptive is not None
+              and longest > LONG_READ and k_win <= 512):
+            engine = "long"
+        else:
+            engine = "auto"
         p = cfg.penalties
         worst = (p.mismatch * longest + p.gap_open
                  + p.gap_ext * (abs(lq - lt) + 1) + 2)
@@ -126,16 +170,22 @@ class AlignmentPipeline:
         if smax is not None:
             # fitted cap: observed maximum + 20% headroom, quantized
             s1 = max(cfg.s_cap_base, _round_up(int(smax * 1.2) + 16, 128))
-        s_cap = (s1, 3 * s1, _round_up(worst + 2, 8))[tier]
+        s_cap = (s1, 3 * s1, _round_up(worst + 2, 8))[min(tier, 2)]
         s_cap = min(s_cap, _round_up(worst + 2, 8))
         # one pair's aux must fit the budget
         cell = aux_cell_bytes(engine)
         s_cap = max(8, min(s_cap, (cfg.mem_budget // (cell * k_win)) // 8 * 8))
-        per_pair = batch_bytes_per_pair(
-            EngineConfig(penalties=p,
-                         global_alignment=cfg.options.global_alignment,
-                         adaptive=cfg.adaptive, k_win=k_win, s_cap=s_cap),
-            longest, engine)
+        ecfg = EngineConfig(penalties=p,
+                            global_alignment=cfg.options.global_alignment,
+                            adaptive=cfg.adaptive, k_win=k_win, s_cap=s_cap)
+        if s0 is not None:
+            # the total cap must leave phase 2 a score to run
+            s_cap = max(s_cap, s0 + 8)
+            ecfg = dataclasses.replace(ecfg, s_cap=s_cap)
+            per_pair = semi2_bytes_per_pair(
+                ecfg, full_span, s0, _pad_len(lq - 1 + lt), longest)
+        else:
+            per_pair = batch_bytes_per_pair(ecfg, longest, engine)
         b_cap = max(1, min(8192, cfg.mem_budget // per_pair))
         return k_win, s_cap, b_cap, engine
 
@@ -168,11 +218,11 @@ class AlignmentPipeline:
             else:
                 valid.append((i, (q, t)))
 
-        served: Dict[object, int] = {0: 0, 1: 0, 2: 0, "oracle": 0}
+        served: Dict[object, int] = {0: 0, 1: 0, 2: 0, 3: 0, "oracle": 0}
         pending = bucket_pairs(valid)
         prev_caps = {}  # bucket -> previous tier's caps
         score_seen = {}  # bucket -> max final score observed this call
-        for tier in (0, 1, 2):
+        for tier in (0, 1, 2, 3):
             nxt = {key: [] for key in pending}
             for key, items in pending.items():
                 if not items:

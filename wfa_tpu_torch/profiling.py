@@ -1,12 +1,12 @@
 """Profile timed ``align_all`` calls of the port on the card.
 
     python -m wfa_tpu_torch.profiling [--length 50000] [--pairs 64]
-                                      [--calls 3]
+                                      [--calls 3] [--semi]
 
 Generates ``generate_pairs(pairs, length, 0.05, seed=42)`` (bench.py's
-data), runs one warm call of ``AlignmentPipeline.align_all`` (global,
-gap-affine
-4/6/2, wf-adaptive 10/50/1, device "cuda"), then times ``--calls`` calls
+data), runs one warm call of ``AlignmentPipeline.align_all`` (global, or
+semi-global with ``--semi``; gap-affine 4/6/2, wf-adaptive 10/50/1,
+device "cuda"), then times ``--calls`` calls
 (host clock, each ending in a synchronise) and traces the last one with
 ``torch.profiler``: the card's name and power limit, wall time, aln/s, the
 device's busy share (the union of its kernel and copy intervals over the
@@ -33,6 +33,8 @@ def main() -> None:
     ap.add_argument("--length", type=int, default=50000)
     ap.add_argument("--pairs", type=int, default=64)
     ap.add_argument("--calls", type=int, default=3)
+    ap.add_argument("--semi", action="store_true",
+                    help="semi-global alignment (the CLI's -g)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -41,12 +43,12 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     pipe = AlignmentPipeline(PipelineConfig(
-        Penalties(4, 6, 2), Options(True),
+        Penalties(4, 6, 2), Options(not args.semi),
         AdaptiveReductionOption(10, 50, 1), batch_size=2048, device="cuda"))
     pairs = generate_pairs(args.pairs, args.length, 0.05, seed=42)
     pipe.align_all(pairs)  # warm: builds the kernels, fits the score cap
     torch.cuda.synchronize()
-    tag = f"global l={args.length}"
+    tag = f"{'semi' if args.semi else 'global'} l={args.length}"
 
     def timed(traced: bool) -> float:
         t0 = time.perf_counter()
