@@ -25,6 +25,12 @@ spaced results of each against the port's exact oracle:
   pairs of l=1000, with a 64-pair two-phase run there against the oracle;
   then one A/B of the two-phase route against K1-semi at the full span on
   1024 pairs of l=1000, in turns;
+* global reads just past int16 offsets: 4096 pairs of l=4000, e=0.05,
+  4/6/2, 10/50/1 (two 2048-pair batches, so that the fitted cap runs
+  too), whose longest read lies in (4095 - k_win, 4096]: the route of TPU
+  kernel row 3, K1-kw (int16 aux rows row- and value-rebased, one sbase
+  word a row) and K2 over those rows, both checked on the path's own
+  first batch at each cap it builds; the int32 K1 must not run there;
 * long global reads: 64 pairs of l=50000, e=0.05, 4/6/2, 10/50/1
   (bench.py's matrix row), through K1-long and K2 over its rebased aux,
   both checked on those same 64 pairs, the path's one batch (the plain
@@ -35,11 +41,11 @@ The semi-global l=1000 path checks 256 results, the l=10000 and the long
 paths all 64, the others 512; the oracle runs in a pool of one process
 per CPU core.
 
-K1 and K1-long are checked at each (k_win, s_cap) the paths run: tier
-0's first cap and the cap the score memory fits after the warm call.  A
-path that builds an engine of caps that GLOBAL_CHECKS, SEMI_CHECKS,
-SEMI2_CHECKS or LONG_CHECKS lacks fails the run (after every phase has
-run, so one run shows all of them).  Every comparison is integer and
+K1, K1-kw and K1-long are checked at each (k_win, s_cap) the paths run:
+tier 0's first cap and the cap the score memory fits after the warm call.
+A path that builds an engine of caps that GLOBAL_CHECKS, SEMI_CHECKS,
+SEMI2_CHECKS, KW_CHECKS or LONG_CHECKS lacks fails the run (after every
+phase has run, so one run shows all of them).  Every comparison is integer and
 exact: the tolerance is 0.
 
 Exits nonzero on any failure.  The last two lines are one JSON object
@@ -69,7 +75,9 @@ N_LONG_CHECK = N_LONG  # the oracle takes ~2.2 s a pair at l=50000
 N_AB = 1024  # the A/B batch: K1-semi's aux at the full span is 16 GiB
 # global reads whose longest lies in (4095 - k_win, 4096]: where the JAX
 # pipeline takes TPU kernel row 3 (auto:kw, wfa_tpu/pipeline.py:216-223)
+# and the port K1-kw
 KW_LENGTH = 4000
+N_KW = 2 * BATCH  # two batches: the warm call's second fits the score cap
 N_BWA = 256  # K3 at Penalties(4, 6, 1)
 # K1/K2 checks, (pairs, l, k_win, s_cap): the first of each mode is the
 # one the kernels' record reports
@@ -90,6 +98,11 @@ SEMI2_CHECKS = ((1000, 2048, 64, 256, 640), (1000, 2048, 64, 256, 512),
 # largest final score (14,748, the oracle's: 1.2 x 14,748 + 16, rounded
 # up to 128); all 64 pairs of the path's one batch
 LONG_CHECKS = ((N_LONG, 50000, 384, 27648), (N_LONG, 50000, 384, 17792))
+# the l=4000 path's caps, KW = k_win 256 (band 104 + drift 47, rounded up
+# to 128): tier 0 (0.55 x 4000 rounded up to 128), then the cap the score
+# memory fits after the warm call; K1-kw and K2 are checked on the path's
+# own first batch at each
+KW_CHECKS = ((BATCH, KW_LENGTH, 256, 2304), (BATCH, KW_LENGTH, 256, 1664))
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W):
 # device memory bandwidth, and the non-tensor 32-bit rate the score
@@ -139,13 +152,21 @@ def timed_once(fn):
 
 def max_err(refs, gots) -> int:
     """Largest absolute difference over pairs of integer tensors (a
-    shape or type mismatch fails the run)."""
+    shape or type mismatch fails the run).  Unequal tensors are widened
+    a chunk at a time: K1-kw's aux at the path's shape is 7 GiB of int16
+    cells."""
+    import torch
+
     err = 0
     for a, b in zip(refs, gots):
         if a.dtype != b.dtype or a.shape != b.shape:
             fail(f"{a.dtype}{tuple(a.shape)} vs {b.dtype}{tuple(b.shape)}")
-        if a.numel():
-            err = max(err, int((a.long() - b.long()).abs().max()))
+        if torch.equal(a, b):
+            continue
+        fa, fb = a.reshape(-1), b.reshape(-1)
+        for i in range(0, fa.numel(), 1 << 26):
+            d = fa[i:i + (1 << 26)].long() - fb[i:i + (1 << 26)].long()
+            err = max(err, int(d.abs().max()))
     return err
 
 
@@ -182,10 +203,12 @@ def oracle_check(tag: str, pairs, results, idx, aligner) -> None:
 def counters() -> dict:
     """Every kernel wrapper's launch counts, by mode."""
     from wfa_tpu_torch.device_backtrace import device_backtrace
-    from wfa_tpu_torch.kernel_engine import (run_batch, run_batch_long,
-                                             run_prefix, run_resume)
+    from wfa_tpu_torch.kernel_engine import (run_batch, run_batch_kw,
+                                             run_batch_long, run_prefix,
+                                             run_resume)
 
     return {"score_loop": run_batch.launches,
+            "score_loop_kw": run_batch_kw.launches,
             "score_loop_long": run_batch_long.launches,
             "score_loop_prefix": run_prefix.launches,
             "score_loop_resume": run_resume.launches,
@@ -300,13 +323,13 @@ def check_kernels(checks, global_alignment: bool, reps: int,
 def k1_bound(cfg, ins, final_s, ok, cell_bytes: int, base_bytes: int = 0):
     """Bytes and operations a score-loop call must spend: read the rows
     and lengths once, write the aux rows 0..final_s of the pairs it
-    finished (3 planes of K cells of ``cell_bytes``, plus a base per row
-    in the long-read mode) and the out rows; one operation per aux
-    cell."""
+    finished (3 planes of K cells, KW in the KW mode, of ``cell_bytes``,
+    plus a base or sbase word per row in the long-read and KW modes) and
+    the out rows; one operation per aux cell."""
     qb, tbuf = ins[:2]
     B = qb.shape[0]
     rows = int((final_s.long() + 1)[ok].sum())
-    cells = 3 * rows * cfg.k_win
+    cells = 3 * rows * (cfg.aux_kw or cfg.k_win)
     nbytes = (qb.numel() + tbuf.numel() + 12 * B + 28 * B
               + cells * cell_bytes + rows * base_bytes)
     return bound(nbytes, cells)
@@ -410,9 +433,121 @@ def phase_k1_long(cfg, ins, reps: int = 3):
     return rec, got
 
 
-def phase_k2(cfg, ins, k1_out, reps: int = 10, long: bool = False):
+def phase_k1_kw(cfg, ins, reps: int = 3):
+    """K1-kw against run_batch_kw_plain on the card: every out row of every
+    pair, the int16 aux rows and sbase words 0..final_s of served pairs
+    (the rest zeroed on both sides, ``engine.canonical_kw``).  The plain
+    version's one checked call is also its time.  Then int32 K1 and K1-kw
+    on the same batch in turns (K1, K1-kw, K1-kw, K1), and K2 over each
+    one's aux in turns, printed beside the record."""
+    import torch
+    from wfa_tpu_torch.device_backtrace import device_backtrace
+    from wfa_tpu_torch.engine import (_token_plan, canonical_kw,
+                                      run_batch_kw_plain)
+    from wfa_tpu_torch.kernel_engine import run_batch, run_batch_kw
+
+    qb, tbuf, qlen, tlen, toff, Lq, Ltb = ins
+    args = (qb, tbuf, qlen, tlen, toff)
+    kw = dict(cfg=cfg, Lq=Lq, Ltb=Ltb)
+    name = "score_loop_kw"
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    ref, plain_ms = timed_once(lambda: run_batch_kw_plain(*args, **kw))
+    plain_peak = torch.cuda.max_memory_allocated() / 2**30
+    ref = canonical_kw(ref)
+    got = run_batch_kw(*args, **kw)
+    torch.cuda.synchronize()
+    gotc = canonical_kw(got)
+    err = max_err(ref, gotc)
+    if err:
+        names = ("final_s", "done", "overflow", "term_cell", "aux", "sbase")
+        bad = [n for n, a, b in zip(names, ref, gotc) if not torch.equal(a, b)]
+        fail(f"{name} differs from run_batch_kw_plain in {bad} "
+             f"(max_abs_err {err})")
+    ok = ref[1] & ~ref[2]
+    cb = int((gotc[5] & 31).max())  # the largest row base of a served row
+    del ref, gotc
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: run_batch_kw(*args, **kw), reps)
+    turns = [cuda_ms(lambda: run_batch(*args, **kw), reps),
+             cuda_ms(lambda: run_batch_kw(*args, **kw), reps),
+             cuda_ms(lambda: run_batch_kw(*args, **kw), reps),
+             cuda_ms(lambda: run_batch(*args, **kw), reps)]
+    # K2 over int32 K1's aux and over K1-kw's (one more dependent load a
+    # step, the sbase word that places the cell): the same tokens, and
+    # their times in turns on this batch
+    k1 = run_batch(*args, **kw)
+    ak, ok2 = tlen - qlen, ok & k1[1] & ~k1[2]
+    shift, _ = _token_plan(cfg.s_cap, cfg.penalties, Lq, Ltb)
+    bkw = dict(penalties=cfg.penalties, S=cfg.s_cap, token_shift=shift,
+               split_ext_codes=True)
+
+    def k2(kw_aux: bool):
+        if kw_aux:
+            return device_backtrace(got[4], got[3], -toff, got[0], ak, qlen,
+                                    tlen, ok2, K=cfg.aux_kw,
+                                    aux_sbase=got[5], **bkw)
+        return device_backtrace(k1[4], k1[3], -toff, k1[0], ak, qlen, tlen,
+                                ok2, K=cfg.k_win, **bkw)
+
+    if not all(torch.equal(a, b) for a, b in zip(k2(False), k2(True))):
+        fail("K2 tokens over K1-kw's aux differ from those over int32 K1's")
+    k2_turns = [cuda_ms(lambda: k2(False), reps), cuda_ms(lambda: k2(True), reps),
+                cuda_ms(lambda: k2(True), reps), cuda_ms(lambda: k2(False), reps)]
+    del k1
+    torch.cuda.empty_cache()
+    rec = {"name": name, "route": "cuda",
+           "source": "wfa_tpu_torch/csrc/score_loop.cu",
+           "replaces": "wfa_tpu/pallas_engine.py:775",
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           **k1_bound(cfg, ins, got[0], ok, 2, 4)}
+    print(f"K1 {name} == run_batch_kw_plain: {qb.shape[0]} pairs, k_win "
+          f"{cfg.k_win}, KW {cfg.aux_kw}, s_cap {cfg.s_cap}, {int(ok.sum())} "
+          f"served, final_s max {int(got[0].max())}, largest row base cb "
+          f"{cb}, max_abs_err {err} (tolerance 0); kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.1f} ms (peak device memory {plain_peak:.2f} GiB, "
+          f"{held:.2f} GiB held before it), bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']}); in turns "
+          f"int32 K1 {turns[0]:.3f}, K1-kw {turns[1]:.3f}, K1-kw "
+          f"{turns[2]:.3f}, int32 K1 {turns[3]:.3f} ms; K2 over them in "
+          f"turns {k2_turns[0]:.3f} (int32), {k2_turns[1]:.3f} (KW), "
+          f"{k2_turns[2]:.3f} (KW), {k2_turns[3]:.3f} (int32) ms")
+    return rec, got
+
+
+def check_kw_batches(seen, reps: int):
+    """K1-kw and K2 over its sbase words on each batch the l=4000 path gave
+    them (its first at each (k_win, s_cap)); returns the two records,
+    with the times of the first batch."""
+    import torch
+    from wfa_tpu_torch import AdaptiveReductionOption, Penalties
+    from wfa_tpu_torch.engine import EngineConfig, _pack_all, inputs_from_packed
+
+    recs = None
+    for (engine, k_win, s_cap), pairs in seen.items():
+        if engine != "kw":
+            fail(f"the l={KW_LENGTH} path ran engine {engine!r}")
+        cfg = EngineConfig(penalties=Penalties(4, 6, 2),
+                           adaptive=AdaptiveReductionOption(10, 50, 1),
+                           k_win=k_win, s_cap=s_cap, aux_kw=k_win)
+        ins = inputs_from_packed(_pack_all(pairs, k_win), DEVICE)
+        rec1, out = phase_k1_kw(cfg, ins, reps)
+        new = (rec1, phase_k2(cfg, ins, out, reps=reps, rows_kw=True))
+        del out, ins
+        torch.cuda.empty_cache()
+        if recs is None:
+            recs = new
+        else:
+            merge(recs, new)
+    return recs
+
+
+def phase_k2(cfg, ins, k1_out, reps: int = 10, long: bool = False,
+             rows_kw: bool = False):
     """K2 against device_backtrace_plain on K1's aux (K1-long's rebased
-    aux with its bases), from K1's end."""
+    aux with its bases, or K1-kw's with its sbase words: ``rows_kw``),
+    from K1's end."""
     import torch
     from wfa_tpu_torch.device_backtrace import (device_backtrace,
                                                 device_backtrace_plain,
@@ -420,20 +555,25 @@ def phase_k2(cfg, ins, k1_out, reps: int = 10, long: bool = False):
     from wfa_tpu_torch.engine import _token_plan
 
     qb, tbuf, qlen, tlen, toff, Lq, Ltb = ins
-    if long:
-        final_s, done, overflow, term_cell, aux, aux_base = k1_out
+    aux_base = sbase = None
+    if long or rows_kw:
+        final_s, done, overflow, term_cell, aux, base = k1_out
         end_s, end_k, end_cell = final_s, tlen - qlen, term_cell
+        if long:
+            aux_base = base
+        else:
+            sbase = base
     else:
         _, done, overflow, _, aux, (end_s, end_k, end_cell) = k1_out
-        aux_base = None
     shift, _ = _token_plan(cfg.s_cap, cfg.penalties, Lq, Ltb)
     ga = cfg.global_alignment
-    name = ("backtrace_long" if long
+    name = ("backtrace_long" if long else "backtrace_kw" if rows_kw
             else "backtrace" if ga else "backtrace_semi")
     args = (aux, end_cell, -toff, end_s, end_k, qlen, tlen, done & ~overflow)
-    kw = dict(penalties=cfg.penalties, S=cfg.s_cap, K=cfg.k_win,
-              token_shift=shift, split_ext_codes=ga, global_alignment=ga,
-              aux_base=aux_base, return_iters=True)
+    kw = dict(penalties=cfg.penalties, S=cfg.s_cap,
+              K=cfg.aux_kw if rows_kw else cfg.k_win, token_shift=shift,
+              split_ext_codes=ga, global_alignment=ga, aux_base=aux_base,
+              aux_sbase=sbase, return_iters=True)
     ref = device_backtrace_plain(*args, **kw)
     got = device_backtrace(*args, **kw)
     torch.cuda.synchronize()
@@ -448,11 +588,11 @@ def phase_k2(cfg, ins, k1_out, reps: int = 10, long: bool = False):
         err = max(err, d)
     plain_ms = cuda_ms(lambda: device_backtrace_plain(*args, **kw), 1)
     ms = cuda_ms(lambda: device_backtrace(*args, **kw), reps)
-    # bytes: the scalar inputs, one aux cell (and base) per chase step,
-    # every token slot and the iteration counts
+    # bytes: the scalar inputs, one aux cell (and base or sbase word) per
+    # chase step, every token slot and the iteration counts
     B = qb.shape[0]
     steps = int(got[3].long().sum())
-    cell = (2 + 4) if long else 4
+    cell = (2 + 4) if long or rows_kw else 4
     tok = got[0].element_size()
     slots = 1 + 2 * iter_capacity(cfg.s_cap, cfg.penalties) + 4
     nbytes = 25 * B + steps * cell + slots * B * tok + 4 * B
@@ -829,49 +969,6 @@ def phase_ab(card: str) -> None:
           f"{t2f:.3f} = {t1 + t2f:.3f} ms")
 
 
-def phase_kw_bound(card: str) -> None:
-    """The bound of TPU kernel row 3, which the port has not ported
-    (``pallas_engine._kernel`` with KW > 0, engine ``auto:kw<k_win>``): the
-    JAX pipeline takes it for global wf-adaptive reads whose longest lies
-    in (4095 - k_win, 4096], at tier 0's k_win.  Its least time for one
-    batch: the int16 aux rows at KW = k_win plus one int32 sbase a row, up
-    to each pair's final_s, and the inputs and out rows, at the card's
-    memory rate.  final_s comes from K1 (int32 aux), which serves these
-    reads in the port; its time is printed beside the bound."""
-    from wfa_tpu_torch import AdaptiveReductionOption, Options, Penalties
-    from wfa_tpu_torch.datagen import generate_pairs
-    from wfa_tpu_torch.engine import (EngineConfig, _pack_all,
-                                      inputs_from_packed)
-    from wfa_tpu_torch.kernel_engine import run_batch
-    from wfa_tpu_torch.pipeline import AlignmentPipeline, PipelineConfig
-
-    pen, ad = Penalties(4, 6, 2), AdaptiveReductionOption(10, 50, 1)
-    pairs = generate_pairs(BATCH, KW_LENGTH, 0.05, seed=42)
-    lq = max(len(q) for q, _ in pairs)
-    lt = max(len(t) for _, t in pairs)
-    pipe = AlignmentPipeline(PipelineConfig(pen, Options(True), ad,
-                                            device=DEVICE))
-    k_win, s_cap, _, engine = pipe._tier_caps(lq, lt, 0)
-    if not 4095 - k_win < max(lq, lt) <= 4096 or engine != "auto":
-        fail(f"l={KW_LENGTH} is not in TPU row 3's range at k_win {k_win}")
-    cfg = EngineConfig(penalties=pen, adaptive=ad, k_win=k_win, s_cap=s_cap)
-    ins = inputs_from_packed(_pack_all(pairs, k_win), DEVICE)
-    kw = dict(cfg=cfg, Lq=ins[5], Ltb=ins[6])
-    final_s, done, overflow = run_batch(*ins[:5], **kw)[:3]
-    ms = cuda_ms(lambda: run_batch(*ins[:5], **kw), 3)
-    ok = done & ~overflow
-    B = len(pairs)
-    rows = int((final_s.long() + 1)[ok].sum())
-    nbytes = (ins[0].numel() + ins[1].numel() + 12 * B + 28 * B
-              + rows * (3 * k_win * 2 + 4))
-    b = bound(nbytes, 3 * rows * k_win)
-    print(f"TPU kernel row 3 (auto:kw{k_win}, to port): {B} global pairs of "
-          f"l={KW_LENGTH}, longest {max(lq, lt)}, s_cap {s_cap}, {int(ok.sum())}"
-          f" done, {rows} aux rows to final_s; bound {b['bound_ms']:.4f} ms "
-          f"({b['bound_by']}: int16 rows at KW {k_win} and int32 sbase); K1 "
-          f"(int32 aux) serves the batch in {ms:.3f} ms on {card}")
-
-
 def blocked_modules() -> set:
     """Loaded modules of JAX and of the JAX package wfa_tpu."""
     return {m for m in sys.modules
@@ -927,7 +1024,18 @@ def main() -> None:
     check_own_batches(seen, 10000, 3, semi2_recs, (rec3, rec4))
     rec_bwa = phase_bwa(3, semi2_recs, card)
     phase_ab(card)
-    phase_kw_bound(card)
+    # reads just past int16 offsets: the path, then K1-kw and K2 over its
+    # sbase words on the batches it ran; the int32 K1 must not run there
+    # (every pair at tier 0: a retry would also run unchecked caps)
+    launches, seen = phase_main(N_KW, KW_LENGTH, True, BATCH, N_CHECK, card,
+                                KW_CHECKS, need=(("score_loop_kw", "kw"),
+                                                 ("backtrace", "kw")))
+    if launches["score_loop"]["global"]:
+        fail(f"main global l={KW_LENGTH} launched the int32 K1 "
+             f"{launches['score_loop']['global']} times")
+    rec7, rec8 = check_kw_batches(seen, 3)
+    rec7["launches"] = launches["score_loop_kw"]["kw"]
+    rec8["launches"] = launches["backtrace"]["kw"]
     # long global reads: K1-long and K2 over its rebased aux, then the path
     rec5, rec6 = check_kernels(LONG_CHECKS, True, reps=3, long=True)
     launches, _ = phase_main(N_LONG, 50000, True, BATCH, N_LONG_CHECK, card,
@@ -944,7 +1052,8 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     k3, k4, k2d = semi2_recs
-    recs = [rec1, rec3, rec5, k3, rec_bwa, k4, rec2, rec4, rec6, k2d]
+    recs = [rec1, rec3, rec7, rec5, k3, rec_bwa, k4, rec2, rec4, rec8, rec6,
+            k2d]
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in recs]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,10 +10,13 @@ imports JAX, which the card machine lacks, so run them there with
 these cover the other shapes the main path can give the kernels (tier-1
 and tier-2 windows, no reduction, degenerate penalties, overflows, raw
 bytes, semi-global full-span windows; K1-long and K2 over its rebased
-aux at long-read lengths, the int16 guard and the raw outputs; K3, K4
-and K2 over both aux tensors of the two-phase semi-global route at its
-tier-0 and tier-1 caps, at l=5000, at penalties the TPU's chunked prefix
-kernel refuses, and with a target row that holds only a suffix).
+aux at long-read lengths, the int16 guard and the raw outputs; K1-kw
+and K2 over its sbase words at KW == k_win (l=4000, the pipeline's
+route), at KW < k_win (the row window shifts) and where every pair
+escapes; K3, K4 and K2 over both aux tensors of the two-phase semi-global
+route at its tier-0 and tier-1 caps, at l=5000, at penalties the TPU's
+chunked prefix kernel refuses, and with a target row that holds only a
+suffix).
 Integer outputs: exact equality.
 """
 
@@ -183,9 +186,59 @@ def test_long_kernels_match_plain(card, case):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
+# (adaptive, KW, k_win, s_cap, length, error, pairs, seed); "escape" never
+# trims the band, which outgrows its 128 columns in every pair
+KW_CASES = {
+    "l4000": (ADAPTIVE, 256, 256, 2304, 4000, 0.05, 16, 19),
+    "window_shift": (ADAPTIVE, 256, 512, 512, 400, 0.10, 24, 19),
+    "escape": (AdaptiveReductionOption(10, 10 ** 6, 1), 128, 256, 512, 300,
+               0.10, 8, 5),
+}
+
+
+@pytest.mark.parametrize("case", list(KW_CASES))
+def test_kw_kernels_match_plain(card, case):
+    """K1-kw against run_batch_kw_plain (every out row; the int16 aux rows
+    and sbase words <= final_s of served pairs, the rest zeroed on both
+    sides) and K2 over its sbase words against its plain version."""
+    from wfa_tpu_torch import engine as te
+    from wfa_tpu_torch.device_backtrace import (device_backtrace,
+                                                device_backtrace_plain)
+    from wfa_tpu_torch.kernel_engine import run_batch_kw
+
+    ad, kw, k_win, s_cap, length, err, n, seed = KW_CASES[case]
+    cfg = te.EngineConfig(penalties=Penalties(4, 6, 2), adaptive=ad,
+                          k_win=k_win, s_cap=s_cap, aux_kw=kw)
+    pairs = generate_pairs(n, length, err, seed=seed)
+    qb, tbuf, qlen, tlen, toff, Lq, Ltb = te.inputs_from_packed(
+        te._pack_all(pairs, k_win), card)
+    args = (qb, tbuf, qlen, tlen, toff)
+    ref = te.canonical_kw(te.run_batch_kw_plain(*args, cfg=cfg, Lq=Lq,
+                                                Ltb=Ltb))
+    got = run_batch_kw(*args, cfg=cfg, Lq=Lq, Ltb=Ltb)
+    for a, b in zip(ref, te.canonical_kw(got)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    ok = ref[1] & ~ref[2]
+    if case == "escape":
+        assert not bool(ok.any())
+    else:
+        assert int(ok.sum()) >= n - 2
+    if case == "window_shift":
+        assert int((ref[5] & 31).max()) > 0
+
+    shift, _ = te._token_plan(s_cap, cfg.penalties, Lq, Ltb)
+    bt_args = (got[4], got[3], -toff, got[0], tlen - qlen, qlen, tlen, ok)
+    bkw = dict(penalties=cfg.penalties, S=s_cap, K=kw, token_shift=shift,
+               split_ext_codes=True, aux_sbase=got[5], return_iters=True)
+    for a, b in zip(device_backtrace_plain(*bt_args, **bkw),
+                    device_backtrace(*bt_args, **bkw)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 @pytest.mark.parametrize("ga,engine,s_cap", [
     (True, "auto", 640), (False, "auto", 640), (True, "long", 640),
-    (True, "auto", 65528)], ids=["global", "semi", "long", "raw_outputs"])
+    (True, "kw", 640), (True, "auto", 65528)],
+    ids=["global", "semi", "long", "kw", "raw_outputs"])
 def test_align_full2_card_matches_cpu(card, ga, engine, s_cap):
     """The whole device part of the main path: the outputs from the
     kernels equal those from the plain versions (the byte streams, or the
@@ -196,7 +249,8 @@ def test_align_full2_card_matches_cpu(card, ga, engine, s_cap):
     if s_cap > 32000:
         k_win = 32  # keeps the [S, B, K] tensors small
     cfg = te.EngineConfig(penalties=Penalties(4, 6, 2), global_alignment=ga,
-                          adaptive=ADAPTIVE, k_win=k_win, s_cap=s_cap)
+                          adaptive=ADAPTIVE, k_win=k_win, s_cap=s_cap,
+                          aux_kw=k_win if engine == "kw" else None)
     pairs = (generate_pairs(16, 60, 0.05, seed=11) if s_cap > 32000
              else _pairs(64, 400, 0.05, 11))
     _, _, qlen, tlen, toff, Lq, Ltb, qp, tp = te._pack_all(
@@ -213,8 +267,10 @@ def test_align_full2_card_matches_cpu(card, ga, engine, s_cap):
 
 
 def test_wrappers_check_their_inputs(card):
+    import dataclasses
+
     from wfa_tpu_torch import engine as te
-    from wfa_tpu_torch.kernel_engine import run_batch
+    from wfa_tpu_torch.kernel_engine import run_batch, run_batch_kw
 
     cfg = te.EngineConfig(penalties=Penalties(4, 6, 2), adaptive=ADAPTIVE)
     ins = te.inputs_from_packed(te._pack_all(_pairs(4, 100, 0.05, 3), 128),
@@ -227,6 +283,11 @@ def test_wrappers_check_their_inputs(card):
                   Ltb=Ltb // 2)
     with pytest.raises(ValueError):
         run_batch(qb, tbuf.cpu(), qlen, tlen, toff, cfg=cfg, Lq=Lq, Ltb=Ltb)
+    # K1-kw: a KW the TPU kernel refuses, and no KW at all
+    for kw in (64, None):
+        with pytest.raises(ValueError):
+            run_batch_kw(*ins[:5], cfg=dataclasses.replace(cfg, aux_kw=kw),
+                         Lq=Lq, Ltb=Ltb)
     # band slots over the default shared-memory limit: the launch fails
     # and the wrapper raises the CUDA error
     huge = te.EngineConfig(penalties=Penalties(5000, 6, 2), adaptive=ADAPTIVE)

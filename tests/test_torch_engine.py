@@ -256,13 +256,16 @@ def test_config_from_jax_rejects_unported_modes():
     cfg = EngineConfig(penalties=Penalties(4, 6, 2), adaptive=ADAPTIVE)
     assert te.config_from_jax(cfg) == te.EngineConfig(
         penalties=Penalties(4, 6, 2), adaptive=ADAPTIVE)
-    for change in ({"w_win": 32}, {"v_win": 256}, {"aux_kw": 128}):
+    for change in ({"w_win": 32}, {"v_win": 256}):
         with pytest.raises(NotImplementedError):
             te.config_from_jax(dataclasses.replace(cfg, **change))
-    # semi-global and the two-phase route's prefix mode are ported
+    # semi-global, the two-phase route's prefix mode and the KW rebased
+    # aux are ported
     semi = te.config_from_jax(dataclasses.replace(cfg, global_alignment=False))
     assert not semi.global_alignment
     assert te.config_from_jax(dataclasses.replace(cfg, prefix=True)).prefix
+    assert te.config_from_jax(
+        dataclasses.replace(cfg, aux_kw=128)).aux_kw == 128
 
 
 def test_window_origin_and_direct_pack_match_jax():

@@ -57,14 +57,17 @@ pairs = generate_pairs(6, 150, 0.05, seed=9)
 q = generate_pairs(1, 300, 0.0, seed=3)[0][0]
 pairs.append((q, q[:150]))  # its band leaves the tier-0 window
 long_pair = generate_pairs(1, 4300, 0.002, seed=5)  # the long-read engine
+kw_pair = generate_pairs(1, 3950, 0.003, seed=31)  # K1-kw ("auto:kw256")
 pipe = AlignmentPipeline(PipelineConfig(*args, batch_size=4, device="cpu"))
 oracle = OracleAligner(*args)
-for (q, t), r in zip(pairs + long_pair, pipe.align_all(pairs + long_pair)):
+run = pairs + long_pair + kw_pair
+for (q, t), r in zip(run, pipe.align_all(run)):
     o = oracle.align(q, t)
     assert (r.score, r.cigar(False), r.q_end, r.matches) == (
         o.score, o.cigar(False), o.q_end, o.matches), (q, t)
 assert pipe.served[1] >= 1, pipe.served
-assert any(e == "long" for _, _, e in pipe._engines), pipe._engines
+engines = [e for _, _, e in pipe._engines]
+assert "long" in engines and "auto:kw256" in engines, engines
 # semi-global: full token streams, decoded without JAX; l=320 takes the
 # two-phase route
 semi = (args[0], Options(False), args[2])

@@ -255,19 +255,22 @@ def test_pipeline_long_reads_match_oracle():
 def test_tier_ladder_matches_jax():
     """The window ladder equals wfa_tpu.pipeline's: widening only up to
     4096 bases, the long-read engine for global wf-adaptive buckets above
-    (JAX's "pallas_long"), the same tier-0 score cap.  JAX's last tier
-    takes its XLA engine for long reads, to finish pairs its kernel's
-    table window outran; K1-long has no such window and serves it too.
-    JAX clamps s_cap by a TPU memory model (pipeline.py:171-175), which
-    binds at l=100000 and for full-span windows; the port has its own."""
+    (JAX's "pallas_long"), K1-kw exactly where JAX gives "auto:kw{k_win}"
+    (longest read in (4095 - k_win, 4096]), the same tier-0 score cap.
+    JAX's last tier takes its XLA engine for long reads, to finish pairs
+    its kernel's table window outran; K1-long has no such window and
+    serves it too.  JAX clamps s_cap by a TPU memory model
+    (pipeline.py:171-175), which binds at l=100000 and for full-span
+    windows; the port has its own."""
     from wfa_tpu.pipeline import AlignmentPipeline as JaxPipeline
     from wfa_tpu.pipeline import PipelineConfig as JaxConfig
 
+    kw_seen = 0
     for adaptive in (ADAPTIVE, None):
         args = (Penalties(4, 6, 2), Options(True), adaptive)
         ours = AlignmentPipeline(PipelineConfig(*args, device="cpu"))
         ref = JaxPipeline(JaxConfig(*args, n_devices=1))
-        for length in (1000, 4096, 4500, 50000, 100000):
+        for length in (1000, 3839, 3840, 4000, 4096, 4500, 50000, 100000):
             for tier in (0, 1, 2):
                 k, s, _, engine = ours._tier_caps(length, length, tier)
                 jk, js, _, _, jengine = ref._tier_caps(length, length,
@@ -277,8 +280,12 @@ def test_tier_ladder_matches_jax():
                 assert (engine == "long") == long, (length, tier)
                 if tier < 2:
                     assert long == (jengine == "pallas_long")
+                assert (engine == f"auto:kw{k}") == (
+                    jengine == f"auto:kw{jk}"), (length, tier, engine)
+                kw_seen += engine.startswith("auto:kw")
                 if tier == 0 and adaptive is not None and length <= 50000:
                     assert s == js, (length, tier)
+    assert kw_seen == 3  # tier 0 at 3840, 4000 and 4096 bases
 
 
 def test_long_engine_guards():

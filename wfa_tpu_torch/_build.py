@@ -33,8 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S, K, x, oe, e, reduce_on,
-    # min_wf_len, max_dist_diff, mode, win, out, aux, aux_base, stream
-    "wfa_score_loop": [_P] * 5 + [_I] * 12 + [_P] * 5,
+    # min_wf_len, max_dist_diff, mode, kw, win, out, aux, aux_base, stream
+    "wfa_score_loop": [_P] * 5 + [_I] * 13 + [_P] * 5,
     # qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S0, Kf, K2, x, oe, e,
     # reduce_on, min_wf_len, max_dist_diff, cell16, win, aux_old, win_m,
     # win_i, win_d, ainit, b_m, b_ie, meta1, stream
@@ -43,11 +43,12 @@ _SIGNATURES = {
     # reduce_on, min_wf_len, max_dist_diff, cell16, win, out, aux2, win_m,
     # win_i, win_d, ainit, b_m, b_ie, meta1, stream
     "wfa_resume": [_P] * 5 + [_I] * 13 + [_P] * 11,
-    # aux, aux_c16, aux_base, aux_old, old_c16, s_split, Kf, k0_old,
-    # start_cell, k0, start_s, start_k, qlen, tlen, active0, B, S, K, x, oe,
-    # e, it_cap, token_shift, split, semi, tok0, buf, tail, iters, stream
-    "wfa_backtrace": ([_P, _I, _P, _P, _I, _I, _I] + [_P] * 8 + [_I] * 10
-                      + [_P] * 5),
+    # aux, aux_c16, aux_base, sbase, aux_old, old_c16, s_split, Kf,
+    # k0_old, start_cell, k0, start_s, start_k, qlen, tlen, active0, B, S,
+    # K, x, oe, e, it_cap, token_shift, split, semi, tok0, buf, tail, iters,
+    # stream
+    "wfa_backtrace": ([_P, _I, _P, _P, _P, _I, _I, _I] + [_P] * 8
+                      + [_I] * 10 + [_P] * 5),
 }
 
 _lib = None

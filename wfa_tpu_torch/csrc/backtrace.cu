@@ -10,7 +10,11 @@
 // Aux forms: int32 or int16 cells (offset0 << 3 | tag) from the score
 // loop, or the long-read score loop's value-rebased int16 cells, whose
 // found cells hold offset0 - aux_base[b, s] + 1 (device_backtrace.py:
-// 327-331, 379-383); read_aux adds the base back.  The two-phase
+// 327-331, 379-383); read_aux adds the base back.  K1-kw's int16 rows
+// (device_backtrace.py:332-334, 352-355, 384-385) are KW columns wide,
+// row s of pair b starting at window column (sbase[s, b] & 31) * 32, and
+// their found cells hold offset0 - (sbase[s, b] >> 5) + 1: read_aux
+// shifts the column and adds the base back.  The two-phase
 // semi-global route hands in two aux tensors (device_backtrace.py:281,
 // 335-375): scores below s_split read phase 1's full-span aux_old
 // [3, s_split, B, Kf] at window origin k0_old = -(qlen - 1), the rest
@@ -20,7 +24,9 @@
 //
 // What bounds it on the card: one dependent 4-byte aux read per step
 // (an L2 or HBM latency, ~iter_capacity steps per pair; a rebased read
-// adds an independent base read).  One thread per pair keeps a whole batch
+// adds an independent base read; a K1-kw read first loads the sbase word,
+// whose row base places the cell, so it is a second dependent load before
+// the cell load).  One thread per pair keeps a whole batch
 // of those chains in flight, so the latency is hidden across pairs rather
 // than within one; a 64-pair long-read batch keeps only 64 in flight.
 // Every slot of buf is written, and iters[b] records the iterations the
@@ -75,23 +81,32 @@ __device__ __forceinline__ int load_cell(const AuxView& a, int comp, int s,
 // One aux cell at (s, comp, k): from `old` at origin k0_old below cur's
 // first score (the two-phase split; `old` is empty otherwise), else from
 // `cur` at origin k0.  `base` (int32[B, S]) is null but for rebased cells,
-// where it holds each row's value base.
+// where it holds each row's value base; `sbase` (int32[S, B]) null but for
+// K1-kw's cells, where it holds each row's vb << 5 | cb.
 __device__ __forceinline__ AuxCell read_aux(const AuxView& cur,
                                             const AuxView& old,
                                             const int32_t* __restrict__ base,
+                                            const int32_t* __restrict__ sbase,
                                             int S, int B, int b, int k0,
                                             int k0_old, int s, int comp,
                                             int k) {
   const bool use_old = s < cur.s_lo;
   const AuxView& a = use_old ? old : cur;
-  const int j = k - (use_old ? k0_old : k0);
+  int j = k - (use_old ? k0_old : k0);
   const int s_end = use_old ? cur.s_lo : S;
   AuxCell r{0, 0, false};
-  if (s >= a.s_lo && s < s_end && j >= 0 && j < a.K) {
+  if (s < a.s_lo || s >= s_end) return r;
+  int sbv = 0;
+  if (sbase != nullptr) {
+    sbv = sbase[(int64_t)s * B + b];
+    j -= (sbv & 31) * 32;
+  }
+  if (j >= 0 && j < a.K) {
     const int cell = load_cell(a, comp, s, B, b, j);
     if (cell > 0) {
       int off = cell >> 3;
       if (base != nullptr) off += base[(int64_t)b * S + s] - 1;
+      if (sbase != nullptr) off += (sbv >> 5) - 1;
       r = AuxCell{off, cell & 7, true};
     }
   }
@@ -101,7 +116,7 @@ __device__ __forceinline__ AuxCell read_aux(const AuxView& cur,
 template <typename Tok>
 __global__ void backtrace_kernel(
     AuxView cur, AuxView old, const int32_t* __restrict__ k0_old,
-    const int32_t* __restrict__ aux_base,
+    const int32_t* __restrict__ aux_base, const int32_t* __restrict__ sbase,
     const int32_t* __restrict__ start_cell,
     const int32_t* __restrict__ k0s, const int32_t* __restrict__ start_s,
     const int32_t* __restrict__ start_k, const int32_t* __restrict__ qlen,
@@ -137,7 +152,8 @@ __global__ void backtrace_kernel(
   int comp = 0;
   int it = 0;
   while (alive) {
-    AuxCell c = read_aux(cur, old, aux_base, S, B, b, k0, k0o, s, comp, k);
+    AuxCell c =
+        read_aux(cur, old, aux_base, sbase, S, B, b, k0, k0o, s, comp, k);
     if (pending) {
       if (c.found) tag = c.tag;
       else alive = false;
@@ -183,7 +199,8 @@ __global__ void backtrace_kernel(
   }
   // the reference updates the tag before its loop check (wfa.go:915-920)
   if (pending) {
-    AuxCell c = read_aux(cur, old, aux_base, S, B, b, k0, k0o, s, comp, k);
+    AuxCell c =
+        read_aux(cur, old, aux_base, sbase, S, B, b, k0, k0o, s, comp, k);
     if (c.found) tag = c.tag;
   }
 
@@ -207,7 +224,8 @@ __global__ void backtrace_kernel(
 
 template <typename Tok>
 void launch_tok(AuxView cur, AuxView old, const int32_t* k0_old,
-                const int32_t* aux_base, const int32_t* start_cell,
+                const int32_t* aux_base, const int32_t* sbase,
+                const int32_t* start_cell,
                 const int32_t* k0, const int32_t* start_s,
                 const int32_t* start_k, const int32_t* qlen,
                 const int32_t* tlen, const uint8_t* active0, int B, int S,
@@ -217,8 +235,9 @@ void launch_tok(AuxView cur, AuxView old, const int32_t* k0_old,
   const int threads = 128;
   const int blocks = (B + threads - 1) / threads;
   backtrace_kernel<Tok><<<blocks, threads, 0, st>>>(
-      cur, old, k0_old, aux_base, start_cell, k0, start_s, start_k, qlen,
-      tlen, active0, B, S, K, x, oe, e, it_cap, token_shift, split, semi,
+      cur, old, k0_old, aux_base, sbase, start_cell, k0, start_s, start_k,
+      qlen, tlen, active0, B, S, K, x, oe, e, it_cap, token_shift, split,
+      semi,
       static_cast<Tok*>(tok0), static_cast<Tok*>(buf),
       static_cast<Tok*>(tail), iters);
 }
@@ -227,11 +246,13 @@ void launch_tok(AuxView cur, AuxView old, const int32_t* k0_old,
 
 // aux is [3, S - s_split, B, K] of int16 (aux_c16) or int32 cells; with
 // aux_base (int32[B, S]) the value-rebased int16 cells of the long-read
-// score loop.  With s_split > 0, aux_old [3, s_split, B, Kf] (int16 when
-// old_c16) holds the scores below s_split at window origins k0_old.
+// score loop, with sbase (int32[S, B]) K1-kw's int16 cells, K = KW
+// columns a row.  With s_split > 0, aux_old [3, s_split, B, Kf] (int16
+// when old_c16) holds the scores below s_split at window origins k0_old.
 // iters is int32[B].
 extern "C" int wfa_backtrace(const void* aux, int aux_c16,
-                             const int32_t* aux_base, const void* aux_old,
+                             const int32_t* aux_base, const int32_t* sbase,
+                             const void* aux_old,
                              int old_c16, int s_split, int Kf,
                              const int32_t* k0_old,
                              const int32_t* start_cell, const int32_t* k0,
@@ -247,9 +268,9 @@ extern "C" int wfa_backtrace(const void* aux, int aux_c16,
   const AuxView old{aux_old, s_split, Kf, 0, old_c16 != 0};
   if (B > 0) {
     auto run = token_shift <= 12 ? &launch_tok<int16_t> : &launch_tok<int32_t>;
-    run(cur, old, k0_old, aux_base, start_cell, k0, start_s, start_k, qlen,
-        tlen, active0, B, S, K, x, oe, e, it_cap, token_shift, split, semi,
-        tok0, buf, tail, iters, st);
+    run(cur, old, k0_old, aux_base, sbase, start_cell, k0, start_s, start_k,
+        qlen, tlen, active0, B, S, K, x, oe, e, it_cap, token_shift, split,
+        semi, tok0, buf, tail, iters, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

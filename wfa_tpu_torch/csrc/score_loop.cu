@@ -72,6 +72,25 @@
 // sequence bytes, so nothing outruns: a pair the TPU kernel overflows for
 // an outrun is served here at tier 0.
 //
+// K1-kw (REBASE and KWIN, global only): the port of the TPU kernel
+// wfa_tpu/pallas_engine.py::_kernel with KW > 0 (cfg.aux_kw; setup
+// 1061-1081, aux write 775-843), which the JAX pipeline takes for global
+// reads whose longest lies in (4095 - k_win, 4096] (pipeline.py:216-223).
+// It is K1-long's staging with a row window: the flush of row s also
+// takes cb, the first column of the post-reduce M/I/D band union of score
+// s (band slots mb at s % WM, ib and db at s % WE, each where it exists)
+// // 32, clipped to [0, (K - kw) / 32]; writes only columns [cb * 32,
+// cb * 32 + kw) into an aux row kw wide, values based at vb, the row's
+// minimum offset0 (at least 0); and writes sbase[s, b] = vb << 5 | cb.  A
+// row whose band top reaches cb * 32 + kw, or whose offsets spread past
+// 4095, escapes: the pair is overflowed.  Unlike K1-long, an escape on the
+// terminating row leaves done, final_s and term_cell as they are (out
+// rows done = 1, overflow = 1), because the TPU kernel tests the escape in
+// its aux write, after the termination test, and only sets overflow
+// (pallas_engine.py:652-672, 817-819); the pair is not served either way.
+// The rows it writes are kw / K of K1's and half their width, but the
+// per-step chain is K1-long's, with the same block reductions.
+//
 // Two-phase semi-global route (PHASE != kFull, semi-global only): the
 // port of wfa_tpu/semi2.py's phase 1 and phase 2, with the same extend,
 // terminate, reduce, next and end-finder code.
@@ -214,16 +233,20 @@ __device__ __forceinline__ bool src(const int32_t* row, bool present, int lo,
 }
 
 // Cell: int32 aux cells, the value-rebased int16 cells of REBASE mode, or
-// the int16 cells of a two-phase semi-global phase whose offsets fit them
-template <bool GLOBAL, bool REBASE, int PHASE, typename Cell>
+// the int16 cells of a two-phase semi-global phase whose offsets fit them.
+// KWIN (with REBASE): K1-kw's aux rows kw columns wide, and aux_base is
+// sbase[S, B] instead of the long-read mode's aux_base[B, S].
+template <bool GLOBAL, bool REBASE, int PHASE, typename Cell,
+          bool KWIN = false>
 __global__ void __launch_bounds__(kThreads) score_loop_kernel(
     const uint8_t* __restrict__ qb, const uint8_t* __restrict__ tbuf,
     const int32_t* __restrict__ qlen, const int32_t* __restrict__ tlen,
     const int32_t* __restrict__ toff, int B, int Lq, int Ltb, int S, int K,
     int x, int oe, int e, int reduce_on, int min_wf_len, int max_dist_diff,
-    int32_t* __restrict__ win, int32_t* __restrict__ out,
+    int kw, int32_t* __restrict__ win, int32_t* __restrict__ out,
     Cell* __restrict__ aux, int32_t* __restrict__ aux_base, Handoff ho) {
   static_assert(GLOBAL || !REBASE, "the long-read mode is global only");
+  static_assert(!KWIN || REBASE, "the row window rides the rebased staging");
   static_assert(PHASE == kFull || (!GLOBAL && !REBASE),
                 "the two-phase route is semi-global");
   // staged aux rows in the pair's scratch: REBASE's newest rows, or the
@@ -235,6 +258,7 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
   // the resume's S - S0 from score S0
   const int Sa = PHASE == kFull ? S : (PHASE == kPrefix ? S0 : S - S0);
   const int s_lo = PHASE == kResume ? S0 : 0;
+  const int KA = KWIN ? kw : K;  // aux columns a row
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int WM = max(x, oe) + 1, WE = e + 1;
@@ -254,7 +278,7 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
   int32_t* Iw = Mw + (int64_t)WM * K;
   int32_t* Dw = Iw + (int64_t)WE * K;
   auto aux_row = [&](int comp, int s) {
-    return aux + ((int64_t)(comp * Sa + s - s_lo) * B + b) * K;
+    return aux + ((int64_t)(comp * Sa + s - s_lo) * B + b) * KA;
   };
   // where seeding, reduce and next put a row's aux: the output row, in
   // REBASE mode the int32 staging rows after the I and D windows, and for
@@ -269,8 +293,9 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
       return aux_row(comp, s);
     }
   };
-  // REBASE: write the staged row s rebased; false when a value is too
-  // wide for the int16 cell
+  // REBASE: write the staged row s rebased (KWIN: its kw-column window);
+  // false when a value is too wide for the int16 cell (KWIN: or the band
+  // passes the window)
   auto flush = [&](int s) {
     int r[2] = {kBig, kBig};  // min offset0, -max offset0 of found cells
     for (int j = tid; j < K; j += kThreads) {
@@ -284,17 +309,52 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
       }
     }
     block_min(r, red);
-    const int base = r[0] < kBig ? r[0] : 0;
-    for (int j = tid; j < K; j += kThreads) {
+    int base = r[0] < kBig ? r[0] : 0;
+    bool fits = r[0] == kBig || -r[1] - base + 1 <= kMaxRebased;
+    int cb = 0;  // KWIN: the window's first column / 32
+    if constexpr (KWIN) {
+      // the post-reduce band union of score s (every thread reads the
+      // same slots)
+      const int sm = s % WM, se = s % WE;
+      int lo_u = kBig, hi_u = -kBig;
+      bool anyb = false;
+      const Band* bands[3] = {&mb, &ib, &db};
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
-        const int cell = stage[c * K + j];
+        const int sl = c ? se : sm;
+        if (bands[c]->ex[sl]) {
+          lo_u = min(lo_u, bands[c]->lo[sl]);
+          hi_u = max(hi_u, bands[c]->hi[sl]);
+          anyb = true;
+        }
+      }
+      // C++ division truncates toward zero, as lax.div does
+      if (anyb) cb = min(max((lo_u - k0) / 32, 0), (K - kw) / 32);
+      base = max(base, 0);
+      const int vmx = r[1] < kBig ? -r[1] : -kBig;
+      fits = !anyb ||
+             (hi_u - k0 - cb * 32 < kw && vmx - base + 1 <= kMaxRebased);
+    }
+    const int c0 = cb * 32;
+    for (int j = tid; j < KA; j += kThreads) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const int cell = stage[c * K + c0 + j];
         aux_row(c, s)[j] = static_cast<Cell>(
             cell > 0 ? (((cell >> 3) - base + 1) << 3) | (cell & 7) : 0);
       }
     }
-    if (tid == 0) aux_base[(int64_t)b * S + s] = base;
-    return r[0] == kBig || -r[1] - base + 1 <= kMaxRebased;
+    if (tid == 0) {
+      if constexpr (KWIN) {
+        aux_base[(int64_t)s * B + b] = (base << 5) | cb;
+      } else {
+        aux_base[(int64_t)b * S + s] = base;
+      }
+    }
+    // KWIN: a thread read stage columns that another thread's next() is
+    // about to overwrite
+    if constexpr (KWIN) __syncthreads();
+    return fits;
   };
 
   // the window must hold the seed diagonals and the terminal one; the
@@ -529,11 +589,15 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
       term_cell = cell_ak;
       // the terminating row is searched unreduced
       if (!GLOBAL && !end_found) find_end(s, row_m);
-      // and streamed unreduced
+      // and streamed unreduced.  A row that does not fit overflows the
+      // pair; K1-long reports it not done, K1-kw keeps done, final_s and
+      // term_cell as the TPU kernel keeps them (see the header)
       if (REBASE && !flush(s)) {
         overflow = true;
-        done = false;
-        final_s = term_cell = 0;
+        if (!KWIN) {
+          done = false;
+          final_s = term_cell = 0;
+        }
       }
       break;
     }
@@ -816,20 +880,21 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
 // Launch one instantiation: B blocks of kThreads, dynamic shared memory
 // for the reduction and band slots.  Over the 48 KB default (penalties
 // near 4000) the launch fails and the error is returned.
-template <bool GLOBAL, bool REBASE, int PHASE, typename Cell>
+template <bool GLOBAL, bool REBASE, int PHASE, typename Cell,
+          bool KWIN = false>
 int launch_loop(const uint8_t* qb, const uint8_t* tbuf, const int32_t* qlen,
                 const int32_t* tlen, const int32_t* toff, int B, int Lq,
                 int Ltb, int S, int K, int x, int oe, int e, int reduce_on,
-                int min_wf_len, int max_dist_diff, int32_t* win,
+                int min_wf_len, int max_dist_diff, int kw, int32_t* win,
                 int32_t* out, void* aux, int32_t* aux_base, Handoff ho,
                 void* stream) {
   const int WM = (x > oe ? x : oe) + 1, WE = e + 1;
   const int smem = (8 * kWarps + 3 * WM + 6 * WE) * (int)sizeof(int);
   if (B > 0)
-    score_loop_kernel<GLOBAL, REBASE, PHASE, Cell>
+    score_loop_kernel<GLOBAL, REBASE, PHASE, Cell, KWIN>
         <<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
             qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S, K, x, oe, e,
-            reduce_on, min_wf_len, max_dist_diff, win, out,
+            reduce_on, min_wf_len, max_dist_diff, kw, win, out,
             static_cast<Cell*>(aux), aux_base, ho);
   return static_cast<int>(cudaGetLastError());
 }
@@ -839,27 +904,38 @@ int launch_loop(const uint8_t* qb, const uint8_t* tbuf, const int32_t* qlen,
 // out is int32[7, B]: final_s, done, overflow, term_cell, end_s, end_k,
 // end_cell.  mode 0: global, int32 aux; 1: semi-global, int32 aux; 2: the
 // long-read mode, global with value-rebased int16 aux and its aux_base
-// int32[B, S] (null in the other modes)
+// int32[B, S]; 3: K1-kw, global with int16 aux [3, S, B, kw] and
+// aux_base = sbase int32[S, B].  aux_base is null in modes 0 and 1, kw
+// is read in mode 3 only; a kw the TPU kernel's asserts refuse
+// (pallas_engine.py:1064-1070) returns cudaErrorInvalidValue.
 extern "C" int wfa_score_loop(const uint8_t* qb, const uint8_t* tbuf,
                               const int32_t* qlen, const int32_t* tlen,
                               const int32_t* toff, int B, int Lq, int Ltb,
                               int S, int K, int x, int oe, int e,
                               int reduce_on, int min_wf_len,
-                              int max_dist_diff, int mode, int32_t* win,
-                              int32_t* out, void* aux, int32_t* aux_base,
-                              void* stream) {
+                              int max_dist_diff, int mode, int kw,
+                              int32_t* win, int32_t* out, void* aux,
+                              int32_t* aux_base, void* stream) {
   const Handoff none{};
+  if (mode == 3) {
+    if (kw <= 0 || kw > K || (K - kw) / 32 > 31 || Ltb >= (1 << 26))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_loop<true, true, kFull, int16_t, true>(
+        qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S, K, x, oe, e, reduce_on,
+        min_wf_len, max_dist_diff, kw, win, out, aux, aux_base, none,
+        stream);
+  }
   if (mode == 2)
     return launch_loop<true, true, kFull, int16_t>(
         qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S, K, x, oe, e, reduce_on,
-        min_wf_len, max_dist_diff, win, out, aux, aux_base, none, stream);
+        min_wf_len, max_dist_diff, K, win, out, aux, aux_base, none, stream);
   if (mode == 1)
     return launch_loop<false, false, kFull, int32_t>(
         qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S, K, x, oe, e, reduce_on,
-        min_wf_len, max_dist_diff, win, out, aux, nullptr, none, stream);
+        min_wf_len, max_dist_diff, K, win, out, aux, nullptr, none, stream);
   return launch_loop<true, false, kFull, int32_t>(
       qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S, K, x, oe, e, reduce_on,
-      min_wf_len, max_dist_diff, win, out, aux, nullptr, none, stream);
+      min_wf_len, max_dist_diff, K, win, out, aux, nullptr, none, stream);
 }
 
 // K3, phase 1 of the two-phase semi-global route: scores 0 .. S0 - 1 at
@@ -879,7 +955,7 @@ extern "C" int wfa_prefix(const uint8_t* qb, const uint8_t* tbuf,
   auto run = cell16 ? &launch_loop<false, false, kPrefix, int16_t>
                     : &launch_loop<false, false, kPrefix, int32_t>;
   return run(qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S0 + 1, Kf, x, oe, e,
-             reduce_on, min_wf_len, max_dist_diff, win, nullptr, aux_old,
+             reduce_on, min_wf_len, max_dist_diff, Kf, win, nullptr, aux_old,
              nullptr, ho, stream);
 }
 
@@ -900,6 +976,6 @@ extern "C" int wfa_resume(const uint8_t* qb, const uint8_t* tbuf2,
   auto run = cell16 ? &launch_loop<false, false, kResume, int16_t>
                     : &launch_loop<false, false, kResume, int32_t>;
   return run(qb, tbuf2, qlen, tlen, toff2, B, Lq, Ltb2, S, K, x, oe, e,
-             reduce_on, min_wf_len, max_dist_diff, win, out, aux2, nullptr,
+             reduce_on, min_wf_len, max_dist_diff, K, win, out, aux2, nullptr,
              ho, stream);
 }

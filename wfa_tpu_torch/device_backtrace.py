@@ -107,14 +107,18 @@ def device_backtrace_plain(
     penalties, S: int, K: int, token_shift: int,
     split_ext_codes: bool = False, global_alignment: bool = True,
     aux_base=None, aux_old=None, k0_old=None, s_split: int = 0,
-    return_iters: bool = False,
+    aux_sbase=None, return_iters: bool = False,
 ):
     """Plain PyTorch version of kernel K2.
 
     ``aux`` is int32 or int16 [3, S, B, K], or with ``aux_base``
     (int32[B, S]) the value-rebased int16[3, S, B, K] of the long-read
     score loop, whose found cells hold ``offset0 - aux_base[b, s] + 1``
-    (wfa_tpu/device_backtrace.py:379-383); ``start_cell`` the raw M cell
+    (wfa_tpu/device_backtrace.py:379-383), or with ``aux_sbase``
+    (int32[S, B]) K1-kw's int16[3, S, B, K] (K = KW): row s of pair b
+    holds window columns from ``(sbase & 31) * 32`` on, its found cells
+    ``offset0 - (sbase >> 5) + 1`` (device_backtrace.py:332-334,
+    352-355, 384-385); ``start_cell`` the raw M cell
     at (start_s, start_k).  The two-phase semi-global route passes
     ``aux`` [3, S - s_split, B, K] for scores s_split .. S - 1 and
     ``aux_old`` [3, s_split, B, Kf] for the scores below, read at window
@@ -150,8 +154,11 @@ def device_backtrace_plain(
     def read_aux(s, comp, k):
         """(offset0, tag, found) of the aux cell at (s, comp, k)."""
         j = k - k0
-        ok = (s >= s_split) & (s < S) & (j >= 0) & (j < K)
         sc = s.clamp(0, S - 1).long()
+        if aux_sbase is not None:
+            sbv = aux_sbase[sc, bidx]
+            j = j - (sbv & 31) * 32
+        ok = (s >= s_split) & (s < S) & (j >= 0) & (j < K)
         row = (comp.long() * Sn + (s - s_split).clamp(0, Sn - 1)) * B + bidx
         cell = flat[row, j.clamp(0, K - 1).long()].to(i32)
         if aux_old is not None:
@@ -168,6 +175,8 @@ def device_backtrace_plain(
         off = cell >> TYPE_BITS
         if aux_base is not None:
             off = torch.where(found, off - 1 + aux_base[bidx, sc], 0)
+        if aux_sbase is not None:
+            off = torch.where(found, off - 1 + (sbv >> 5), 0)
         return off, cell & ((1 << TYPE_BITS) - 1), found
 
     # ---- start point (wfa.go:738-750); existence deliberately unchecked
@@ -268,14 +277,15 @@ def device_backtrace(
     penalties, S: int, K: int, token_shift: int,
     split_ext_codes: bool = False, global_alignment: bool = True,
     aux_base=None, aux_old=None, k0_old=None, s_split: int = 0,
-    return_iters: bool = False,
+    aux_sbase=None, return_iters: bool = False,
 ):
     """Kernel K2 (same contract as :func:`device_backtrace_plain`).
 
     CUDA tensors launch ``wfa_backtrace`` (csrc/backtrace.cu) on the
     current stream; CPU tensors take the plain version.  Bound on the
     card by the latency of one dependent aux read per step (~it_cap
-    steps), which one thread per pair hides across the batch."""
+    steps; over K1-kw's aux two: the sbase word, then the cell it
+    places), which one thread per pair hides across the batch."""
     if aux.device.type == "cpu":
         return device_backtrace_plain(
             aux, start_cell, k0, start_s, start_k, qlen, tlen, active0,
@@ -283,14 +293,16 @@ def device_backtrace(
             split_ext_codes=split_ext_codes,
             global_alignment=global_alignment, aux_base=aux_base,
             aux_old=aux_old, k0_old=k0_old, s_split=s_split,
-            return_iters=return_iters)
+            aux_sbase=aux_sbase, return_iters=return_iters)
     from ._build import check_inputs, launch, stream_ptr
 
     B = qlen.shape[0]
     i32 = torch.int32
     rebased = aux_base is not None
+    kw = aux_sbase is not None
     dual = aux_old is not None
-    if rebased and (dual or aux.dtype != torch.int16):
+    if (rebased or kw) and (dual or (rebased and kw)
+                            or aux.dtype != torch.int16):
         raise ValueError("device_backtrace: rebased aux is int16 and alone")
     if aux.dtype not in (torch.int16, i32):
         raise TypeError(f"device_backtrace: aux is {aux.dtype}")
@@ -303,6 +315,9 @@ def device_backtrace(
     if rebased:
         check_inputs("device_backtrace", aux.device,
                      aux_base=(aux_base, i32, (B, S)))
+    if kw:
+        check_inputs("device_backtrace", aux.device,
+                     aux_sbase=(aux_sbase, i32, (S, B)))
     Kf = 0
     if dual:
         Kf = aux_old.shape[3]
@@ -324,7 +339,8 @@ def device_backtrace(
     c16 = [ctypes.c_int(int(a is not None and a.dtype == torch.int16))
            for a in (aux, aux_old)]
     launch("wfa_backtrace",
-           aux, c16[0], aux_base, aux_old, c16[1], ctypes.c_int(s_split),
+           aux, c16[0], aux_base, aux_sbase, aux_old, c16[1],
+           ctypes.c_int(s_split),
            ctypes.c_int(Kf), k0_old if dual else None,
            start_cell, k0, start_s, start_k, qlen, tlen,
            active0, ctypes.c_int(B), ctypes.c_int(S), ctypes.c_int(K),
@@ -333,7 +349,7 @@ def device_backtrace(
            ctypes.c_int(token_shift), ctypes.c_int(int(split_ext_codes)),
            ctypes.c_int(int(not global_alignment)), tok0, buf, tail, iters,
            stream_ptr(dev))
-    mode = ("long" if rebased else "semi2" if dual
+    mode = ("long" if rebased else "kw" if kw else "semi2" if dual
             else "global" if global_alignment else "semi")
     device_backtrace.launches[mode] += 1
     if return_iters:
@@ -342,9 +358,11 @@ def device_backtrace(
 
 
 # launches per mode of the kernel (global, semi-global, global over the
-# long-read score loop's value-rebased int16 aux, and semi-global over the
-# two-phase route's two aux tensors)
-device_backtrace.launches = {"global": 0, "semi": 0, "long": 0, "semi2": 0}
+# long-read score loop's value-rebased int16 aux, global over K1-kw's row-
+# and value-rebased aux, and semi-global over the two-phase route's two
+# aux tensors)
+device_backtrace.launches = {"global": 0, "semi": 0, "long": 0, "kw": 0,
+                             "semi2": 0}
 
 
 def compact_tokens_flat_u8(tok0, buf, tail, token_shift: int,

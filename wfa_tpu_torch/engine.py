@@ -13,8 +13,12 @@ bases), which K2 reads with those bases.
 transcription of the JAX engine's ``_run_batch_impl`` that extends through
 the precomputed stop tables (``_stop_tables``), while K1 compares sequence
 bytes directly, so the two extension mechanisms check each other.
-``run_batch_long_plain`` is K1-long's: the same loop, its aux rebased
-afterwards.
+``run_batch_long_plain`` is K1-long's and ``run_batch_kw_plain`` K1-kw's:
+the same loop, its aux rebased afterwards.  Global reads whose longest
+lies in (4095 - k_win, 4096] may take K1-kw (``engine="kw"``,
+``kernel_engine.run_batch_kw``: a KW-column window of each aux row,
+value-rebased int16 cells, and one ``sbase`` word a row), which K2 reads
+through those words.
 
 Cells keep the reference encoding ``offset << 3 | tag`` (0 = absent), and
 every tensor that leaves a function has the JAX function's layout, so the
@@ -66,6 +70,9 @@ class EngineConfig:
     # phase 1 of the two-phase semi-global route: run scores
     # 0 .. s_cap - 2 and keep the state (run_batch_plain)
     prefix: bool = False
+    # K1-kw (engine "kw", global only): the aux keeps a KW-column window
+    # of each score row, row- and value-rebased (run_batch_kw_plain)
+    aux_kw: Optional[int] = None
 
 
 def edit_only(cfg: EngineConfig) -> bool:
@@ -80,13 +87,45 @@ def config_from_jax(cfg) -> EngineConfig:
     """The port's config for a :class:`wfa_tpu.engine.EngineConfig`
     (read by attribute, so this module never imports JAX).  Raises
     NotImplementedError for the JAX engine's modes the port lacks."""
-    for name in ("w_win", "v_win", "aux_kw"):
+    for name in ("w_win", "v_win"):
         if getattr(cfg, name, None) is not None:
             raise NotImplementedError(f"EngineConfig.{name} is not ported")
     return EngineConfig(
         penalties=cfg.penalties, global_alignment=cfg.global_alignment,
         adaptive=cfg.adaptive, k_win=cfg.k_win, s_cap=cfg.s_cap,
-        prefix=bool(getattr(cfg, "prefix", False)))
+        prefix=bool(getattr(cfg, "prefix", False)),
+        aux_kw=getattr(cfg, "aux_kw", None))
+
+
+def engine_kw(engine: str, k_win: int) -> Optional[int]:
+    """KW of an ``"auto:kw<KW>"`` or ``"pallas:kw<KW>"`` engine string,
+    capped at ``k_win`` as ``wfa_tpu.engine.BatchAligner`` caps it
+    (engine.py:1462-1485); None for any other engine."""
+    for prefix in ("auto:kw", "pallas:kw"):
+        if engine.startswith(prefix):
+            return min(int(engine[len(prefix):]), k_win)
+    return None
+
+
+def check_aux_kw(cfg: EngineConfig, Ltb: int) -> int:
+    """``cfg.aux_kw`` after the guards of the TPU kernel's KW mode
+    (wfa_tpu/pallas_engine.py:1064-1070): global alignment, 0 < KW <=
+    k_win, KW a multiple of 128 (a TPU lane-tile rule, kept so that both
+    packages take the same engine strings), the row base (k_win - KW) // 32
+    within sbase's 5 low bits, and value bases below 2**26.  Raises
+    ValueError."""
+    KW, K = cfg.aux_kw, cfg.k_win
+    if not cfg.global_alignment:
+        raise ValueError("aux_kw (engine 'kw') runs global alignment only")
+    if KW is None or not 0 < KW <= K or KW % 128:
+        raise ValueError(f"aux_kw {KW} must be a multiple of 128 in "
+                         f"(0, k_win {K}]")
+    if (K - KW) // 32 > 31:
+        raise ValueError(f"aux_kw {KW}: the row base (k_win - KW) // 32 = "
+                         f"{(K - KW) // 32} passes 31")
+    if Ltb >= 1 << 26:
+        raise ValueError(f"aux_kw: Ltb {Ltb} passes 2**26")
+    return KW
 
 
 def resolve_device(device) -> torch.device:
@@ -675,10 +714,28 @@ def run_batch_plain(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig,
     ``wfa_tpu.engine.EngineConfig.prefix``) runs scores 0 .. s_cap - 2,
     keeps still-running pairs out of overflow and returns the lockstep
     state itself (:func:`_plain_state`'s dict, rows 0 .. s_cap - 1)."""
+    qlen, tlen, toff = qlen.to(_I32), tlen.to(_I32), toff.to(_I32)
+    st = _plain_run(qb, tbuf, qlen, tlen, toff, cfg=cfg, Lq=Lq, Ltb=Ltb)
+    if cfg.prefix:  # still-running pairs continue in phase 2
+        return st
+    final_s, done, term_cell = st["final_s"], st["done"], st["term_cell"]
+    overflow = st["overflow"] | ~done
+    k0 = -toff
+    Ak = tlen - qlen
+    end = (final_s, Ak, term_cell)
+    if not cfg.global_alignment:
+        end = _semi_end(st["hist_m"], k0, final_s, qlen, tlen, done,
+                        overflow, term_cell, cfg.s_cap, cfg.k_win)
+    return final_s, done, overflow, term_cell, st["aux"], end
+
+
+def _plain_run(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig, Lq: int,
+               Ltb: int) -> dict:
+    """Seed and run the lockstep loop from score 0 (int32 lengths);
+    returns the state of :func:`_plain_state` after it."""
     x = cfg.penalties.mismatch
     S, K = cfg.s_cap, cfg.k_win
     B = qb.shape[0]
-    qlen, tlen, toff = qlen.to(_I32), tlen.to(_I32), toff.to(_I32)
     k0 = -toff
     Ak = tlen - qlen
     st = _plain_state(B, S, K, qb.device)
@@ -700,15 +757,7 @@ def run_batch_plain(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig,
     st["overflow"] = overflow
     _plain_loop(st, qb, tbuf, qlen, tlen, toff, cfg=cfg, Lq=Lq, Ltb=Ltb,
                 s_first=0)
-    if cfg.prefix:  # still-running pairs continue in phase 2
-        return st
-    final_s, done, term_cell = st["final_s"], st["done"], st["term_cell"]
-    overflow = st["overflow"] | ~done
-    end = (final_s, Ak, term_cell)
-    if not cfg.global_alignment:
-        end = _semi_end(st["hist_m"], k0, final_s, qlen, tlen, done,
-                        overflow, term_cell, S, K)
-    return final_s, done, overflow, term_cell, st["aux"], end
+    return st
 
 
 def _semi_end(hist_m, k0, final_s, qlen, tlen, done, overflow, term_cell,
@@ -870,6 +919,111 @@ def run_batch_long_plain(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig,
             torch.where(bad, 0, term_cell), aux16, aux_base)
 
 
+def rebase_aux_kw(st: dict, k0, KW: int):
+    """Row- and value-rebase the lockstep aux ``st["aux"]`` int32[3, S, B,
+    K] as the TPU kernel's KW mode streams it
+    (wfa_tpu/pallas_engine.py:784-837).  Per (score, pair) row: the row
+    base ``cb`` is the first column of the post-reduce M/I/D band union
+    (``st``'s lo/hi/ex rows, where each exists) // 32, clipped to [0,
+    (K - KW) // 32], and 0 for a row with no band; the value base ``vb`` is
+    the minimum offset0 over the three planes' nonzero cells, 0 for an
+    empty row and never below 0.  The row keeps columns [cb * 32, cb * 32 +
+    KW), each nonzero cell as ((offset0 - vb + 1) << 3 | tag).
+
+    Returns (aux int16[3, S, B, KW], sbase int32[S, B] = vb << 5 | cb,
+    escape bool[S, B]): ``escape`` marks rows with a band whose top passes
+    the window or whose offsets spread past :data:`MAX_REBASED` (their
+    int16 cells wrapped).  A chunk of score rows at a time keeps the
+    temporaries small."""
+    aux = st["aux"]
+    _, S, B, K = aux.shape
+    dev = aux.device
+    k0 = k0.to(_I32)[None, :]
+    lo_u = torch.full((S, B), _BIG, dtype=_I32, device=dev)
+    hi_u = torch.full((S, B), -_BIG, dtype=_I32, device=dev)
+    anyb = torch.zeros((S, B), dtype=torch.bool, device=dev)
+    for c in "mid":
+        ex = st[f"ex_{c}"]
+        lo_u = torch.where(ex, torch.minimum(lo_u, st[f"lo_{c}"]), lo_u)
+        hi_u = torch.where(ex, torch.maximum(hi_u, st[f"hi_{c}"]), hi_u)
+        anyb = anyb | ex
+    # lax.div truncates toward zero
+    cb = torch.div(lo_u - k0, 32, rounding_mode="trunc").clamp(
+        0, (K - KW) // 32)
+    cb = torch.where(anyb, cb, 0).to(_I32)
+    step = max(1, (1 << 26) // max(1, B * K))
+    vb = torch.full((S, B), _BIG, dtype=_I32, device=dev)
+    vmx = torch.full((S, B), -_BIG, dtype=_I32, device=dev)
+    for plane in aux:
+        for r in range(0, S, step):
+            a = plane[r:r + step]
+            nz = a > 0
+            v = a >> TYPE_BITS
+            vb[r:r + step] = torch.minimum(
+                vb[r:r + step], torch.where(nz, v, _BIG).amin(dim=2))
+            vmx[r:r + step] = torch.maximum(
+                vmx[r:r + step], torch.where(nz, v, -_BIG).amax(dim=2))
+    vb = torch.where(vb >= _BIG, 0, vb).clamp(min=0)
+    escape = anyb & (((hi_u - k0 - cb * 32) >= KW)
+                     | ((vmx - vb + 1) > MAX_REBASED))
+    out = torch.empty((3, S, B, KW), dtype=torch.int16, device=dev)
+    cols = torch.arange(KW, device=dev)
+    for plane, dst in zip(aux, out):
+        for r in range(0, S, step):
+            idx = (cb[r:r + step, :, None] * 32).long() + cols
+            win = torch.gather(plane[r:r + step], 2, idx)
+            v = (win >> TYPE_BITS) - vb[r:r + step, :, None] + 1
+            dst[r:r + step] = torch.where(win > 0, (v << TYPE_BITS) | (win & 7),
+                                          0).to(torch.int16)
+    return out, (vb << 5) | cb, escape
+
+
+def run_batch_kw_plain(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig,
+                       Lq: int, Ltb: int):
+    """Plain PyTorch version of K1-kw (``kernel_engine.run_batch_kw``), the
+    port of ``wfa_tpu.pallas_engine.pallas_run_batch`` with
+    ``cfg.aux_kw``: the score loop of :func:`run_batch_plain` (global
+    alignment), its aux rebased by :func:`rebase_aux_kw`.
+
+    Returns (final_s int32[B], done bool[B], overflow bool[B],
+    term_cell int32[B], aux int16[3, S, B, KW], sbase int32[S, B]), the
+    JAX layout without its block padding (JAX's aux is [3, S, KW, Bp]).
+    The TPU kernel tests a row's escape where it writes the row, after
+    the termination test, and stops the pair there: a pair with an
+    escaping row below final_s ends not done (final_s and term_cell 0), a
+    pair that terminates on an escaping row ends done and overflowed, its
+    final_s and term_cell kept.  Rows above final_s, and every row of a
+    pair not served, are unspecified (:func:`canonical_kw`)."""
+    KW = check_aux_kw(cfg, Ltb)
+    qlen, tlen, toff = qlen.to(_I32), tlen.to(_I32), toff.to(_I32)
+    st = _plain_run(qb, tbuf, qlen, tlen, toff, cfg=cfg, Lq=Lq, Ltb=Ltb)
+    for c in "mid":  # only the aux and the band rows are read below
+        del st[f"hist_{c}"]
+    aux16, sbase, escape = rebase_aux_kw(st, -toff, KW)
+    del st["aux"]
+    final_s, done, term_cell = st["final_s"], st["done"], st["term_cell"]
+    overflow = st["overflow"] | ~done
+    rows = torch.arange(cfg.s_cap, device=qb.device)[:, None]
+    escape = escape & (rows <= final_s[None, :]) & (done & ~overflow)[None, :]
+    first = torch.where(escape, rows, _BIG).amin(dim=0)  # [B]
+    early = first < final_s
+    return (torch.where(early, 0, final_s), done & ~early,
+            overflow | (first < _BIG), torch.where(early, 0, term_cell),
+            aux16, sbase)
+
+
+def canonical_kw(res):
+    """K1-kw's results (:func:`run_batch_kw_plain`'s tuple) with the aux
+    rows and sbase words it leaves unspecified zeroed: every row of a pair
+    not served, and rows above final_s of those served."""
+    final_s, done, overflow, term_cell, aux, sbase = res
+    rows = torch.arange(aux.shape[1], device=aux.device)[:, None]
+    keep = (done & ~overflow)[None, :] & (rows <= final_s[None, :])
+    return (final_s, done, overflow, term_cell,
+            torch.where(keep[None, :, :, None], aux, 0),
+            torch.where(keep, sbase, 0))
+
+
 # ---------------------------------------------------------------------------
 # backtrace, compaction and the byte stream the host decodes
 
@@ -877,10 +1031,12 @@ def run_batch_long_plain(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig,
 def _finish_outputs(aux, start_cell, k0, start_s, start_k, qlen, tlen, done,
                     overflow, *, cfg: EngineConfig, Lq: int, Ltb: int,
                     edit: bool, aux_base=None, aux_old=None, k0_old=None,
-                    s_split: int = 0):
+                    s_split: int = 0, aux_sbase=None):
     """Backtrace (kernel K2), token compaction and the meta header, equal
     to ``wfa_tpu.engine._finish_outputs(..., flat=True)``.  ``aux_base``
-    marks the long-read score loop's value-rebased int16 aux.  The
+    marks the long-read score loop's value-rebased int16 aux, ``aux_sbase``
+    K1-kw's row- and value-rebased aux, KW = ``cfg.aux_kw`` columns wide
+    (wfa_tpu/engine.py:1315-1317).  The
     two-phase semi-global route (``semi2.phase2``) passes phase 2's aux
     (scores s_split .. s_cap - 1) as ``aux`` and phase 1's full-span aux
     (scores below s_split, window origin ``k0_old``) as ``aux_old``
@@ -896,7 +1052,8 @@ def _finish_outputs(aux, start_cell, k0, start_s, start_k, qlen, tlen, done,
     from .device_backtrace import (compact_tokens_flat_u8, device_backtrace,
                                    iter_capacity)
 
-    S, K = cfg.s_cap, cfg.k_win
+    S = cfg.s_cap
+    K = cfg.aux_kw if aux_sbase is not None else cfg.k_win
     token_shift, compact = _token_plan(S, cfg.penalties, Lq, Ltb)
     edit = edit and compact
     bt = device_backtrace(
@@ -904,7 +1061,7 @@ def _finish_outputs(aux, start_cell, k0, start_s, start_k, qlen, tlen, done,
         penalties=cfg.penalties, S=S, K=K, token_shift=token_shift,
         split_ext_codes=edit, global_alignment=cfg.global_alignment,
         aux_base=aux_base, aux_old=aux_old, k0_old=k0_old, s_split=s_split,
-        return_iters=not compact)
+        aux_sbase=aux_sbase, return_iters=not compact)
     tok0, buf, tail = bt[:3]
     ns_cap = 2 * iter_capacity(S, cfg.penalties) + 5
     meta16 = max(Lq + Ltb, S, ns_cap) <= 32000
@@ -947,8 +1104,11 @@ def align_full2(seq, lens, *, cfg: EngineConfig, B: int, Lq: int, Ltb: int,
 
     ``engine`` "auto" runs K1; "long" runs K1-long (global only, JAX's
     ``engine="pallas_long"``, engine.py:1247-1266) and K2 over its
-    rebased aux from (final_s, Ak, term_cell)."""
-    from .kernel_engine import run_batch, run_batch_long
+    rebased aux from (final_s, Ak, term_cell); "kw" runs K1-kw (global
+    only, ``cfg.aux_kw`` columns, JAX's ``engine="pallas"`` with
+    ``aux_kw``, engine.py:1232-1246) and K2 over its rebased aux through
+    the sbase words, from (final_s, Ak, term_cell)."""
+    from .kernel_engine import run_batch, run_batch_kw, run_batch_long
 
     qw = Lq // 4 if packed else Lq
     qb, tbuf = seq[:, :qw], seq[:, qw:]
@@ -964,6 +1124,12 @@ def align_full2(seq, lens, *, cfg: EngineConfig, B: int, Lq: int, Ltb: int,
         return _finish_outputs(aux, term_cell, -toff, final_s, tlen - qlen,
                                qlen, tlen, done, overflow, cfg=cfg, Lq=Lq,
                                Ltb=Ltb, edit=edit, aux_base=aux_base)
+    if engine == "kw":
+        final_s, done, overflow, term_cell, aux, sbase = run_batch_kw(
+            *args, cfg=cfg, Lq=Lq, Ltb=Ltb)
+        return _finish_outputs(aux, term_cell, -toff, final_s, tlen - qlen,
+                               qlen, tlen, done, overflow, cfg=cfg, Lq=Lq,
+                               Ltb=Ltb, edit=edit, aux_sbase=sbase)
     final_s, done, overflow, _, aux, (end_s, end_k, end_cell) = run_batch(
         *args, cfg=cfg, Lq=Lq, Ltb=Ltb)
     out = _finish_outputs(aux, end_cell, -toff, end_s, end_k, qlen, tlen,
@@ -1023,15 +1189,18 @@ class DeviceResult(AlignmentResult):
 
 
 class BatchAligner:
-    """Batched aligner on one device: pack -> K1 (or K1-long) -> K2 ->
+    """Batched aligner on one device: pack -> K1 (K1-long, K1-kw) -> K2 ->
     decode.
 
     Pairs whose band or score leaves the configured windows (or, on
-    K1-long, whose aux rows are too wide for int16 cells) are aligned by
-    the exact host oracle (``fallback=True``) or returned as None, so a
-    pipeline can retry them with larger caps.  ``engine`` "auto" runs K1,
-    "long" K1-long (global alignment only; the JAX package's
-    ``"pallas_long"``), "semi2:<S0>" the two-phase semi-global route
+    K1-long and K1-kw, whose aux rows do not fit their int16 cells or KW
+    columns) are aligned by the exact host oracle (``fallback=True``) or
+    returned as None, so a pipeline can retry them with larger caps.
+    ``engine`` "auto" runs K1, "long" K1-long (global alignment only; the
+    JAX package's ``"pallas_long"``), "auto:kw<KW>" or "pallas:kw<KW>"
+    K1-kw with ``aux_kw = min(KW, k_win)`` (global alignment only, as
+    ``wfa_tpu.engine.BatchAligner`` parses them on its kernel path),
+    "semi2:<S0>" the two-phase semi-global route
     (:mod:`wfa_tpu_torch.semi2`: K3 at the full span to score S0, then K4
     in a ``k_win``-wide window, then K2 over both aux tensors).  The card
     is the default device; ``device="cpu"`` runs the plain versions.
@@ -1046,7 +1215,10 @@ class BatchAligner:
             # constructor-path twin of the attach check (wfa.go:134-137)
             raise ValueError("cutoff step should not be 0")
         self.s_switch = 0
-        if engine.startswith("semi2:"):
+        kw = engine_kw(engine, k_win)
+        if kw is not None:
+            engine = "kw"
+        elif engine.startswith("semi2:"):
             # "semi2:<S0>" carries the score phase 2 resumes at
             # (wfa_tpu/engine.py:1456-1461)
             self.s_switch = int(engine.split(":", 1)[1])
@@ -1057,7 +1229,8 @@ class BatchAligner:
             raise ValueError(f"unknown engine {engine!r}")
         self.cfg = EngineConfig(penalties=penalties,
                                 global_alignment=options.global_alignment,
-                                adaptive=adaptive, k_win=k_win, s_cap=s_cap)
+                                adaptive=adaptive, k_win=k_win, s_cap=s_cap,
+                                aux_kw=kw)
         self.engine = engine
         self.device = resolve_device(device)
         self._oracle = OracleAligner(penalties, options, adaptive)
@@ -1082,9 +1255,11 @@ class BatchAligner:
         :meth:`finish_batch`.  The launches are asynchronous."""
         pairs = list(pairs)
         ga = self.cfg.global_alignment
-        if self.engine == "long" and not ga:
-            # as pallas_longread.supports refuses semi-global
-            raise ValueError("engine='long' runs global alignment only")
+        if self.engine in ("long", "kw") and not ga:
+            # as pallas_longread.supports and pallas_run_batch's aux_kw
+            # assert refuse semi-global
+            raise ValueError(f"engine={self.engine!r} runs global alignment "
+                             "only")
         if self.engine == "semi2":
             return self._submit_semi2(pairs)
         qb, tbuf, qlen, tlen, toff, Lq, Ltb, qp, tp = _pack_all(

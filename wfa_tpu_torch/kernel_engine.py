@@ -6,9 +6,12 @@ with its fused end finder (:func:`run_batch`; plain version
 :func:`wfa_tpu_torch.engine.run_batch_plain`), and of the long-read TPU
 kernel ``wfa_tpu.pallas_longread._kernel`` (:func:`run_batch_long`, K1's
 value-rebased int16 aux mode; plain version
-:func:`wfa_tpu_torch.engine.run_batch_long_plain`).  The two phases of the
-two-phase semi-global route are the same kernel's prefix and resume
-modes: K3 (:func:`run_prefix`, the port of ``wfa_tpu.pallas_prefix
+:func:`wfa_tpu_torch.engine.run_batch_long_plain`), and of
+``pallas_engine._kernel`` with ``aux_kw`` (:func:`run_batch_kw`, K1-kw:
+K1-long's staging with a KW-column row window and ``sbase`` words; plain
+version :func:`wfa_tpu_torch.engine.run_batch_kw_plain`).  The two
+phases of the two-phase semi-global route are the same kernel's prefix and
+resume modes: K3 (:func:`run_prefix`, the port of ``wfa_tpu.pallas_prefix
 ._kernel`` and of ``pallas_engine._kernel`` in EXPORT mode; plain version
 :func:`wfa_tpu_torch.semi2.prefix_export_plain`) and K4
 (:func:`run_resume`, ``pallas_engine._kernel`` with RESUME; plain version
@@ -23,7 +26,8 @@ import ctypes
 
 import torch
 
-from .engine import (EngineConfig, run_batch_long_plain, run_batch_plain,
+from .engine import (EngineConfig, check_aux_kw, run_batch_kw_plain,
+                     run_batch_long_plain, run_batch_plain,
                      run_batch_resume_plain, semi_cell16, windows)
 from .semi2 import META1_COLS, prefix_export_plain
 
@@ -31,16 +35,18 @@ from .semi2 import META1_COLS, prefix_export_plain
 def scratch_ints(cfg: EngineConfig, staged: bool = False) -> int:
     """int32 cells of window scratch per pair: WM rows of M and WE rows
     each of I and D, K diagonals wide, plus three staged aux rows (the
-    long-read mode's, or the prefix's aux row S0) when ``staged``."""
+    long-read and KW modes', or the prefix's aux row S0) when
+    ``staged``."""
     wm, we = windows(cfg.penalties)
     return (wm + 2 * we + (3 if staged else 0)) * cfg.k_win
 
 
 def _launch(qb, tbuf, qlen, tlen, toff, cfg: EngineConfig, Lq: int,
-            Ltb: int, mode: int, aux, aux_base):
+            Ltb: int, mode: int, aux, aux_base, kw: int = 0):
     """Check the inputs and launch ``wfa_score_loop`` in ``mode`` (0
-    global, 1 semi-global, 2 long-read) on the current stream; returns
-    the out rows int32[7, B]."""
+    global, 1 semi-global, 2 long-read, 3 KW with ``kw`` columns and
+    ``aux_base`` the sbase words) on the current stream; returns the out
+    rows int32[7, B]."""
     from ._build import check_inputs, launch, stream_ptr
 
     B = qb.shape[0]
@@ -50,7 +56,7 @@ def _launch(qb, tbuf, qlen, tlen, toff, cfg: EngineConfig, Lq: int,
     check_inputs("run_batch", dev, qb=(qb, torch.uint8, (B, Lq)),
                  tbuf=(tbuf, torch.uint8, (B, Ltb)), qlen=(qlen, i32, (B,)),
                  tlen=(tlen, i32, (B,)), toff=(toff, i32, (B,)))
-    win = torch.empty((B, scratch_ints(cfg, staged=mode == 2)), dtype=i32,
+    win = torch.empty((B, scratch_ints(cfg, staged=mode >= 2)), dtype=i32,
                       device=dev)
     out = torch.empty((7, B), dtype=i32, device=dev)
     ad = cfg.adaptive
@@ -59,7 +65,7 @@ def _launch(qb, tbuf, qlen, tlen, toff, cfg: EngineConfig, Lq: int,
                B, Lq, Ltb, cfg.s_cap, cfg.k_win, p.mismatch,
                p.gap_open + p.gap_ext, p.gap_ext, int(ad is not None),
                ad.min_wf_len if ad else 0, ad.max_dist_diff if ad else 0,
-               mode)),
+               mode, kw)),
            win, out, aux, aux_base, stream_ptr(dev))
     return out
 
@@ -118,6 +124,35 @@ def run_batch_long(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig,
 
 # launches of the long-read instantiation
 run_batch_long.launches = {"long": 0}
+
+
+def run_batch_kw(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig, Lq: int,
+                 Ltb: int):
+    """K1-kw, the score loop with row- and value-rebased aux of
+    ``cfg.aux_kw`` columns (global alignment only): returns
+    (final_s int32[B], done bool[B], overflow bool[B], term_cell int32[B],
+    aux int16[3, S, B, KW], sbase int32[S, B]), the contract of
+    :func:`run_batch_kw_plain`.  Aux rows and sbase words above a pair's
+    final_s, and those of a pair not served, are unspecified.  Raises
+    ValueError for a KW the TPU kernel refuses (``check_aux_kw``).
+
+    CUDA tensors launch ``wfa_score_loop`` in its KW mode on the current
+    stream; CPU tensors take :func:`run_batch_kw_plain`."""
+    if qb.device.type == "cpu":
+        return run_batch_kw_plain(qb, tbuf, qlen, tlen, toff, cfg=cfg, Lq=Lq,
+                                  Ltb=Ltb)
+    KW = check_aux_kw(cfg, Ltb)
+    B, S = qb.shape[0], cfg.s_cap
+    aux = torch.empty((3, S, B, KW), dtype=torch.int16, device=qb.device)
+    sbase = torch.empty((S, B), dtype=torch.int32, device=qb.device)
+    out = _launch(qb, tbuf, qlen, tlen, toff, cfg, Lq, Ltb, 3, aux, sbase,
+                  kw=KW)
+    run_batch_kw.launches["kw"] += 1
+    return out[0], out[1] > 0, out[2] > 0, out[3], aux, sbase
+
+
+# launches of the KW instantiation
+run_batch_kw.launches = {"kw": 0}
 
 
 def run_prefix(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig, Lq: int,

@@ -9,7 +9,11 @@ oracle.  Results come back in input order and equal the oracle's
 whichever tier served them.  Global, wf-adaptive buckets of reads longer
 than 4096 bases run K1-long (engine "long", value-rebased int16 aux) at
 the tier-0 window on every tier, as ``wfa_tpu.pipeline`` routes them to
-its long-read kernel.  Semi-global wf-adaptive buckets whose full span
+its long-read kernel.  Global wf-adaptive buckets whose longest read
+lies in (4095 - k_win, 4096] at a k_win of 512 or less run K1-kw (engine
+``"auto:kw<k_win>"``: int16 aux rows row- and value-rebased), where
+``wfa_tpu.pipeline`` routes them (pipeline.py:216-223).  Semi-global
+wf-adaptive buckets whose full span
 passes 512 diagonals take the two-phase route (engine ``"semi2:<S0>"``,
 :mod:`wfa_tpu_torch.semi2`) on tiers 0-2 and K1-semi at the full span on
 tier 3, as ``wfa_tpu.pipeline`` routes them (pipeline.py:112-123).
@@ -24,8 +28,8 @@ from .cigar import AlignmentResult
 from .constants import (MAX_SEQ_LEN, AdaptiveReductionOption, EmptySeqError,
                         Options, Penalties, SeqTooLongError)
 from .device_backtrace import iter_capacity
-from .engine import (BatchAligner, EngineConfig, _pad_len, semi_cell16,
-                     windows)
+from .engine import (BatchAligner, EngineConfig, _pad_len, engine_kw,
+                     semi_cell16, windows)
 from .io import bucket_pairs
 from .kernel_engine import scratch_ints
 from .oracle import Aligner as OracleAligner
@@ -55,24 +59,25 @@ class PipelineConfig:
     mem_budget: int = 16 << 30
 
 
-def aux_cell_bytes(engine: str) -> int:
+def aux_cell_bytes(rebased: bool) -> int:
     """Bytes of one [3, S, K] aux cell triple: int32 cells on K1, the
-    value-rebased int16 cells of K1-long."""
-    return 6 if engine == "long" else 12
+    int16 cells of K1-long and K1-kw (``rebased``)."""
+    return 6 if rebased else 12
 
 
 def batch_bytes_per_pair(cfg: EngineConfig, longest: int,
                          engine: str = "auto") -> int:
     """Device bytes one pair of a batch allocates on the main path: the
-    aux [3, S, K] cells (plus K1-long's int32 row bases) and window
-    scratch of the score loop, the token buffers and compaction
-    temporaries of K2 (~40 B per emission slot), and the sequence
-    rows."""
-    long = engine == "long"
+    aux [3, S, K] cells (K1-kw, ``cfg.aux_kw`` set: KW columns; plus
+    K1-long's row bases or K1-kw's sbase words, int32 a row) and window
+    scratch of the score loop (with the staged rows of both), the token
+    buffers and compaction temporaries of K2 (~40 B per emission slot),
+    and the sequence rows."""
+    rebased = engine == "long" or cfg.aux_kw is not None
     ns = 2 * iter_capacity(cfg.s_cap, cfg.penalties) + 5
-    return (aux_cell_bytes(engine) * cfg.s_cap * cfg.k_win
-            + (4 * cfg.s_cap if long else 0)
-            + 4 * scratch_ints(cfg, long) + 40 * ns
+    return (aux_cell_bytes(rebased) * cfg.s_cap * (cfg.aux_kw or cfg.k_win)
+            + (4 * cfg.s_cap if rebased else 0)
+            + 4 * scratch_ints(cfg, rebased) + 40 * ns
             + 4 * (2 * longest + cfg.k_win))
 
 
@@ -154,11 +159,18 @@ class AlignmentPipeline:
                     k_win = full_span
         else:
             k_win = full_span
+        global_ad = cfg.options.global_alignment and cfg.adaptive is not None
         if s0 is not None:
             engine = f"semi2:{s0}"
-        elif (cfg.options.global_alignment and cfg.adaptive is not None
-              and longest > LONG_READ and k_win <= 512):
+        elif global_ad and longest > LONG_READ and k_win <= 512:
             engine = "long"
+        elif global_ad and k_win <= 512 and longest + k_win > 4095:
+            # the reads just past int16 offsets: K1-kw at KW = k_win (value
+            # rebase alone), where wfa_tpu.pipeline takes "auto:kw" (its
+            # HBM gate, pp_kw(k_win) * 128 <= hbm_budget, models 128-lane
+            # TPU blocks and is left out; the memory model below sizes
+            # the batch)
+            engine = f"auto:kw{k_win}"
         else:
             engine = "auto"
         p = cfg.penalties
@@ -173,11 +185,14 @@ class AlignmentPipeline:
         s_cap = (s1, 3 * s1, _round_up(worst + 2, 8))[min(tier, 2)]
         s_cap = min(s_cap, _round_up(worst + 2, 8))
         # one pair's aux must fit the budget
-        cell = aux_cell_bytes(engine)
-        s_cap = max(8, min(s_cap, (cfg.mem_budget // (cell * k_win)) // 8 * 8))
+        kw = engine_kw(engine, k_win)
+        cell = aux_cell_bytes(engine == "long" or kw is not None)
+        s_cap = max(8, min(s_cap,
+                           (cfg.mem_budget // (cell * (kw or k_win))) // 8 * 8))
         ecfg = EngineConfig(penalties=p,
                             global_alignment=cfg.options.global_alignment,
-                            adaptive=cfg.adaptive, k_win=k_win, s_cap=s_cap)
+                            adaptive=cfg.adaptive, k_win=k_win, s_cap=s_cap,
+                            aux_kw=kw)
         if s0 is not None:
             # the total cap must leave phase 2 a score to run
             s_cap = max(s_cap, s0 + 8)
