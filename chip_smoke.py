@@ -35,7 +35,10 @@ spaced results of each against the port's exact oracle:
   (bench.py's matrix row), through K1-long and K2 over its rebased aux,
   both checked on those same 64 pairs, the path's one batch (the plain
   K1-long takes ~100 s a call, ~6 ms for each of ~14,600 scores); all 64
-  results checked against the oracle.
+  results checked against the oracle;
+* then the per-phase cycle split of a score step of K1 and K1-long on the
+  global l=1000 and l=50000 paths' first batches (the timed instantiation
+  of ``wfa_tpu_torch.profiling --phases``), one line each.
 
 The semi-global l=1000 path checks 256 results, the l=10000 and the long
 paths all 64, the others 512; the oracle runs in a pool of one process
@@ -72,7 +75,6 @@ N_SEMI_SHORT = 1024
 N_SEMI_LONG = 64  # bench.py:185 and 189
 N_LONG = 64  # bench.py's l=50000 row
 N_LONG_CHECK = N_LONG  # the oracle takes ~2.2 s a pair at l=50000
-N_AB = 1024  # the A/B batch: K1-semi's aux at the full span is 16 GiB
 # global reads whose longest lies in (4095 - k_win, 4096]: where the JAX
 # pipeline takes TPU kernel row 3 (auto:kw, wfa_tpu/pipeline.py:216-223)
 # and the port K1-kw
@@ -270,32 +272,26 @@ def bound(nbytes: int, ops: int) -> dict:
 
 def phase_build() -> None:
     from wfa_tpu_torch import _build
+    from wfa_tpu_torch.profiling import ptxas_table
 
     t0 = time.perf_counter()
     _build.library()
     secs = time.perf_counter() - t0
     print(f"build: {secs:.1f} s (nvcc {_build.build_seconds}) "
           f"flags {' '.join(_build.NVCC_FLAGS)}")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    for line in ptxas_table(_build.build_log):
+        print(f"  ptxas: {line}")
 
 
-def kernel_batch(n: int, length: int, k_win: int, s_cap: int,
-                 global_alignment: bool):
-    """A K1/K2 test batch on the card: the first ``n`` pairs of a main
-    path's data at one of its (k_win, s_cap)."""
-    from wfa_tpu_torch import AdaptiveReductionOption, Penalties
-    from wfa_tpu_torch.datagen import generate_pairs
-    from wfa_tpu_torch.engine import EngineConfig, _pack_all, inputs_from_packed
+def phase_steps(card: str) -> None:
+    """The score loop's per-phase cycle split of K1 and K1-long on their
+    paths' first batches (``profiling.phase_split``: the timed
+    instantiation, which no path runs), one JSON line each."""
+    from wfa_tpu_torch.profiling import PHASE_BATCHES, phase_split
 
-    cfg = EngineConfig(penalties=Penalties(4, 6, 2),
-                       global_alignment=global_alignment,
-                       adaptive=AdaptiveReductionOption(10, 50, 1),
-                       k_win=k_win, s_cap=s_cap)
-    pairs = generate_pairs(n, length, 0.05, seed=42)
-    packed = _pack_all(pairs, cfg.k_win, global_alignment=global_alignment)
-    return cfg, inputs_from_packed(packed, DEVICE)
+    for name in PHASE_BATCHES:
+        print(f"phases {name} on {card}: {json.dumps(phase_split(name))}",
+              flush=True)
 
 
 def check_kernels(checks, global_alignment: bool, reps: int,
@@ -304,11 +300,13 @@ def check_kernels(checks, global_alignment: bool, reps: int,
     ``checks``; returns the two records (times and bounds of the first
     shape, max_abs_err over all)."""
     import torch
+    from wfa_tpu_torch.profiling import kernel_batch
 
     recs = None
     for n, length, k_win, s_cap in checks:
         torch.cuda.empty_cache()
-        cfg, ins = kernel_batch(n, length, k_win, s_cap, global_alignment)
+        cfg, ins = kernel_batch(n, length, k_win, s_cap,
+                                global_alignment=global_alignment)
         rec1, k1_out = (phase_k1_long if long else phase_k1)(cfg, ins, reps)
         rec2 = phase_k2(cfg, ins, k1_out, long=long)
         del k1_out, ins
@@ -637,12 +635,14 @@ def phase_main(n: int, length: int, global_alignment: bool, batch: int,
         pipe.align_all(pairs)  # warm
         torch.cuda.synchronize()
         warm = time.perf_counter() - t0
+        faults = [(pipe._device_errors, pipe.served["oracle"])]
         reset_counters()
         t0 = time.perf_counter()
         results = pipe.align_all(pairs)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = read_counters()
+        faults.append((pipe._device_errors, pipe.served["oracle"]))
     caps, runs = set(), set()
     for (k_win, s_cap, _), eng in pipe._engines.items():
         if eng.engine == "semi2":
@@ -656,6 +656,11 @@ def phase_main(n: int, length: int, global_alignment: bool, batch: int,
     print(f"{tag}: launches {launches}; pairs served per tier "
           f"{pipe.served}; engines {engines}, (k_win, s_cap) {sorted(caps)}, "
           f"two-phase (l, Kf, S0, k_win, s_cap) {sorted(runs)}")
+    # the pipeline's device-fault retry must not have run: no fault, and
+    # no pair left to the host oracle, in the warm call or the timed one
+    if any(errors or oracle for errors, oracle in faults):
+        fail(f"{tag}: (device faults, pairs served by the oracle) of the "
+             f"warm and the timed call {faults}")
     for counter, mode in need:
         if launches[counter][mode] <= 0:
             fail(f"{tag} launched {counter} ({mode}) no time")
@@ -882,91 +887,14 @@ def phase_bwa(reps: int, recs, card: str):
 def phase_ab(card: str) -> None:
     """The two-phase route (engine "semi2:64", k_win 256) against K1-semi
     at the full span (engine "auto", k_win 2048) on the same 1024 pairs of
-    l=1000, s_cap 640 both: align_batch wall times in turns (A B B A after
-    one warm call each), the pairs each serves, their results equal where
-    both serve, and each route's kernel times on the card."""
-    import torch
-    from wfa_tpu_torch import AdaptiveReductionOption, Options, Penalties
-    from wfa_tpu_torch import semi2 as ts
-    from wfa_tpu_torch.datagen import generate_pairs
-    from wfa_tpu_torch.device_backtrace import device_backtrace
-    from wfa_tpu_torch.engine import (BatchAligner, EngineConfig, _pack_all,
-                                      _token_plan, inputs_from_packed)
-    from wfa_tpu_torch.kernel_engine import run_batch, run_prefix, run_resume
+    l=1000, s_cap 640 both (``profiling.route_ab``): align_batch wall
+    times and each route's kernel times, two turns each after a warm call,
+    the pairs each serves, their results equal where both serve."""
+    from wfa_tpu_torch import _build
+    from wfa_tpu_torch.profiling import route_ab
 
-    pen, ad = Penalties(4, 6, 2), AdaptiveReductionOption(10, 50, 1)
-    pairs = generate_pairs(N_AB, 1000, 0.05, seed=42)
-    routes = {"two-phase": BatchAligner(pen, Options(False), ad, k_win=256,
-                                        s_cap=640, engine="semi2:64",
-                                        device=DEVICE),
-              "full span": BatchAligner(pen, Options(False), ad, k_win=2048,
-                                        s_cap=640, engine="auto",
-                                        device=DEVICE)}
-    out = {name: eng.align_batch(pairs, fallback=False)
-           for name, eng in routes.items()}  # warm
-    wall = {name: [] for name in routes}
-    for name in ("two-phase", "full span", "full span", "two-phase"):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out[name] = routes[name].align_batch(pairs, fallback=False)
-        torch.cuda.synchronize()
-        wall[name].append((time.perf_counter() - t0) * 1e3)
-    a, b = out["two-phase"], out["full span"]
-    for i, (x, y) in enumerate(zip(a, b)):
-        if x is not None and y is not None and (
-                x.score, x.cigar(False)) != (y.score, y.cigar(False)):
-            fail(f"A/B: pair {i} differs between the routes")
-    served = {name: sum(r is not None for r in res)
-              for name, res in out.items()}
-
-    # each route's kernels on this batch (CUDA events, 3 launches each)
-    cfg = EngineConfig(penalties=pen, global_alignment=False, adaptive=ad,
-                       k_win=256, s_cap=640)
-    packed = _pack_all(pairs, 256, global_alignment=False)
-    qb, tbuf, qlen, tlen, toff, Lq, Ltb = inputs_from_packed(packed, DEVICE)
-    args = (qb, tbuf, qlen, tlen, toff)
-    Kf = ts.prefix_span(packed[2], packed[3])
-    pkw = dict(cfg=EngineConfig(penalties=pen, global_alignment=False,
-                                adaptive=ad, k_win=Kf, s_cap=640),
-               Lq=Lq, Ltb=Ltb, S0=64, K2=256)
-    ex = run_prefix(*args, **pkw)
-    t3 = cuda_ms(lambda: run_prefix(*args, **pkw), 3)
-    k02 = ex["meta1"][:, ts.M1_K02].cpu().numpy()
-    t2raw, _, toff2, Ltb2 = ts.replace_targets([t for _, t in pairs], k02)
-    tb2 = torch.from_numpy(t2raw).to(DEVICE)
-    toff2 = torch.from_numpy(toff2).to(DEVICE)
-    r_args = (qb, tb2, qlen, tlen, toff2,
-              *(ex[k] for k in ("win_m", "win_i", "win_d", "ainit", "b_m",
-                                "b_ie", "meta1")))
-    rkw = dict(cfg=cfg, Lq=Lq, Ltb2=Ltb2, Ltb_full=Ltb, S0=64)
-    res = run_resume(*r_args, **rkw)
-    t4 = cuda_ms(lambda: run_resume(*r_args, **rkw), 3)
-    shift, _ = _token_plan(640, pen, Lq, Ltb)
-    end_s, end_k, end_cell = res[5]
-    bt = (res[4], end_cell, -toff2, end_s, end_k, qlen, tlen,
-          res[1] & ~res[2])
-    bkw = dict(penalties=pen, S=640, K=256, token_shift=shift,
-               global_alignment=False, aux_old=ex["aux_old"],
-               k0_old=-(qlen - 1), s_split=64)
-    t2 = cuda_ms(lambda: device_backtrace(*bt, **bkw), 3)
-    del ex, res, bt, r_args
-    full = EngineConfig(penalties=pen, global_alignment=False, adaptive=ad,
-                        k_win=2048, s_cap=640)
-    k1 = run_batch(*args, cfg=full, Lq=Lq, Ltb=Ltb)
-    t1 = cuda_ms(lambda: run_batch(*args, cfg=full, Lq=Lq, Ltb=Ltb), 3)
-    end_s, end_k, end_cell = k1[5]
-    bt = (k1[4], end_cell, -toff, end_s, end_k, qlen, tlen, k1[1] & ~k1[2])
-    bkw = dict(penalties=pen, S=640, K=2048, token_shift=shift,
-               global_alignment=False)
-    t2f = cuda_ms(lambda: device_backtrace(*bt, **bkw), 3)
-    del k1, bt
-    torch.cuda.empty_cache()
-    print(f"A/B l=1000 semi, {N_AB} pairs, s_cap 640, on {card}: align_batch "
-          f"two-phase {wall['two-phase']} ms (serves {served['two-phase']}), "
-          f"full span {wall['full span']} ms (serves {served['full span']}); "
-          f"kernels two-phase K3 {t3:.3f} + K4 {t4:.3f} + K2 {t2:.3f} = "
-          f"{t3 + t4 + t2:.3f} ms, full span K1-semi {t1:.3f} + K2 "
-          f"{t2f:.3f} = {t1 + t2f:.3f} ms")
+    print(f"A/B l=1000 semi routes on {card}: "
+          f"{json.dumps(route_ab({'this': _build.library()}))}")
 
 
 def blocked_modules() -> set:
@@ -1043,6 +971,7 @@ def main() -> None:
                                                 ("backtrace", "long")))
     rec5["launches"] = launches["score_loop_long"]["long"]
     rec6["launches"] = launches["backtrace"]["long"]
+    phase_steps(card)
     imported = sorted(blocked_modules() - preloaded)
     if imported:
         fail(f"the run imported JAX or wfa_tpu modules: {imported[:5]}")

@@ -16,7 +16,10 @@ route), at KW < k_win (the row window shifts) and where every pair
 escapes; K3, K4 and K2 over both aux tensors of the two-phase semi-global
 route at its tier-0 and tier-1 caps, at l=5000, at penalties the TPU's
 chunked prefix kernel refuses, and with a target row that holds only a
-suffix).
+suffix; the score loop's workspace in shared memory and in the device
+scratch on either side of the limit, and its size and place against the
+kernel's own layout; mismatch or gap extension 1; an
+extension that ends at the last byte of the batch's rows).
 Integer outputs: exact equality.
 """
 
@@ -78,6 +81,14 @@ CASES = {
                       False, False, 24),
     "semi_no_reduce": (Penalties(4, 6, 2), None, 512, 256, 200, 0.05, False,
                        False, 24),
+    # mismatch 1, then gap extension 1: next() reads the row the reduce of
+    # the same step zeroed
+    "x1": (Penalties(1, 4, 2), ADAPTIVE, 128, 512, 300, 0.1, False, True,
+           24),
+    "e1": (Penalties(3, 2, 1), ADAPTIVE, 128, 512, 300, 0.1, False, True,
+           24),
+    "semi_e1": (Penalties(2, 0, 1), ADAPTIVE, 512, 256, 200, 0.1, False,
+                False, 24),
 }
 
 
@@ -119,6 +130,124 @@ def test_kernels_match_plain(card, case):
     for a, b in zip(device_backtrace_plain(*bt_args, **kw),
                     device_backtrace(*bt_args, **kw)):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("side", ["shared", "scratch"])
+@pytest.mark.parametrize("mode", ["global", "long", "kw"])
+def test_workspace_sides_match_plain(card, mode, side):
+    """K1, K1-long and K1-kw with their workspace in shared memory and in
+    the device scratch, at the two windows on either side of the limit
+    (768 and 896 for K1 at 4/6/2, 512 and 640 for the staged modes)."""
+    from wfa_tpu_torch import engine as te
+    from wfa_tpu_torch.fuzz import limit_sides
+    from wfa_tpu_torch.kernel_engine import (run_batch, run_batch_kw,
+                                             run_batch_long, workspace)
+
+    cfg = te.EngineConfig(penalties=Penalties(4, 6, 2), adaptive=ADAPTIVE,
+                          s_cap=512)
+    cmode = {"global": 0, "long": 2, "kw": 3}[mode]
+    k_win = limit_sides(cfg, cmode)[side == "scratch"]
+    cfg = dataclasses.replace(cfg, k_win=k_win,
+                              aux_kw=256 if mode == "kw" else None)
+    assert workspace(cfg, cmode)[1] == (side == "shared")
+    pairs = _pairs(16, 300, 0.1, 23)
+    ins = te.inputs_from_packed(te._pack_all(pairs, k_win), card)
+    kw = dict(cfg=cfg, Lq=ins[5], Ltb=ins[6])
+    if mode == "global":
+        ref = te.run_batch_plain(*ins[:5], **kw)
+        got = run_batch(*ins[:5], **kw)
+        for a, b in zip(ref[:4] + ref[5], got[:4] + got[5]):
+            assert torch.equal(a, b)
+        ref, got = ref[:5], got[:5]
+    elif mode == "long":
+        ref = te.run_batch_long_plain(*ins[:5], **kw)
+        got = run_batch_long(*ins[:5], **kw)
+    else:
+        ref = te.canonical_kw(te.run_batch_kw_plain(*ins[:5], **kw))
+        got = te.canonical_kw(run_batch_kw(*ins[:5], **kw))
+    ok = ref[1] & ~ref[2]
+    assert int(ok.sum()) >= len(pairs) - 2
+    for a, b in zip(ref[:4], got[:4]):
+        assert torch.equal(a, b)
+    for b in torch.nonzero(ok).flatten().tolist():
+        f = int(ref[0][b])
+        assert torch.equal(ref[4][:, :f + 1, b], got[4][:, :f + 1, b]), b
+        if mode == "long":
+            assert torch.equal(ref[5][b, :f + 1], got[5][b, :f + 1]), b
+        elif mode == "kw":
+            assert torch.equal(ref[5][:f + 1, b], got[5][:f + 1, b]), b
+
+
+def test_workspace_matches_the_kernel(card):
+    """kernel_engine.workspace, which places and sizes the score loop's
+    workspace at launch, gives what the kernel's own layout gives (the C
+    entry wfa_workspace), over windows, penalties and every mode; and a
+    launch whose workspace cannot fit shared memory is refused."""
+    import ctypes
+
+    from wfa_tpu_torch import _build
+    from wfa_tpu_torch import engine as te
+    from wfa_tpu_torch.kernel_engine import C_MODES, loop_args, workspace
+
+    lib = _build.library()
+    shared = ctypes.c_int(-1)
+    for pen in (Penalties(4, 6, 2), Penalties(1, 4, 2), Penalties(3, 2, 1),
+                Penalties(9, 13, 5), Penalties(2, 0, 1)):
+        for k in (64, 100, 128, 256, 384, 512, 640, 768, 896, 2048, 20096):
+            cfg = te.EngineConfig(penalties=pen, k_win=k)
+            for mode, cmode in C_MODES.items():
+                ints = lib.wfa_workspace(
+                    k, pen.mismatch, pen.gap_open + pen.gap_ext, pen.gap_ext,
+                    cmode, ctypes.byref(shared))
+                assert workspace(cfg, mode) == (ints, bool(shared.value)), (
+                    pen, k, mode)
+    assert lib.wfa_workspace(128, 4, 8, 2, 6, ctypes.byref(shared)) == -1
+    # a null scratch where the workspace does not fit: refused, and the
+    # context stays usable
+    cfg = te.EngineConfig(penalties=Penalties(4, 6, 2), adaptive=ADAPTIVE,
+                          k_win=2048, s_cap=64)
+    assert not workspace(cfg, 0)[1]
+    ins = te.inputs_from_packed(te._pack_all(_pairs(4, 100, 0.05, 5), 2048),
+                                card)
+    aux = torch.empty((3, 64, 4, 2048), dtype=torch.int32, device=card)
+    args = list(loop_args(*ins[:5], cfg, ins[5], ins[6], 0, aux, None)[0])
+    assert args[18] is not None
+    args[18] = None  # the scratch
+    with pytest.raises(_build.KernelError):
+        _build.launch("wfa_score_loop", *args, _build.stream_ptr(card))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("mode", ["global", "long", "kw"])
+def test_extension_to_the_last_row_end(card, mode):
+    """A pair whose extension runs to the last byte of the batch's last
+    query row and of its last target row: the word-wise compare loads no
+    word past the rows' end."""
+    from wfa_tpu_torch import engine as te
+    from wfa_tpu_torch.kernel_engine import (run_batch, run_batch_kw,
+                                             run_batch_long)
+
+    rng = np.random.default_rng(29)
+    s = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 384)].tobytes()
+    pairs = _pairs(7, 300, 0.05, 31) + [(s, s)]
+    cfg = te.EngineConfig(penalties=Penalties(4, 6, 2), adaptive=ADAPTIVE,
+                          k_win=256, s_cap=256,
+                          aux_kw=256 if mode == "kw" else None)
+    packed = te._pack_all(pairs, 256)
+    qb, tbuf, qlen, tlen, toff, Lq, Ltb = te.inputs_from_packed(packed, card)
+    # the last pair fills its query row and its target row to the end
+    assert int(qlen[-1]) == Lq and int(toff[-1] + tlen[-1]) == Ltb
+    args, kw = (qb, tbuf, qlen, tlen, toff), dict(cfg=cfg, Lq=Lq, Ltb=Ltb)
+    run, plain = {"global": (run_batch, te.run_batch_plain),
+                  "long": (run_batch_long, te.run_batch_long_plain),
+                  "kw": (run_batch_kw, te.run_batch_kw_plain)}[mode]
+    # rows cut to the batch's last pair: its rows end the allocations
+    last = tuple(a[-1:].contiguous() for a in args)
+    for batch in (args, last):
+        ref, got = plain(*batch, **kw), run(*batch, **kw)
+        for a, b in zip(ref[:4], got[:4]):
+            assert torch.equal(a, b)
+        assert bool(got[1][-1]) and int(got[0][-1]) == 0  # score 0
 
 
 def _guard_pair(seed):
@@ -270,6 +399,7 @@ def test_wrappers_check_their_inputs(card):
     import dataclasses
 
     from wfa_tpu_torch import engine as te
+    from wfa_tpu_torch._build import KernelError
     from wfa_tpu_torch.kernel_engine import run_batch, run_batch_kw
 
     cfg = te.EngineConfig(penalties=Penalties(4, 6, 2), adaptive=ADAPTIVE)
@@ -288,10 +418,10 @@ def test_wrappers_check_their_inputs(card):
         with pytest.raises(ValueError):
             run_batch_kw(*ins[:5], cfg=dataclasses.replace(cfg, aux_kw=kw),
                          Lq=Lq, Ltb=Ltb)
-    # band slots over the default shared-memory limit: the launch fails
-    # and the wrapper raises the CUDA error
+    # band slots over the default shared-memory limit: the kernel refuses
+    # the launch and the wrapper raises KernelError (never a device fault)
     huge = te.EngineConfig(penalties=Penalties(5000, 6, 2), adaptive=ADAPTIVE)
-    with pytest.raises(RuntimeError):
+    with pytest.raises(KernelError):
         run_batch(qb, tbuf, qlen, tlen, toff, cfg=huge, Lq=Lq, Ltb=Ltb)
     # the error does not stick to the context
     assert torch.equal(run_batch(*ins[:5], cfg=cfg, Lq=Lq, Ltb=Ltb)[0],

@@ -300,3 +300,53 @@ def test_numpy_pack_matches_jax(raw, monkeypatch):
     assert (ours[8] is None) == raw
     for a, b in zip(ours, packed):
         assert np.array_equal(a, b)
+
+
+def test_workspace_placement_and_size():
+    """The score loop's workspace: its int32 count (the windows, the
+    staged rows, three ballot words per 32 columns, rounded up to 4;
+    csrc/score_loop.cu workspace_ints) and its place, shared memory when
+    it fits in 48 KB after the reduction and band slots, by shape alone;
+    the batch memory model counts it."""
+    import dataclasses
+
+    from wfa_tpu_torch.device_backtrace import iter_capacity
+    from wfa_tpu_torch.kernel_engine import (RED_INTS, SHARED_BYTES,
+                                             STAGE_ROWS, workspace)
+    from wfa_tpu_torch.pipeline import batch_bytes_per_pair
+
+    cfg = te.EngineConfig(penalties=Penalties(4, 6, 2), k_win=128, s_cap=640)
+    at = lambda k: dataclasses.replace(cfg, k_win=k)  # noqa: E731
+    # K1 at the main path's window: 9 + 3 + 3 rows of 128 columns
+    assert workspace(cfg, 0) == (15 * 128 + 12, True)
+    # K1-long at 384 and K1-kw at 256: two staged rows of each plane
+    assert STAGE_ROWS[2] == STAGE_ROWS[3] == 6
+    assert workspace(at(384), 2) == (21 * 384 + 36, True)
+    assert workspace(at(256), 3) == (21 * 256 + 24, True)
+    # K3 at the full span of l=1000 stays in the scratch, K4's narrow
+    # window goes to shared memory
+    assert workspace(at(2048), "prefix") == (18 * 2048 + 192, False)
+    assert workspace(at(256), "resume") == (15 * 256 + 24, True)
+    # an odd width rounds up to 4 ints
+    assert workspace(at(100), 0) == (15 * 100 + 12, True)
+    assert workspace(at(101), 0) == (15 * 101 + 12 + 1, True)
+    # the limit, with the slots: reduction, then 3 WM + 6 WE, rounded to 4
+    slots = (RED_INTS + 3 * 9 + 6 * 3 + 3) // 4 * 4
+    for mode, (inside, outside) in ((0, (768, 896)), (2, (512, 640)),
+                                    (3, (512, 640))):
+        for k, shared in ((inside, True), (outside, False)):
+            ints, sh = workspace(at(k), mode)
+            assert sh is shared
+            assert (4 * (slots + ints) <= SHARED_BYTES) is shared
+    # wide penalties deepen the windows
+    wide = dataclasses.replace(cfg, penalties=Penalties(9, 13, 5))
+    assert workspace(dataclasses.replace(wide, k_win=384), 0) == (
+        31 * 384 + 36, True)
+    assert workspace(dataclasses.replace(wide, k_win=512), 0) == (
+        31 * 512 + 48, False)
+    # the memory model counts the workspace as scratch wherever it goes
+    long = dataclasses.replace(cfg, k_win=384, s_cap=27648)
+    ns = 2 * iter_capacity(27648, Penalties(4, 6, 2)) + 5
+    assert batch_bytes_per_pair(long, 50000, "long") == (
+        6 * 27648 * 384 + 4 * 27648 + 4 * (21 * 384 + 36) + 40 * ns
+        + 4 * (2 * 50000 + 384))

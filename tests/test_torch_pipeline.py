@@ -212,3 +212,144 @@ def test_default_device_is_the_card():
         BatchAligner()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         AlignmentPipeline(PipelineConfig()).align_all([(b"ACGT", b"ACGA")])
+
+
+def _faulty_submit(monkeypatch, errors):
+    """Make ``BatchAligner.submit_batch`` raise the exceptions of
+    ``errors`` on its first calls, then submit as before; returns the list
+    of calls it saw."""
+    orig = BatchAligner.submit_batch
+    calls = []
+
+    def submit(eng, pairs):
+        calls.append(len(pairs))
+        if len(calls) <= len(errors):
+            raise errors[len(calls) - 1]
+        return orig(eng, pairs)
+
+    monkeypatch.setattr(BatchAligner, "submit_batch", submit)
+    return calls
+
+
+@pytest.mark.parametrize("faults,served_by", [
+    (1, "device"), (2, "oracle")], ids=["one_fault", "two_faults"])
+def test_device_fault_retries_then_falls_to_the_oracle(monkeypatch, capsys,
+                                                       faults, served_by):
+    """A RuntimeError from submit_batch (a device fault: an out-of-memory
+    error, an illegal address) re-queues its chunk; one fault is served by
+    the device retry on the next tier, two send the rest of the call to
+    the oracle, as wfa_tpu.pipeline.align_all does.  The fault budget is
+    per call."""
+    pairs = random_pairs(random.Random(5), 12, 60)
+    pipe = AlignmentPipeline(PipelineConfig(Penalties(4, 6, 2), Options(True),
+                                            ADAPTIVE, batch_size=8,
+                                            device="cpu"))
+    calls = _faulty_submit(monkeypatch, [RuntimeError("CUDA error: an "
+                                                      "illegal memory access")]
+                           * faults)
+    res = pipe.align_all(pairs)
+    _assert_oracle(pairs, res, Penalties(4, 6, 2), ADAPTIVE)
+    err = capsys.readouterr().err
+    assert err.count("device error") == faults
+    if served_by == "device":
+        # chunk 0 faulted at tier 0 and was served at tier 1; chunk 1 at 0
+        assert "retrying" in err
+        assert pipe.served[0] == 4 and pipe.served[1] == 8
+        assert pipe.served["oracle"] == 0
+    else:
+        assert "falling back to host oracle" in err
+        assert pipe.served["oracle"] == len(pairs)
+        assert len(calls) == 2
+    # a new call starts with a clean budget
+    res = pipe.align_all(pairs)
+    assert pipe.served["oracle"] == 0
+    _assert_oracle(pairs, res, Penalties(4, 6, 2), ADAPTIVE)
+
+
+def test_host_errors_are_not_device_faults(monkeypatch):
+    """A ValueError (or TypeError) is a bug on the host: it propagates."""
+    pipe = AlignmentPipeline(PipelineConfig(Penalties(4, 6, 2), Options(True),
+                                            ADAPTIVE, device="cpu"))
+    _faulty_submit(monkeypatch, [ValueError("bad shape")])
+    with pytest.raises(ValueError, match="bad shape"):
+        pipe.align_all(random_pairs(random.Random(6), 4, 40))
+
+
+def test_finish_fault_retries_the_chunk(monkeypatch):
+    """A RuntimeError from finish_batch re-queues that chunk too."""
+    orig = BatchAligner.finish_batch
+    seen = []
+
+    def finish(eng, handle, fallback=True):
+        seen.append(1)
+        if len(seen) == 1:
+            raise RuntimeError("CUDA error: an illegal memory access")
+        return orig(eng, handle, fallback=fallback)
+
+    monkeypatch.setattr(BatchAligner, "finish_batch", finish)
+    pairs = random_pairs(random.Random(7), 6, 50)
+    pipe = AlignmentPipeline(PipelineConfig(Penalties(4, 6, 2), Options(True),
+                                            ADAPTIVE, device="cpu"))
+    _assert_oracle(pairs, pipe.align_all(pairs), Penalties(4, 6, 2),
+                   ADAPTIVE)
+    assert pipe.served[1] == len(pairs) and pipe.served["oracle"] == 0
+
+
+class _RefusingLibrary:
+    """A kernel library whose every entry returns one CUDA error code."""
+
+    def __init__(self, code):
+        self.code = code
+
+    def __getattr__(self, name):
+        return lambda *args: self.code
+
+
+@pytest.mark.parametrize("cause", ["build", "refused_launch"])
+def test_kernel_errors_are_not_device_faults(monkeypatch, tmp_path, capsys,
+                                             cause):
+    """A kernel that does not build (here a source nvcc cannot compile, or
+    no nvcc at all) or a launch the kernel refuses raises KernelError out
+    of align_all: no retry, nothing served by the oracle."""
+    from wfa_tpu_torch import _build
+
+    if cause == "build":
+        (tmp_path / "broken.cu").write_text("not CUDA\n")
+        monkeypatch.setattr(_build, "SRC_DIR", tmp_path)
+        monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+        monkeypatch.setattr(_build, "_lib", None)
+    else:
+        monkeypatch.setattr(_build, "_lib", _RefusingLibrary(1))
+    orig = BatchAligner.submit_batch
+
+    def submit(eng, pairs):
+        _build.launch("wfa_score_loop")  # as the card's first launch does
+        return orig(eng, pairs)
+
+    monkeypatch.setattr(BatchAligner, "submit_batch", submit)
+    pipe = AlignmentPipeline(PipelineConfig(Penalties(4, 6, 2), Options(True),
+                                            ADAPTIVE, device="cpu"))
+    with pytest.raises(_build.KernelError):
+        pipe.align_all(random_pairs(random.Random(8), 4, 40))
+    assert pipe._device_errors == 0
+    assert "device error" not in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("code,fault", [
+    (1, False), (9, False), (209, False), (701, False),
+    (2, True), (700, True), (719, True)])
+def test_launch_error_kinds(monkeypatch, code, fault):
+    """A C entry's CUDA error: a device fault at run time (out of memory,
+    an earlier kernel's illegal address or failure) raises RuntimeError,
+    which the pipeline retries; a refused launch (an invalid value or
+    configuration, no image for the card, too many resources) raises
+    KernelError, which is not a RuntimeError."""
+    from wfa_tpu_torch import _build
+
+    monkeypatch.setattr(_build, "_lib", _RefusingLibrary(code))
+    with pytest.raises(Exception) as info:
+        _build.launch("wfa_score_loop", 1, None)
+    assert isinstance(info.value, RuntimeError) is fault
+    assert isinstance(info.value, _build.KernelError) is not fault
+    monkeypatch.setattr(_build, "_lib", _RefusingLibrary(0))
+    _build.launch("wfa_score_loop", 1, None)

@@ -7,6 +7,11 @@ interface for Hopper (``sm_90a``), in ``wfa_tpu_torch/build/``
 library name carries a hash of the sources, so an edited kernel
 rebuilds.  Each C entry launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`launch` raises when that is not 0.
+A kernel that does not build, or a launch the kernel or the CUDA runtime
+refuses, raises :class:`KernelError`, which is not a RuntimeError, so the
+pipeline's device-fault retry never hands it to the oracle; a fault of
+the device at run time (an allocation, an earlier kernel's bad address)
+raises RuntimeError, as PyTorch's own CUDA errors do.
 Nothing here runs at import time: the CPU tests import every module.
 """
 
@@ -35,6 +40,8 @@ _SIGNATURES = {
     # qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S, K, x, oe, e, reduce_on,
     # min_wf_len, max_dist_diff, mode, kw, win, out, aux, aux_base, stream
     "wfa_score_loop": [_P] * 5 + [_I] * 13 + [_P] * 5,
+    # wfa_score_loop's, then cycles before the stream
+    "wfa_score_loop_phases": [_P] * 5 + [_I] * 13 + [_P] * 6,
     # qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S0, Kf, K2, x, oe, e,
     # reduce_on, min_wf_len, max_dist_diff, cell16, win, aux_old, win_m,
     # win_i, win_d, ainit, b_m, b_ie, meta1, stream
@@ -43,6 +50,8 @@ _SIGNATURES = {
     # reduce_on, min_wf_len, max_dist_diff, cell16, win, out, aux2, win_m,
     # win_i, win_d, ainit, b_m, b_ie, meta1, stream
     "wfa_resume": [_P] * 5 + [_I] * 13 + [_P] * 11,
+    # K, x, oe, e, mode (wfa_score_loop's 0-3, 4 K3, 5 K4), *shared
+    "wfa_workspace": [_I] * 5 + [ctypes.POINTER(_I)],
     # aux, aux_c16, aux_base, sbase, aux_old, old_c16, s_split, Kf,
     # k0_old, start_cell, k0, start_s, start_k, qlen, tlen, active0, B, S,
     # K, x, oe, e, it_cap, token_shift, split, semi, tok0, buf, tail, iters,
@@ -50,6 +59,19 @@ _SIGNATURES = {
     "wfa_backtrace": ([_P, _I, _P, _P, _P, _I, _I, _I] + [_P] * 8
                       + [_I] * 10 + [_P] * 5),
 }
+
+# cudaError_t codes of device faults at run time: cudaErrorMemoryAllocation,
+# then the sticky faults an earlier kernel leaves (illegal address, launch
+# timeout, assert, stack, instruction, misaligned or bad address space,
+# bad PC, launch failure).  Any other code is a refused launch.
+DEVICE_FAULTS = frozenset((2, 700, 702, 710, 714, 715, 716, 717, 718, 719))
+
+
+class KernelError(Exception):
+    """A kernel that did not build, or a launch that was refused (a bad
+    size or configuration, no image for the card): a fault of the code,
+    never retried."""
+
 
 _lib = None
 build_seconds = None  # wall time of the nvcc run (None: loaded cached)
@@ -61,19 +83,30 @@ def _nvcc() -> str:
     if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
         path = "/usr/local/cuda/bin/nvcc"
     if path is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels build only "
-                           "where the CUDA toolkit is installed")
+        raise KernelError("nvcc not found: the CUDA kernels build only "
+                          "where the CUDA toolkit is installed")
     return path
 
 
 def library() -> ctypes.CDLL:
     """The kernel library, built on the first call."""
-    global _lib, build_seconds, build_log
-    if _lib is not None:
-        return _lib
-    sources = sorted(SRC_DIR.glob("*.cu"))
+    global _lib
+    if _lib is None:
+        _lib = build(SRC_DIR)
+    return _lib
+
+
+def build(src_dir: Path) -> ctypes.CDLL:
+    """Build (or load the cached build of) the ``*.cu`` sources of
+    ``src_dir`` into one library in ``BUILD_DIR`` and bind the C entries
+    it has.  :func:`library` builds the package's own; the phase profile
+    builds a second library from another copy of the sources to time the
+    two in turns.  Raises KernelError when nvcc is missing or fails."""
+    global build_seconds, build_log
+    src_dir = Path(src_dir)
+    sources = sorted(src_dir.glob("*.cu"))
     digest = hashlib.sha256()
-    for path in sorted(SRC_DIR.glob("*.cu*")):
+    for path in sorted(src_dir.glob("*.cu*")):
         digest.update(path.name.encode() + path.read_bytes())
     so = BUILD_DIR / f"libwfa_kernels_{digest.hexdigest()[:16]}.so"
     if not so.exists():
@@ -92,25 +125,25 @@ def library() -> ctypes.CDLL:
             build_log = "".join(p.communicate()[0] for p in procs)
             failed = [p.returncode for p in procs if p.returncode != 0]
             if failed:
-                raise RuntimeError(f"nvcc failed ({failed}):\n{build_log}")
+                raise KernelError(f"nvcc failed ({failed}):\n{build_log}")
             r = subprocess.run(
                 [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
                 capture_output=True, text=True)
             build_seconds = time.perf_counter() - t0
             build_log += r.stdout + r.stderr
             if r.returncode != 0:
-                raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
-                                   f"{build_log}")
+                raise KernelError(f"nvcc link failed ({r.returncode}):\n"
+                                  f"{build_log}")
             os.replace(tmp, so)
         finally:
             for path in (*objs, tmp):
                 path.unlink(missing_ok=True)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    _lib = lib
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -136,10 +169,14 @@ def check_inputs(fn: str, device: torch.device, **tensors) -> None:
 
 
 def launch(name: str, *args) -> None:
-    """Call the C entry ``name``; tensors pass as device pointers.  Raises
-    if the launch reported a CUDA error."""
+    """Call the C entry ``name`` of :func:`library`; tensors pass as device
+    pointers, None as a null pointer.  Raises RuntimeError if the launch
+    reported a device fault (``DEVICE_FAULTS``), KernelError for any other
+    CUDA error: a launch the kernel or the CUDA runtime refused."""
     argv = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
             else a for a in args]
     err = getattr(library(), name)(*argv)
+    if err in DEVICE_FAULTS:
+        raise RuntimeError(f"{name}: CUDA error {err} (a device fault)")
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+        raise KernelError(f"{name}: CUDA error {err}: the launch was refused")

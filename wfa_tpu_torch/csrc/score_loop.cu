@@ -12,20 +12,34 @@
 // pair-major layout.  Rows above final_s are not written.
 //
 // Design for the card, not block by block from the Pallas code:
-//  * One block per pair.  Threads stride over the K diagonals; band
-//    bounds, dmin, first_good / last_mark / last_good and the Ak cell
-//    come from block reductions.  With no shared table window every
-//    pair's result is independent of the rest of the batch, so a
+//  * One block of 128 threads per pair.  With no shared table window
+//    every pair's result is independent of the rest of the batch, so a
 //    per-pair loop is exact (the lockstep engine stops a pair at done or
 //    overflow too).
-//  * Extension compares the sequence bytes directly, q[v+i] == t[h+i]
-//    within v < qlen, h < tlen, like the reference's LCP walk
+//  * Extension compares the sequence bytes directly, eight at a time (two
+//    aligned 8-byte loads a side, a funnel shift, XOR and the first set
+//    bit), bounded by qlen and tlen like the reference's LCP walk
 //    (wfa.go:411-435).  The TPU's stop tables exist because gathers are
 //    slow there; the plain version keeps them, so the two check each
 //    other.
-//  * The circular wavefront windows (WM = max(x, o+e) + 1 rows of M,
-//    WE = e + 1 rows each of I and D) live in a global scratch tensor,
-//    which serves any K; the band slots live in shared memory.
+//  * The workspace (the circular windows: WM = max(x, o+e) + 1 rows of M,
+//    WE = e + 1 rows each of I and D; the staged aux rows; the ballot
+//    words) lives in shared memory when it fits in 48 KB with the band
+//    slots, else in a device scratch (kernel_engine.workspace picks by
+//    shape; the body reads both through one generic pointer).
+//  * A score step has four block barriers (the parent kernel had 12 for
+//    K1, 14 for K1-long): extend with dmin and the Ak cell in one
+//    reduction; the reduce's good / marked cells as warp ballots, one
+//    barrier, then every warp finds first_good, last_good and the last
+//    mark below first_good from the words; the zero pass with the flush's
+//    value range in one reduction; next() with its written cells as
+//    ballots, one barrier, then the new band bounds from the words.  Each
+//    block reduction takes one barrier (every call site has its own
+//    slots), and the band of score s rides in registers, which every
+//    thread computes alike.
+//  * Extend, classify and the zero pass stride only the live band; next()
+//    the new band and the bands of the rows it overwrites (every other
+//    cell of the window is zero), then zeroes the rest of the aux row.
 //
 // Semi-global mode (the window spans every diagonal, k0 = -(qlen-1)):
 //  * Seeds: the first row and column, k in [-(qlen-1), tlen-1]; match
@@ -59,9 +73,10 @@
 // "absent"), and the base goes to aux_base[b, s].  A row is final only
 // after its own reduce (next() of step s writes row s+1, the reduce of step
 // s+1 zeroes some of its cells), so the newest aux row of each plane is
-// staged as int32 in the per-pair scratch (3 K more ints), zeroed where
-// the reduce zeroes, and written rebased after that reduce; the
-// terminating row unreduced, at the break, as the TPU kernel streams it.
+// staged as int32 in the pair's workspace, zeroed where the reduce
+// zeroes, and written rebased after that reduce, while next() fills the
+// other of two staging rows a plane; the terminating row unreduced, at
+// the break, as the TPU kernel streams it.
 // A rebased value above 4095 does not fit the int16 cell: the pair is
 // then reported overflowed (done = 0, final_s = term_cell = 0), so it
 // retries or goes to the oracle, where the TPU kernel relies on
@@ -102,7 +117,7 @@
 //    seeds over the full span Kf and runs scores 0 .. S0 - 1 with the
 //    fused end finder; aux rows 0 .. S0 - 1 go to aux_old[3, S0, B, Kf]
 //    (int16 cells when the buffer allows), the aux row S0 that next() of
-//    step S0 - 1 writes is staged in the pair's scratch.  At exit the
+//    step S0 - 1 writes is staged in the pair's workspace.  At exit the
 //    kernel computes meta1 (done, final_s, term_cell, the end finder's
 //    raw state, overflow2, k02: wfa_tpu/semi2.py:48-52, 182-206) from the
 //    band union of every slot next() can still read plus Ak, and writes
@@ -124,19 +139,17 @@
 // What neither carries over: the REORDER pass order, the KC chunks and
 // guard rows, the v-space shear, 128-lane padding.
 //
-// What bounds it: each step is a short chain of dependent L1/L2 reads
-// and block barriers per pair; K = 128 diagonals give one cell per
-// thread, and 2048 pairs fill the card's 132 SMs with ~16 blocks each.
-// Semi-global windows are the full span (K = 2048 at l = 1000), and every
-// pass strides over all K columns even after the band has collapsed to
-// tens of diagonals: the whole-window aux rows and window passes are its
-// cost.  K3 strides the full span (Kf = 20,096 at l = 10000) for only
-// S0 = 64 steps, K4 the narrow window (256 or 512).  Long reads: at
-// l = 50000, e = 0.05 (s_cap ~27,520 at tier 0,
-// K = 384, final_s ~14,500) each pair is a serial chain of ~14,500 steps of
-// block barriers; the aux rows, 6 B x 14,500 x 384 x 64 pairs ~ 2.1 GB,
-// take ~0.64 ms at 3.35 TB/s, so the chain latency, not memory, sets the
-// time, and a 64-pair batch fills only 64 of the 132 SMs.
+// What bounds it: each step is a chain of short phases joined by block
+// barriers, per pair.  At l=1000 (K = 128, 2048 pairs) several blocks
+// share an SM, and the instructions a step issues set the pace; the
+// many-pair instantiations cap registers at 64 so that 8 blocks fit.  At
+// l=50000 (K = 384, 64 pairs, ~14,500 steps a pair) one block runs an SM
+// and the latency of each phase's chain sets it; the aux rows, 6 B x
+// 14,500 x 384 x 64 pairs ~ 2.1 GB, take ~0.64 ms at 3.35 TB/s, so memory
+// is far from the limit, and a 64-pair batch fills 64 of the 132 SMs.
+// Semi-global windows are the full span (K = 2048 at l = 1000), where the
+// whole-window aux rows dominate; K3 strides the full span (Kf = 20,096
+// at l = 10000) for only S0 = 64 steps, K4 the narrow window.
 
 #include <cstdint>
 #include <type_traits>
@@ -154,6 +167,9 @@ constexpr int kMaxRebased = 4095;  // (v << 3) | tag must fit int16
 // semi-global route
 constexpr int kFull = 0, kPrefix = 1, kResume = 2;
 // meta1 columns (wfa_tpu/semi2.py:48-52)
+// TIMED instantiations: per-block clock64() sums of thread 0, by phase
+constexpr int kPhExtend = 0, kPhTerm = 1, kPhReduce = 2, kPhFlush = 3,
+              kPhNext = 4, kPhBands = 5, kPhSteps = 6, kPhases = 7;
 constexpr int kM1Done = 0, kM1Fs = 1, kM1Term = 2, kM1EFound = 3, kM1Es = 4,
               kM1Ek = 5, kM1ECell = 6, kM1Ovf = 7, kM1K02 = 8, kM1Cols = 9;
 
@@ -173,18 +189,16 @@ struct Handoff {
   int K2;  // the narrow window's width
 };
 
-// Block-wide minimum of N values at once (a maximum passes its negation;
-// all values lie in [-kBig, kBig]).  Every thread gets the results.
+// Block-wide minimum of N values at once, with one barrier (a maximum
+// passes its negation; all values lie in [-kBig, kBig]).  Every thread gets
+// the results.  `red` holds N * kWarps slots; each call site has its own,
+// and every path between two calls of one site crosses another barrier, so
+// no thread still reads the slots a call writes.
 template <int N>
 __device__ __forceinline__ void block_min(int (&v)[N], int* red) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v[i] = min(v[i], __shfl_xor_sync(0xffffffffu, v[i], off));
-  }
+  for (int i = 0; i < N; ++i) v[i] = __reduce_min_sync(0xffffffffu, v[i]);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();  // red may still be read by the previous reduction
   if (lane == 0) {
 #pragma unroll
     for (int i = 0; i < N; ++i) red[i * kWarps + warp] = v[i];
@@ -197,6 +211,61 @@ __device__ __forceinline__ void block_min(int (&v)[N], int* red) {
     for (int w = 1; w < kWarps; ++w) m = min(m, red[i * kWarps + w]);
     v[i] = m;
   }
+}
+
+// The lowest and highest set bit, as column indices, of the ballot words
+// w0..w1 of each of the three masks m[c] (kBig and -kBig where none is
+// set).  The warp reads 32 words at once and finds the first and last
+// nonzero one with a ballot; every warp computes the same.
+__device__ __forceinline__ void mask_bounds3(const uint32_t* const (&m)[3],
+                                             int w0, int w1, int (&lo)[3],
+                                             int (&hi)[3]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) lo[c] = kBig, hi[c] = -kBig;
+  for (int base = w0; base <= w1; base += 32) {
+    const int w = base + lane;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const uint32_t bits = w <= w1 ? m[c][w] : 0u;
+      const uint32_t nz = __ballot_sync(0xffffffffu, bits != 0);
+      if (nz) {
+        const int fl = __ffs(nz) - 1, ll = 31 - __clz(nz);
+        const uint32_t fb = __shfl_sync(0xffffffffu, bits, fl);
+        const uint32_t lb = __shfl_sync(0xffffffffu, bits, ll);
+        if (lo[c] == kBig) lo[c] = (base + fl) * 32 + __ffs(fb) - 1;
+        hi[c] = (base + ll) * 32 + 31 - __clz(lb);
+      }
+    }
+  }
+}
+
+// The bytes p[0 .. need) (need <= 8) in the low bytes of a word, from the
+// one or two aligned 8-byte words that hold them: the second is loaded only
+// when a needed byte lies in it, so no load leaves the row.  The bytes above
+// `need` are unspecified.
+__device__ __forceinline__ uint64_t load_bytes(const uint8_t* p, int need) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const uint64_t* w = reinterpret_cast<const uint64_t*>(a & ~uintptr_t(7));
+  const int off = static_cast<int>(a & 7);
+  const uint64_t lo = __ldg(w);
+  if (off == 0) return lo;
+  const uint64_t hi = off + need > 8 ? __ldg(w + 1) : 0;
+  return (lo >> (8 * off)) | (hi << (64 - 8 * off));
+}
+
+// The length of the common prefix of a[0 .. lim) and b[0 .. lim), eight
+// bytes a compare (the reference's LCP walk, wfa.go:411-435).
+__device__ __forceinline__ int lcp(const uint8_t* a, const uint8_t* b,
+                                   int lim) {
+  int n = 0;
+  while (n < lim) {
+    const int r = min(lim - n, 8);
+    const uint64_t d = load_bytes(a + n, r) ^ load_bytes(b + n, r);
+    if (d) return n + min((__ffsll(static_cast<long long>(d)) - 1) >> 3, r);
+    n += r;
+  }
+  return n;
 }
 
 // The reference's ascending Delete loop over k in [dl, dh] applied to a
@@ -232,26 +301,82 @@ __device__ __forceinline__ bool src(const int32_t* row, bool present, int lo,
   return true;
 }
 
+// int32 cells of a pair's workspace: WM rows of M and WE rows each of I
+// and D, K diagonals wide, then `stage_rows` staged aux rows, then three
+// ballot words for every 32 columns.  In shared memory when the launch
+// passes no scratch, else in the scratch, one workspace a pair
+// (kernel_engine.workspace picks the place and counts the same ints).
+__host__ __device__ __forceinline__ int64_t workspace_ints(int K, int WM,
+                                                           int WE,
+                                                           int stage_rows) {
+  // a multiple of 4, so that rows of a K % 4 == 0 window start 16-byte
+  // aligned in every pair's scratch
+  return ((int64_t)(WM + 2 * WE + stage_rows) * K + 3 * ((K + 31) / 32) + 3)
+         & ~int64_t(3);
+}
+
+// shared ints ahead of a workspace in shared memory: the block_min sites'
+// slots, then the band slots, rounded up to a multiple of 4
+constexpr int kRedInts = 8 * kWarps;
+__host__ __device__ constexpr int slot_ints(int WM, int WE) {
+  return (kRedInts + 3 * WM + 6 * WE + 3) & ~3;
+}
+// staged aux rows in a pair's workspace: REBASE's two newest rows of each
+// plane (row s is flushed while next() writes row s + 1), or the prefix's
+// aux row S0 (ainit)
+template <bool REBASE, int PHASE>
+__host__ __device__ constexpr int stage_rows() {
+  return REBASE ? 6 : (PHASE == kPrefix ? 3 : 0);
+}
+// the dynamic shared memory a launch gets without a function attribute
+constexpr int64_t kSharedBytes = 48 * 1024;
+// ints of a launch's dynamic shared memory: the slots, and the workspace
+// when it is in shared memory (no scratch)
+inline int64_t shared_ints(int K, int WM, int WE, int stage, bool scratch) {
+  return scratch ? kRedInts + 3 * WM + 6 * WE
+                 : slot_ints(WM, WE) + workspace_ints(K, WM, WE, stage);
+}
+// blocks an SM the compiler keeps registers for, in the modes whose
+// launches bring thousands of pairs and whose steps the issued
+// instructions pace: K1 and K1-kw 8 (64 registers a thread; the fastest
+// of 1, 6, 8 and of 1, 4, 6, 8), the semi-global modes 6 (of 1, 3, 4, 6),
+// timed in turns on the paths' batches (PERF.md §6); K1-long's one
+// block an SM takes what it needs
+constexpr int kMinBlocks = 8, kMinBlocksSemi = 6;
+template <bool GLOBAL, bool REBASE, bool KWIN>
+constexpr int min_blocks() {
+  return GLOBAL ? (!REBASE || KWIN ? kMinBlocks : 1) : kMinBlocksSemi;
+}
+
+// Where the flush writes a row: the value base, K1-kw's window column / 32,
+// and whether the row fits the int16 cells (K1-kw: and the window)
+struct FlushPlan {
+  int base;
+  int cb;
+  bool fits;
+};
+
 // Cell: int32 aux cells, the value-rebased int16 cells of REBASE mode, or
 // the int16 cells of a two-phase semi-global phase whose offsets fit them.
 // KWIN (with REBASE): K1-kw's aux rows kw columns wide, and aux_base is
 // sbase[S, B] instead of the long-read mode's aux_base[B, S].
 template <bool GLOBAL, bool REBASE, int PHASE, typename Cell,
-          bool KWIN = false>
-__global__ void __launch_bounds__(kThreads) score_loop_kernel(
+          bool KWIN = false, bool TIMED = false>
+__global__ void __launch_bounds__(
+    kThreads, (min_blocks<GLOBAL, REBASE, KWIN>()))
+    score_loop_kernel(
     const uint8_t* __restrict__ qb, const uint8_t* __restrict__ tbuf,
     const int32_t* __restrict__ qlen, const int32_t* __restrict__ tlen,
     const int32_t* __restrict__ toff, int B, int Lq, int Ltb, int S, int K,
     int x, int oe, int e, int reduce_on, int min_wf_len, int max_dist_diff,
     int kw, int32_t* __restrict__ win, int32_t* __restrict__ out,
-    Cell* __restrict__ aux, int32_t* __restrict__ aux_base, Handoff ho) {
+    Cell* __restrict__ aux, int32_t* __restrict__ aux_base, Handoff ho,
+    long long* __restrict__ cycles) {
   static_assert(GLOBAL || !REBASE, "the long-read mode is global only");
   static_assert(!KWIN || REBASE, "the row window rides the rebased staging");
   static_assert(PHASE == kFull || (!GLOBAL && !REBASE),
                 "the two-phase route is semi-global");
-  // staged aux rows in the pair's scratch: REBASE's newest rows, or the
-  // prefix's aux row S0 (ainit)
-  constexpr bool kStage = REBASE || PHASE == kPrefix;
+  constexpr int kStageRows = stage_rows<REBASE, PHASE>();
   using Dst = std::conditional_t<REBASE, int32_t, Cell>;
   const int S0 = PHASE == kFull ? 0 : ho.S0;
   // aux rows held and the score of the first: S rows, the prefix's S0,
@@ -260,101 +385,125 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
   const int s_lo = PHASE == kResume ? S0 : 0;
   const int KA = KWIN ? kw : K;  // aux columns a row
   const int b = blockIdx.x;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int WM = max(x, oe) + 1, WE = e + 1;
+  const int KWd = (K + 31) / 32;  // ballot words a row
   extern __shared__ int smem[];
-  int* red = smem;  // 8 * kWarps reduction slots
-  Band mb{smem + 8 * kWarps, smem + 8 * kWarps + WM,
-          smem + 8 * kWarps + 2 * WM};
-  int* base_ie = smem + 8 * kWarps + 3 * WM;
+  // one block_min site each: extend, the flush (and the seeding), the end
+  // finder
+  int* red_ext = smem;
+  int* red_fl = smem + 2 * kWarps;
+  int* red_fe = smem + 6 * kWarps;
+  Band mb{smem + kRedInts, smem + kRedInts + WM, smem + kRedInts + 2 * WM};
+  int* base_ie = smem + kRedInts + 3 * WM;
   Band ib{base_ie, base_ie + WE, base_ie + 2 * WE};
   Band db{base_ie + 3 * WE, base_ie + 4 * WE, base_ie + 5 * WE};
-  __shared__ int sh_cell_ak;
 
   const int ql = qlen[b], tl = tlen[b], tof = toff[b];
   const int k0 = -tof, Ak = tl - ql, jak = Ak - k0;
-  // per-pair scratch: the windows, then the three staged rows
-  int32_t* Mw = win + (int64_t)b * (WM + 2 * WE + (kStage ? 3 : 0)) * K;
+  // the workspace: the windows, the staged rows, the ballot words
+  int32_t* Mw = win ? win + b * workspace_ints(K, WM, WE, kStageRows)
+                    : smem + slot_ints(WM, WE);
   int32_t* Iw = Mw + (int64_t)WM * K;
   int32_t* Dw = Iw + (int64_t)WE * K;
+  int32_t* stage = Dw + (int64_t)WE * K;
+  uint32_t* mk = reinterpret_cast<uint32_t*>(stage + (int64_t)kStageRows * K);
   auto aux_row = [&](int comp, int s) {
     return aux + ((int64_t)(comp * Sa + s - s_lo) * B + b) * KA;
   };
   // where seeding, reduce and next put a row's aux: the output row, in
-  // REBASE mode the int32 staging rows after the I and D windows, and for
-  // the prefix's row S0 the same staging rows, holding Cell values
-  int32_t* stage = Dw + (int64_t)WE * K;
+  // REBASE mode the int32 staging rows of the row's parity, and for the
+  // prefix's row S0 the staging rows, holding Cell values
   auto aux_dst = [&](int comp, int s) -> Dst* {
     if constexpr (REBASE) {
-      return stage + (int64_t)comp * K;
+      return stage + (int64_t)((s & 1) * 3 + comp) * K;
     } else {
       if (PHASE == kPrefix && s == S0)
         return reinterpret_cast<Cell*>(stage + (int64_t)comp * K);
       return aux_row(comp, s);
     }
   };
-  // REBASE: write the staged row s rebased (KWIN: its kw-column window);
-  // false when a value is too wide for the int16 cell (KWIN: or the band
-  // passes the window)
-  auto flush = [&](int s) {
-    int r[2] = {kBig, kBig};  // min offset0, -max offset0 of found cells
-    for (int j = tid; j < K; j += kThreads) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const int cell = stage[c * K + j];
-        if (cell > 0) {
-          r[0] = min(r[0], cell >> 3);
-          r[1] = min(r[1], -(cell >> 3));
-        }
-      }
-    }
-    block_min(r, red);
-    int base = r[0] < kBig ? r[0] : 0;
-    bool fits = r[0] == kBig || -r[1] - base + 1 <= kMaxRebased;
-    int cb = 0;  // KWIN: the window's first column / 32
+  // REBASE: the flush of row s from its staged cells' minimum r[0] and
+  // negated maximum r[1] offset0 and (KWIN) the row's bands after its
+  // reduce
+  auto plan_flush = [&](const int (&r)[2], const bool (&bex)[3],
+                        const int (&blo)[3], const int (&bhi)[3]) {
+    FlushPlan p{r[0] < kBig ? r[0] : 0, 0, true};
+    p.fits = r[0] == kBig || -r[1] - p.base + 1 <= kMaxRebased;
     if constexpr (KWIN) {
-      // the post-reduce band union of score s (every thread reads the
-      // same slots)
-      const int sm = s % WM, se = s % WE;
       int lo_u = kBig, hi_u = -kBig;
       bool anyb = false;
-      const Band* bands[3] = {&mb, &ib, &db};
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
-        const int sl = c ? se : sm;
-        if (bands[c]->ex[sl]) {
-          lo_u = min(lo_u, bands[c]->lo[sl]);
-          hi_u = max(hi_u, bands[c]->hi[sl]);
+        if (bex[c]) {
+          lo_u = min(lo_u, blo[c]);
+          hi_u = max(hi_u, bhi[c]);
           anyb = true;
         }
       }
       // C++ division truncates toward zero, as lax.div does
-      if (anyb) cb = min(max((lo_u - k0) / 32, 0), (K - kw) / 32);
-      base = max(base, 0);
+      if (anyb) p.cb = min(max((lo_u - k0) / 32, 0), (K - kw) / 32);
+      p.base = max(p.base, 0);
       const int vmx = r[1] < kBig ? -r[1] : -kBig;
-      fits = !anyb ||
-             (hi_u - k0 - cb * 32 < kw && vmx - base + 1 <= kMaxRebased);
+      p.fits = !anyb || (hi_u - k0 - p.cb * 32 < kw &&
+                         vmx - p.base + 1 <= kMaxRebased);
     }
-    const int c0 = cb * 32;
-    for (int j = tid; j < KA; j += kThreads) {
+    return p;
+  };
+  // REBASE: column j < KA of the staged row s, rebased, to the aux rows
+  // (KWIN: window column j), and the row's base word.  The staged cell
+  // is left zero: a fitting row has no cell outside the columns flushed
+  // (KWIN: the window holds its bands), so the parity is all zero again
+  auto flush_col = [&](int s, const FlushPlan& p, int j) {
+    int32_t* st = stage + (int64_t)(s & 1) * 3 * K + p.cb * 32 + j;
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const int cell = stage[c * K + c0 + j];
-        aux_row(c, s)[j] = static_cast<Cell>(
-            cell > 0 ? (((cell >> 3) - base + 1) << 3) | (cell & 7) : 0);
-      }
+    for (int c = 0; c < 3; ++c) {
+      const int cell = st[c * K];
+      st[c * K] = 0;
+      aux_row(c, s)[j] = static_cast<Cell>(
+          cell > 0 ? (((cell >> 3) - p.base + 1) << 3) | (cell & 7) : 0);
     }
-    if (tid == 0) {
+    if (j == 0) {
       if constexpr (KWIN) {
-        aux_base[(int64_t)s * B + b] = (base << 5) | cb;
+        aux_base[(int64_t)s * B + b] = (p.base << 5) | p.cb;
       } else {
-        aux_base[(int64_t)b * S + s] = base;
+        aux_base[(int64_t)b * S + s] = p.base;
       }
     }
-    // KWIN: a thread read stage columns that another thread's next() is
-    // about to overwrite
-    if constexpr (KWIN) __syncthreads();
-    return fits;
+  };
+  // the same for columns j .. j + 3, one 16-byte load and store of each
+  // staged plane and one 8-byte store of each aux row, when K and KA are
+  // multiples of 4 (the workspace rows and aux rows are then aligned)
+  const bool vec4 = K % 4 == 0 && KA % 4 == 0;
+  auto flush_col4 = [&](int s, const FlushPlan& p, int j) {
+    int32_t* st = stage + (int64_t)(s & 1) * 3 * K + p.cb * 32 + j;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      int4* src4 = reinterpret_cast<int4*>(st + c * K);
+      const int4 v = *src4;
+      *src4 = make_int4(0, 0, 0, 0);
+      auto rb = [&](int cell) -> uint32_t {
+        return static_cast<uint16_t>(
+            cell > 0 ? (((cell >> 3) - p.base + 1) << 3) | (cell & 7) : 0);
+      };
+      *reinterpret_cast<uint2*>(aux_row(c, s) + j) =
+          make_uint2(rb(v.x) | rb(v.y) << 16, rb(v.z) | rb(v.w) << 16);
+    }
+    if (j == 0) {
+      if constexpr (KWIN) {
+        aux_base[(int64_t)s * B + b] = (p.base << 5) | p.cb;
+      } else {
+        aux_base[(int64_t)b * S + s] = p.base;
+      }
+    }
+  };
+  // the whole flush of row s
+  auto flush_row = [&](int s, const FlushPlan& p) {
+    if (vec4) {
+      for (int j = 4 * tid; j < KA; j += 4 * kThreads) flush_col4(s, p, j);
+    } else {
+      for (int j = tid; j < KA; j += kThreads) flush_col(s, p, j);
+    }
   };
 
   // the window must hold the seed diagonals and the terminal one; the
@@ -456,8 +605,7 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
   } else {
     for (int i = tid; i < WM * K; i += kThreads) Mw[i] = 0;
     for (int i = tid; i < WE * K; i += kThreads) Iw[i] = Dw[i] = 0;
-    if (kStage)
-      for (int i = tid; i < 3 * K; i += kThreads) stage[i] = 0;
+    for (int i = tid; i < kStageRows * K; i += kThreads) stage[i] = 0;
     __syncthreads();
     if constexpr (GLOBAL) {
       // ---- seeding (wfa.go:143-184): one cell, diagonal 0 at offset 1
@@ -500,7 +648,7 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
         aux_dst(1, 0)[j] = 0;
         aux_dst(2, 0)[j] = 0;
       }
-      block_min(rs, red);
+      block_min(rs, red_fl);
       // a mismatch seed beyond the score cap can never be reached
       if (x >= S && rs[2] < kBig) {
         overflow = true;
@@ -542,7 +690,7 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
       if (k <= Ak) r2[0] = min(r2[0], -(2 * j + !viol));
       else r2[1] = min(r2[1], 2 * j + viol);
     }
-    block_min(r2, red);
+    block_min(r2, red_fe);
     const bool succ_dn = r2[0] < kBig && ((-r2[0]) & 1);
     const bool succ_up = r2[1] < kBig && !(r2[1] & 1);
     if (succ_up || succ_dn) {
@@ -554,36 +702,79 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
     }
   };
 
+  // TIMED: thread 0 adds the cycles since the last stamp to a phase
+  long long t_mark = 0, acc[kPhases] = {};
+  auto stamp = [&](int ph) {
+    if constexpr (TIMED) {
+      if (tid == 0) {
+        const long long now = clock64();
+        acc[ph] += now - t_mark;
+        t_mark = now;
+      }
+    }
+  };
+  if constexpr (TIMED) t_mark = clock64();
+
+  // The bands of score s (M at s % WM, I and D at s % WE) ride in
+  // registers from the next() that found them: every thread reads the same
+  // ballot words, so all hold the same values.  Thread 0 keeps the shared
+  // slots up to date for the older rows next() reads.
+  bool bex[3];  // M, I, D exist
+  int blo[3], bhi[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const Band& bc = c == 0 ? mb : (c == 1 ? ib : db);
+    const int sl = c ? s_lo % WE : s_lo % WM;
+    bex[c] = bc.ex[sl] != 0;
+    blo[c] = bc.lo[sl];
+    bhi[c] = bc.hi[sl];
+  }
+
+  // A step: extend with dmin and the Ak cell (one barrier); termination;
+  // the reduce's classify ballots (one barrier); the zero pass with the
+  // flush's value range (one barrier); next() and the flush of row s, then
+  // the new bands' ballots (one barrier).  sm and se are the ring slots of
+  // score s, s % WM and s % WE.
+  int sm = s_lo % WM, se = s_lo % WE;
   for (int s = s_lo; s < S - 1; ++s) {
-    const int sm = s % WM, se = s % WE;
-    const int lo_ms = mb.lo[sm], hi_ms = mb.hi[sm];
-    const bool ex_ms = mb.ex[sm] != 0;
+    if constexpr (TIMED) ++acc[kPhSteps];
+    const int lo_ms = blo[0], hi_ms = bhi[0];
+    const bool ex_ms = bex[0];
     int32_t* row_m = Mw + (int64_t)sm * K;
+    // the band's columns (the window holds every band)
+    const int jlo = max(lo_ms - k0, 0), jhi = min(hi_ms - k0, K - 1);
 
     // ---------------- extend (wfa.go:381-458) ----------------
-    for (int j = tid; j < K; j += kThreads) {
-      int cell = row_m[j];
-      int k = k0 + j;
-      if (ex_ms && cell > 0 && k >= lo_ms && k <= hi_ms) {
-        int h0 = cell >> 3, v0 = h0 - k;
-        if (v0 > 0 && v0 < ql && h0 < tl) {
-          int lim = min(ql - v0, tl - h0);
-          int n = 0;
-          while (n < lim && q[v0 + n] == t[h0 + n]) ++n;
-          if (n > 0) {
-            cell += n << 3;
-            row_m[j] = cell;
+    // with dmin over the extended in-bounds cells and the Ak cell
+    int r1[2] = {kBig, kBig};  // dmin, -cell at Ak
+    if (ex_ms) {
+      for (int j = jlo + tid; j <= jhi; j += kThreads) {
+        int cell = row_m[j];
+        const int k = k0 + j;
+        if (cell > 0) {
+          const int h0 = cell >> 3, v0 = h0 - k;
+          if (v0 > 0 && v0 < ql && h0 < tl) {
+            const int n = lcp(q + v0, t + h0, min(ql - v0, tl - h0));
+            if (n > 0) {
+              cell += n << 3;
+              row_m[j] = cell;
+            }
           }
+          const int hs = cell >> 3, vs = hs - k;
+          if (vs >= 0 && vs < ql && hs < tl)
+            r1[0] = min(r1[0], max(tl - hs, ql - vs));
         }
+        if (j == jak) r1[1] = -cell;
       }
-      if (j == jak) sh_cell_ak = cell;
     }
-    __syncthreads();
+    block_min(r1, red_ext);
+    stamp(kPhExtend);
 
     // ---------------- termination (wfa.go:235-239) ----------------
-    const int cell_ak = sh_cell_ak;
+    const int cell_ak = r1[1] < kBig ? -r1[1] : 0;
     if (ex_ms && Ak >= lo_ms && Ak <= hi_ms && cell_ak > 0 &&
         (cell_ak >> 3) >= tl) {
+      stamp(kPhTerm);
       done = true;
       final_s = s;
       term_cell = cell_ak;
@@ -592,127 +783,211 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
       // and streamed unreduced.  A row that does not fit overflows the
       // pair; K1-long reports it not done, K1-kw keeps done, final_s and
       // term_cell as the TPU kernel keeps them (see the header)
-      if (REBASE && !flush(s)) {
-        overflow = true;
-        if (!KWIN) {
-          done = false;
-          final_s = term_cell = 0;
+      if constexpr (REBASE) {
+        int rf[2] = {kBig, kBig};  // min offset0, -max offset0
+        const int32_t* st = stage + (int64_t)(s & 1) * 3 * K;
+        for (int j = tid; j < K; j += kThreads) {
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            const int cell = st[c * K + j];
+            if (cell > 0) {
+              rf[0] = min(rf[0], cell >> 3);
+              rf[1] = min(rf[1], -(cell >> 3));
+            }
+          }
+        }
+        block_min(rf, red_fl);
+        const FlushPlan p = plan_flush(rf, bex, blo, bhi);
+        flush_row(s, p);
+        if (!p.fits) {
+          overflow = true;
+          if (!KWIN) {
+            done = false;
+            final_s = term_cell = 0;
+          }
         }
       }
+      stamp(kPhFlush);
       break;
     }
+    stamp(kPhTerm);
 
     // ---------------- reduce (wfa.go:461-540) ----------------
-    if (reduce_on && ex_ms && hi_ms - lo_ms + 1 >= min_wf_len) {
-      // dmin over the in-bounds cells
-      int r1[1] = {kBig};
-      for (int j = tid; j < K; j += kThreads) {
-        int cell = row_m[j], k = k0 + j;
-        int hs = cell >> 3, vs = hs - k;
-        if (cell > 0 && k >= lo_ms && k <= hi_ms && vs >= 0 && vs < ql &&
-            hs < tl)
-          r1[0] = min(r1[0], max(tl - hs, ql - vs));
-      }
-      block_min(r1, red);
+    const bool reducing =
+        reduce_on && ex_ms && hi_ms - lo_ms + 1 >= min_wf_len;
+    // the post-reduce bands of score s (M, I, D) and the ranges the
+    // co-deletion zeroes in I and D
+    bool pex[3] = {bex[0], bex[1], bex[2]};
+    int plo[3] = {blo[0], blo[1], blo[2]}, phi[3] = {bhi[0], bhi[1], bhi[2]};
+    int z[2][4];
+    if (reducing) {
+      // classify the band: a marked cell lags dmin by more than
+      // max_dist_diff; one ballot word of good and of marked cells per 32
+      // columns
       const int dmin = r1[0];
-      // marked cells lag dmin by more than max_dist_diff
-      auto classify = [&](int j, bool& marked, bool& good) {
-        int cell = row_m[j], k = k0 + j;
-        int hs = cell >> 3, vs = hs - k;
-        bool okd = cell > 0 && k >= lo_ms && k <= hi_ms && vs >= 0 &&
-                   vs < ql && hs < tl;
-        int dist = max(tl - hs, ql - vs);
-        marked = okd && dist - dmin > max_dist_diff;
-        good = okd && !marked;
-      };
-      int r3[3] = {kBig, kBig, kBig};  // first_good, -last_good, -any_marked
-      for (int j = tid; j < K; j += kThreads) {
-        bool marked, good;
-        classify(j, marked, good);
-        if (good) {
-          r3[0] = min(r3[0], j);
-          r3[1] = min(r3[1], -j);
+      uint32_t* mk_good = mk;
+      uint32_t* mk_mark = mk + KWd;
+      // (word w holds columns jlo + 32 w ..)
+      const int nw = (jhi - jlo) >> 5;
+      for (int w = warp; w <= nw; w += kWarps) {
+        const int j = jlo + w * 32 + lane, k = k0 + j;
+        bool marked = false, good = false;
+        if (j <= jhi) {
+          const int cell = row_m[j], hs = cell >> 3, vs = hs - k;
+          const bool okd = cell > 0 && vs >= 0 && vs < ql && hs < tl;
+          marked = okd && max(tl - hs, ql - vs) - dmin > max_dist_diff;
+          good = okd && !marked;
         }
-        if (marked) r3[2] = -1;
-      }
-      block_min(r3, red);
-      const int first_good = r3[0];
-      const int last_good = r3[1] == kBig ? -kBig : -r3[1];
-      const bool any_good = first_good < kBig, any_marked = r3[2] == -1;
-      int r4[1] = {kBig};  // -last_mark below first_good
-      for (int j = tid; j < K && j < first_good; j += kThreads) {
-        bool marked, good;
-        classify(j, marked, good);
-        if (marked) r4[0] = min(r4[0], -j);
-      }
-      block_min(r4, red);
-      const int new_lo = r4[0] < kBig ? k0 - r4[0] + 1 : lo_ms;
-      const int new_hi = (any_marked && any_good) ? k0 + last_good : hi_ms;
-
-      // co-deletion from I and D (wfa.go:526-535): two ascending Delete
-      // sweeps, [lo, new_lo) then (new_hi, hi]
-      int nlo[2], nhi[2], z[2][4];
-      bool gate[2];
-      Band cb[2] = {ib, db};
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        gate[c] = cb[c].ex[se] != 0;
-        int l1, h1;
-        delete_range_asc(lo_ms, new_lo - 1, cb[c].lo[se], cb[c].hi[se], l1,
-                         h1, z[c][0], z[c][1]);
-        delete_range_asc(new_hi + 1, hi_ms, l1, h1, nlo[c], nhi[c], z[c][2],
-                         z[c][3]);
-      }
-      Dst* aux_m = aux_dst(0, s);
-      for (int j = tid; j < K; j += kThreads) {
-        int k = k0 + j;
-        int cell = row_m[j];
-        if (cell > 0 && k >= lo_ms && k <= hi_ms && (k < new_lo || k > new_hi)) {
-          row_m[j] = 0;
-          aux_m[j] = 0;  // aux mirrors cell existence
-        }
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          if (gate[c] && ((k >= z[c][0] && k <= z[c][1]) ||
-                          (k >= z[c][2] && k <= z[c][3]))) {
-            (c == 0 ? Iw : Dw)[(int64_t)se * K + j] = 0;
-            aux_dst(1 + c, s)[j] = 0;
-          }
-        }
-      }
-      __syncthreads();  // every thread has read the band slots
-      if (tid == 0) {
-        mb.lo[sm] = new_lo;
-        mb.hi[sm] = new_hi;
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          if (gate[c]) {
-            cb[c].lo[se] = nlo[c];
-            cb[c].hi[se] = nhi[c];
-          }
+        const uint32_t g = __ballot_sync(0xffffffffu, good);
+        const uint32_t m = __ballot_sync(0xffffffffu, marked);
+        if (lane == 0) {
+          mk_good[w] = g;
+          mk_mark[w] = m;
         }
       }
       __syncthreads();
+      // first_good, last_good, any_marked, and the last mark below
+      // first_good
+      // (every warp alike, 32 words at once)
+      int first_good = kBig, last_good = -kBig, last_mark = -1;
+      bool any_marked = false;
+      for (int base = 0; base <= nw; base += 32) {
+        const int w = base + lane;
+        const uint32_t g = w <= nw ? mk_good[w] : 0u;
+        const uint32_t m = w <= nw ? mk_mark[w] : 0u;
+        any_marked |= __any_sync(0xffffffffu, m != 0);
+        const uint32_t gz = __ballot_sync(0xffffffffu, g != 0);
+        if (first_good == kBig) {
+          // marks below the first good cell: in the words before its
+          // word, and below its bit in its word
+          const int fl = gz ? __ffs(gz) - 1 : 32;
+          const int gb = g ? __ffs(g) - 1 : 0;  // lane fl's first good bit
+          const uint32_t below =
+              lane < fl ? m : (lane == fl ? m & ((1u << gb) - 1) : 0u);
+          const uint32_t bz = __ballot_sync(0xffffffffu, below != 0);
+          if (bz) {
+            const int ll = 31 - __clz(bz);
+            last_mark = jlo + (base + ll) * 32 + 31 -
+                        __clz(__shfl_sync(0xffffffffu, below, ll));
+          }
+          if (gz)
+            first_good = jlo + (base + fl) * 32 +
+                         __ffs(__shfl_sync(0xffffffffu, g, fl)) - 1;
+        }
+        if (gz) {
+          const int ll = 31 - __clz(gz);
+          last_good = jlo + (base + ll) * 32 + 31 -
+                      __clz(__shfl_sync(0xffffffffu, g, ll));
+        }
+      }
+      const int new_lo = last_mark >= 0 ? k0 + last_mark + 1 : lo_ms;
+      const int new_hi =
+          (any_marked && first_good < kBig) ? k0 + last_good : hi_ms;
+      plo[0] = new_lo;
+      phi[0] = new_hi;
+      // co-deletion from I and D (wfa.go:526-535): two ascending Delete
+      // sweeps, [lo, new_lo) then (new_hi, hi]
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        int l1, h1;
+        delete_range_asc(lo_ms, new_lo - 1, blo[1 + c], bhi[1 + c], l1, h1,
+                         z[c][0], z[c][1]);
+        delete_range_asc(new_hi + 1, hi_ms, l1, h1, plo[1 + c], phi[1 + c],
+                         z[c][2], z[c][3]);
+      }
+      // every thread has read the band slots of score s before this step
+      // (bex/blo/bhi); next() reads them after the zero pass's barrier
+      if (tid == 0) {
+        mb.lo[sm] = new_lo;
+        mb.hi[sm] = new_hi;
+        if (bex[1]) ib.lo[se] = plo[1], ib.hi[se] = phi[1];
+        if (bex[2]) db.lo[se] = plo[2], db.hi[se] = phi[2];
+      }
     }
 
-    if (!GLOBAL && !end_found) find_end(s, row_m);
-    // row s is final: stream it rebased
-    if (REBASE && !flush(s)) {
-      overflow = true;
-      break;
+    // ---- the zero pass, and the value range of the staged row s (REBASE)
+    int rf[2] = {kBig, kBig};  // min offset0, -max offset0
+    if (reducing || REBASE) {
+      // the union of the bands of score s holds every cell to zero and
+      // every staged cell
+      int ulo = kBig, uhi = -kBig;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        if (bex[c]) {
+          ulo = min(ulo, blo[c]);
+          uhi = max(uhi, bhi[c]);
+        }
+      }
+      const int u0 = max(ulo - k0, 0), u1 = min(uhi - k0, K - 1);
+      Dst* aux_m = aux_dst(0, s);
+      int32_t* row_i = Iw + (int64_t)se * K;
+      int32_t* row_d = Dw + (int64_t)se * K;
+      const int32_t* st = stage + (int64_t)(s & 1) * 3 * K;
+      for (int j = u0 + tid; j <= u1; j += kThreads) {
+        const int k = k0 + j;
+        if (reducing) {
+          // (an absent cell's aux is zero already: aux mirrors cell
+          // existence)
+          if (k >= lo_ms && k <= hi_ms && (k < plo[0] || k > phi[0])) {
+            row_m[j] = 0;
+            aux_m[j] = 0;
+          }
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            if (bex[1 + c] && ((k >= z[c][0] && k <= z[c][1]) ||
+                               (k >= z[c][2] && k <= z[c][3]))) {
+              (c == 0 ? row_i : row_d)[j] = 0;
+              aux_dst(1 + c, s)[j] = 0;
+            }
+          }
+        }
+        if constexpr (REBASE) {
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            const int cell = st[c * K + j];
+            if (cell > 0) {
+              rf[0] = min(rf[0], cell >> 3);
+              rf[1] = min(rf[1], -(cell >> 3));
+            }
+          }
+        }
+      }
+      if constexpr (REBASE) {
+        block_min(rf, red_fl);
+      } else {
+        __syncthreads();
+      }
     }
+    stamp(kPhReduce);
+
+    if (!GLOBAL && !end_found) find_end(s, row_m);
+    // row s is final: its flush rides next()'s pass; a row that does not
+    // fit overflows the pair
+    FlushPlan fp{0, 0, true};
+    if constexpr (REBASE) {
+      fp = plan_flush(rf, pex, plo, phi);
+      if (!fp.fits) {
+        overflow = true;
+        break;
+      }
+    }
+    stamp(kPhFlush);
 
     // ---------------- next (wfa.go:549-700) ----------------
     const int s2 = s + 1;
+    const int s2m = sm + 1 == WM ? 0 : sm + 1, s2e = se + 1 == WE ? 0 : se + 1;
+    // (s2 - d) mod W from s2's slot r, for 0 < d < W
+    auto back = [](int r, int d, int W) { return r >= d ? r - d : r - d + W; };
     // KRange of each source with the reference's (0, 0) fallback
     // (wfa_component.go:91); a zero penalty step reads the row being
     // written, which does not exist yet
-    const bool p_x = x >= 1 && x <= s2 && mb.ex[(s2 - x) % WM];
-    const bool p_o = oe >= 1 && oe <= s2 && mb.ex[(s2 - oe) % WM];
-    const bool p_i = e >= 1 && e <= s2 && ib.ex[(s2 - e) % WE];
-    const bool p_d = e >= 1 && e <= s2 && db.ex[(s2 - e) % WE];
-    const int sx = p_x ? (s2 - x) % WM : 0, so = p_o ? (s2 - oe) % WM : 0;
-    const int sie = p_i ? (s2 - e) % WE : 0, sde = p_d ? (s2 - e) % WE : 0;
+    const int sx = x >= 1 ? back(s2m, x, WM) : 0;
+    const int so = oe >= 1 ? back(s2m, oe, WM) : 0;
+    const int sie = e >= 1 ? back(s2e, e, WE) : 0, sde = sie;
+    const bool p_x = x >= 1 && x <= s2 && mb.ex[sx];
+    const bool p_o = oe >= 1 && oe <= s2 && mb.ex[so];
+    const bool p_i = e >= 1 && e <= s2 && ib.ex[sie];
+    const bool p_d = e >= 1 && e <= s2 && db.ex[sde];
     const int lo_x = p_x ? mb.lo[sx] : 0, hi_x = p_x ? mb.hi[sx] : 0;
     const int lo_o = p_o ? mb.lo[so] : 0, hi_o = p_o ? mb.hi[so] : 0;
     const int lo_ie = p_i ? ib.lo[sie] : 0, hi_ie = p_i ? ib.hi[sie] : 0;
@@ -729,96 +1004,161 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
     const int32_t* mx_row = Mw + (int64_t)sx * K;
     const int32_t* ie_row = Iw + (int64_t)sie * K;
     const int32_t* de_row = Dw + (int64_t)sde * K;
-    const int s2m = s2 % WM, s2e = s2 % WE;
     const bool at_seed = x > 0 && s2 == x;  // the seed row x pre-exists
+    // its band, read before thread 0 rewrites the slot
+    const bool ex_old = at_seed && mb.ex[s2m] != 0;
+    const int lo_old = mb.lo[s2m], hi_old = mb.hi[s2m];
+    // the columns to write: the new band and the bands the overwritten
+    // rows still hold (score s2 - WM in M, s2 - WE in I and D, or the seed
+    // row x); every other cell of those rows is already zero
+    int ja = lo_n - k0, jb = hi_n - k0;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const Band& bc = c == 0 ? mb : (c == 1 ? ib : db);
+      const int sl = c ? s2e : s2m;
+      if (bc.ex[sl]) {
+        ja = min(ja, bc.lo[sl] - k0);
+        jb = max(jb, bc.hi[sl] - k0);
+      }
+    }
+    ja = max(ja, 0);
+    jb = min(jb, K - 1);
     int32_t* m_new = Mw + (int64_t)s2m * K;
     int32_t* i_new = Iw + (int64_t)s2e * K;
     int32_t* d_new = Dw + (int64_t)s2e * K;
     Dst* am_new = aux_dst(0, s2);
     Dst* ai_new = aux_dst(1, s2);
     Dst* ad_new = aux_dst(2, s2);
-    // band reductions: min k and -max k of the written I, D, M cells
-    int rb[6] = {kBig, kBig, kBig, kBig, kBig, kBig};
-    for (int j = tid; j < K; j += kThreads) {
-      const int k = k0 + j;
-      // insertion (wfa.go:578-608): sources at k-1
-      int v1i, v2i;
-      bool fmi = src(mo_row, p_o, mb.lo[so], mb.hi[so], k0, K, j - 1, v1i);
-      bool fii = src(ie_row, p_i, ib.lo[sie], ib.hi[sie], k0, K, j - 1, v2i);
-      // pre-invalidation snapshot: the backtrace recomputes offsets from
-      // raw stored cells without the bound invalidation (wfa.go:757-827)
-      const int isk_nb = (fmi || fii) ? max(v1i, v2i) + 1 : 0;
-      if (fmi && v1i > tl) fmi = false, v1i = 0;
-      if (fii && v2i > tl) fii = false, v2i = 0;
-      const int Isk = max(v1i, v2i) + 1;
-      const bool upd_i = fmi || fii;
-      const int tag_i = (fmi && v1i >= v2i) ? kInsOpen : kInsExt;
-      // deletion (wfa.go:612-643): sources at k+1
-      int v1d, v2d;
-      bool fmd = src(mo_row, p_o, mb.lo[so], mb.hi[so], k0, K, j + 1, v1d);
-      bool fdd = src(de_row, p_d, db.lo[sde], db.hi[sde], k0, K, j + 1, v2d);
-      const int dsk_nb = (fmd || fdd) ? max(v1d, v2d) : 0;
-      const bool any_id_nb = fmi || fii || fmd || fdd;
-      if (fmd && v1d - k > ql) fmd = false, v1d = 0;
-      if (fdd && v2d - k > ql) fdd = false, v2d = 0;
-      const int Dsk = max(v1d, v2d);
-      const bool upd_d = fmd || fdd;
-      const int tag_d = (fmd && v1d >= v2d) ? kDelOpen : kDelExt;
-      // mismatch / M with the reference tie-breaking (wfa.go:648-698)
-      int v1x;
-      bool fmx = src(mx_row, p_x, mb.lo[sx], mb.hi[sx], k0, K, j, v1x);
-      const int off_def_nb =
-          (any_id_nb || fmx) ? max(max(isk_nb, dsk_nb), v1x + 1) : 0;
-      if (fmx && (v1x > tl || v1x - k > ql)) fmx = false, v1x = 0;
-      const int Msk = max(max(upd_i ? Isk : 0, upd_d ? Dsk : 0), v1x + 1);
-      const int tag_m = (fmx && Msk == v1x + 1)
-                            ? kMismatch
-                            : ((upd_i && Msk == Isk) ? tag_i : tag_d);
-      const bool band = k >= lo_n && k <= hi_n;
-      const bool wr_i = upd_i && band, wr_d = upd_d && band;
-      const bool wr_m = (upd_i || upd_d || fmx) && band;
-      // aux: each cell's backtrace branch is selected by its own tag
-      const int aux_m_val = tag_m == kInsExt
-                                ? isk_nb
-                                : (tag_m == kDelExt ? dsk_nb : off_def_nb);
-      const int row_m_old = at_seed ? m_new[j] : 0;
-      i_new[j] = wr_i ? (Isk << 3) | tag_i : 0;
-      d_new[j] = wr_d ? (Dsk << 3) | tag_d : 0;
-      m_new[j] = wr_m ? (Msk << 3) | tag_m : row_m_old;
-      ai_new[j] = wr_i ? ((tag_i == kInsExt ? isk_nb : off_def_nb) << 3) | tag_i
-                       : 0;
-      ad_new[j] = wr_d ? ((tag_d == kDelExt ? dsk_nb : off_def_nb) << 3) | tag_d
-                       : 0;
-      am_new[j] = wr_m ? (aux_m_val << 3) | tag_m : (row_m_old & 7);
-      if (wr_i) rb[0] = min(rb[0], k), rb[1] = min(rb[1], -k);
-      if (wr_d) rb[2] = min(rb[2], k), rb[3] = min(rb[3], -k);
-      if (wr_m) rb[4] = min(rb[4], k), rb[5] = min(rb[5], -k);
-    }
-    block_min(rb, red);
-    if (tid == 0) {
-      const bool any_i = rb[0] < kBig, any_d = rb[2] < kBig;
-      const bool any_m = rb[4] < kBig;
-      ib.lo[s2e] = any_i ? rb[0] : kBig;
-      ib.hi[s2e] = any_i ? -rb[1] : -kBig;
-      ib.ex[s2e] = any_i;
-      db.lo[s2e] = any_d ? rb[2] : kBig;
-      db.hi[s2e] = any_d ? -rb[3] : -kBig;
-      db.ex[s2e] = any_d;
-      const bool ex_old = at_seed && mb.ex[s2m] != 0;
-      int lo_m = any_m ? rb[4] : kBig, hi_m = any_m ? -rb[5] : -kBig;
-      if (ex_old) {
-        lo_m = min(lo_m, mb.lo[s2m]);
-        hi_m = max(hi_m, mb.hi[s2m]);
+    uint32_t* mk_i = mk;
+    uint32_t* mk_d = mk + KWd;
+    uint32_t* mk_m = mk + 2 * KWd;
+    // columns ja..jb, a warp's 32 at a time (the ballots; word w holds
+    // columns ja + 32 w ..)
+    for (int jw = ja; jw <= jb; jw += kThreads) {
+      const int j = jw + tid, k = k0 + j;
+      bool wr_i = false, wr_d = false, wr_m = false;
+      if (j <= jb) {
+        // insertion (wfa.go:578-608): sources at k-1
+        int v1i, v2i;
+        bool fmi = src(mo_row, p_o, lo_o, hi_o, k0, K, j - 1, v1i);
+        bool fii = src(ie_row, p_i, lo_ie, hi_ie, k0, K, j - 1, v2i);
+        // pre-invalidation snapshot: the backtrace recomputes offsets from
+        // raw stored cells without the bound invalidation (wfa.go:757-827)
+        const int isk_nb = (fmi || fii) ? max(v1i, v2i) + 1 : 0;
+        if (fmi && v1i > tl) fmi = false, v1i = 0;
+        if (fii && v2i > tl) fii = false, v2i = 0;
+        const int Isk = max(v1i, v2i) + 1;
+        const bool upd_i = fmi || fii;
+        const int tag_i = (fmi && v1i >= v2i) ? kInsOpen : kInsExt;
+        // deletion (wfa.go:612-643): sources at k+1
+        int v1d, v2d;
+        bool fmd = src(mo_row, p_o, lo_o, hi_o, k0, K, j + 1, v1d);
+        bool fdd = src(de_row, p_d, lo_de, hi_de, k0, K, j + 1, v2d);
+        const int dsk_nb = (fmd || fdd) ? max(v1d, v2d) : 0;
+        const bool any_id_nb = fmi || fii || fmd || fdd;
+        if (fmd && v1d - k > ql) fmd = false, v1d = 0;
+        if (fdd && v2d - k > ql) fdd = false, v2d = 0;
+        const int Dsk = max(v1d, v2d);
+        const bool upd_d = fmd || fdd;
+        const int tag_d = (fmd && v1d >= v2d) ? kDelOpen : kDelExt;
+        // mismatch / M with the reference tie-breaking (wfa.go:648-698)
+        int v1x;
+        bool fmx = src(mx_row, p_x, lo_x, hi_x, k0, K, j, v1x);
+        const int off_def_nb =
+            (any_id_nb || fmx) ? max(max(isk_nb, dsk_nb), v1x + 1) : 0;
+        if (fmx && (v1x > tl || v1x - k > ql)) fmx = false, v1x = 0;
+        const int Msk = max(max(upd_i ? Isk : 0, upd_d ? Dsk : 0), v1x + 1);
+        const int tag_m = (fmx && Msk == v1x + 1)
+                              ? kMismatch
+                              : ((upd_i && Msk == Isk) ? tag_i : tag_d);
+        const bool band = k >= lo_n && k <= hi_n;
+        wr_i = upd_i && band;
+        wr_d = upd_d && band;
+        wr_m = (upd_i || upd_d || fmx) && band;
+        // aux: each cell's backtrace branch is selected by its own tag
+        const int aux_m_val = tag_m == kInsExt
+                                  ? isk_nb
+                                  : (tag_m == kDelExt ? dsk_nb : off_def_nb);
+        const int row_m_old = at_seed ? m_new[j] : 0;
+        i_new[j] = wr_i ? (Isk << 3) | tag_i : 0;
+        d_new[j] = wr_d ? (Dsk << 3) | tag_d : 0;
+        m_new[j] = wr_m ? (Msk << 3) | tag_m : row_m_old;
+        ai_new[j] =
+            wr_i ? ((tag_i == kInsExt ? isk_nb : off_def_nb) << 3) | tag_i : 0;
+        ad_new[j] =
+            wr_d ? ((tag_d == kDelExt ? dsk_nb : off_def_nb) << 3) | tag_d : 0;
+        am_new[j] = wr_m ? (aux_m_val << 3) | tag_m : (row_m_old & 7);
       }
-      const bool keep = any_m || ex_old;
-      mb.lo[s2m] = keep ? lo_m : kBig;
-      mb.hi[s2m] = keep ? hi_m : -kBig;
-      mb.ex[s2m] = keep;
+      const uint32_t bi = __ballot_sync(0xffffffffu, wr_i);
+      const uint32_t bd = __ballot_sync(0xffffffffu, wr_d);
+      const uint32_t bm = __ballot_sync(0xffffffffu, wr_m);
+      const int w = ((jw - ja) >> 5) + warp;
+      if (lane == 0 && w <= (jb - ja) >> 5) {
+        mk_i[w] = bi;
+        mk_d[w] = bd;
+        mk_m[w] = bm;
+      }
+    }
+    stamp(kPhNext);
+    if constexpr (REBASE) {
+      // the flush of row s, from the other staging parity, which it leaves
+      // zero for next() of step s + 1
+      flush_row(s, fp);
+      stamp(kPhFlush);
+    } else {
+      // aux rows are written whole: zero where no cell was written
+      for (int j = tid; j < K; j += kThreads) {
+        if (j < ja || j > jb) am_new[j] = ai_new[j] = ad_new[j] = 0;
+      }
+      stamp(kPhNext);
     }
     __syncthreads();
+    // the new bands: the lowest and highest written column of each plane
+    const int wl = (lo_n - k0 - ja) >> 5, wh = (hi_n - k0 - ja) >> 5;
+    int wlo[3], whi[3];  // I, D, M, as columns past ja
+    const uint32_t* const masks[3] = {mk_i, mk_d, mk_m};
+    mask_bounds3(masks, wl, wh, wlo, whi);
+    const bool any_i = wlo[0] < kBig, any_d = wlo[1] < kBig;
+    const bool any_m = wlo[2] < kBig;
+    const int kb = k0 + ja;  // the diagonal of column ja
+    bex[1] = any_i;
+    blo[1] = any_i ? kb + wlo[0] : kBig;
+    bhi[1] = any_i ? kb + whi[0] : -kBig;
+    bex[2] = any_d;
+    blo[2] = any_d ? kb + wlo[1] : kBig;
+    bhi[2] = any_d ? kb + whi[1] : -kBig;
+    int nlo_m = any_m ? kb + wlo[2] : kBig;
+    int nhi_m = any_m ? kb + whi[2] : -kBig;
+    if (ex_old) {
+      nlo_m = min(nlo_m, lo_old);
+      nhi_m = max(nhi_m, hi_old);
+    }
+    const bool keep = any_m || ex_old;
+    bex[0] = keep;
+    blo[0] = keep ? nlo_m : kBig;
+    bhi[0] = keep ? nhi_m : -kBig;
+    if (tid == 0) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const Band& bc = c == 0 ? mb : (c == 1 ? ib : db);
+        const int sl = c ? s2e : s2m;
+        bc.lo[sl] = blo[c];
+        bc.hi[sl] = bhi[c];
+        bc.ex[sl] = bex[c];
+      }
+    }
+    sm = s2m;
+    se = s2e;
+    stamp(kPhBands);
+  }
+  if constexpr (TIMED) {
+    if (tid == 0)
+      for (int i = 0; i < kPhases; ++i)
+        cycles[(int64_t)b * kPhases + i] = acc[i];
   }
 
   if constexpr (PHASE == kPrefix) {
+    __syncthreads();  // thread 0's last band slots
     // ---- the narrow window (wfa_tpu/semi2.py:182-206): the union of
     // every band slot next() can still read, plus Ak, centred in K2
     // columns and clipped to the diagonals that exist
@@ -877,29 +1217,57 @@ __global__ void __launch_bounds__(kThreads) score_loop_kernel(
   }
 }
 
-// Launch one instantiation: B blocks of kThreads, dynamic shared memory
-// for the reduction and band slots.  Over the 48 KB default (penalties
-// near 4000) the launch fails and the error is returned.
+// Launch one instantiation: B blocks of kThreads.  Dynamic shared memory
+// holds the reduction and band slots, and each pair's workspace when
+// `win` is null (kernel_engine.workspace decides by shape, under the
+// kSharedBytes a launch gets without a function attribute); a launch that
+// would need more (a workspace the caller misplaced, or band slots of
+// penalties near 4000) is refused with cudaErrorInvalidValue.  TIMED adds
+// cycles[B, kPhases].
 template <bool GLOBAL, bool REBASE, int PHASE, typename Cell,
-          bool KWIN = false>
+          bool KWIN = false, bool TIMED = false>
 int launch_loop(const uint8_t* qb, const uint8_t* tbuf, const int32_t* qlen,
                 const int32_t* tlen, const int32_t* toff, int B, int Lq,
                 int Ltb, int S, int K, int x, int oe, int e, int reduce_on,
                 int min_wf_len, int max_dist_diff, int kw, int32_t* win,
                 int32_t* out, void* aux, int32_t* aux_base, Handoff ho,
-                void* stream) {
+                void* stream, long long* cycles = nullptr) {
   const int WM = (x > oe ? x : oe) + 1, WE = e + 1;
-  const int smem = (8 * kWarps + 3 * WM + 6 * WE) * (int)sizeof(int);
+  const int64_t ints =
+      shared_ints(K, WM, WE, stage_rows<REBASE, PHASE>(), win != nullptr);
+  if (ints * (int64_t)sizeof(int) > kSharedBytes)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B > 0)
-    score_loop_kernel<GLOBAL, REBASE, PHASE, Cell, KWIN>
-        <<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+    score_loop_kernel<GLOBAL, REBASE, PHASE, Cell, KWIN, TIMED>
+        <<<B, kThreads, ints * sizeof(int),
+           static_cast<cudaStream_t>(stream)>>>(
             qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S, K, x, oe, e,
             reduce_on, min_wf_len, max_dist_diff, kw, win, out,
-            static_cast<Cell*>(aux), aux_base, ho);
+            static_cast<Cell*>(aux), aux_base, ho, cycles);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
+
+// The int32 cells of one pair's workspace in `mode` (wfa_score_loop's 0-3,
+// 4 K3, 5 K4) at window K, and in *shared whether it goes to shared memory
+// with the slots: the layout the kernel and launch_loop use, against which
+// kernel_engine.workspace is tested.  -1 for an unknown mode.
+extern "C" int wfa_workspace(int K, int x, int oe, int e, int mode,
+                             int* shared) {
+  const int WM = (x > oe ? x : oe) + 1, WE = e + 1;
+  int stage;
+  switch (mode) {
+    case 0: case 1: stage = stage_rows<false, kFull>(); break;
+    case 2: case 3: stage = stage_rows<true, kFull>(); break;
+    case 4: stage = stage_rows<false, kPrefix>(); break;
+    case 5: stage = stage_rows<false, kResume>(); break;
+    default: return -1;
+  }
+  *shared = shared_ints(K, WM, WE, stage, false) * (int64_t)sizeof(int) <=
+            kSharedBytes;
+  return static_cast<int>(workspace_ints(K, WM, WE, stage));
+}
 
 // out is int32[7, B]: final_s, done, overflow, term_cell, end_s, end_k,
 // end_cell.  mode 0: global, int32 aux; 1: semi-global, int32 aux; 2: the
@@ -907,7 +1275,9 @@ int launch_loop(const uint8_t* qb, const uint8_t* tbuf, const int32_t* qlen,
 // int32[B, S]; 3: K1-kw, global with int16 aux [3, S, B, kw] and
 // aux_base = sbase int32[S, B].  aux_base is null in modes 0 and 1, kw
 // is read in mode 3 only; a kw the TPU kernel's asserts refuse
-// (pallas_engine.py:1064-1070) returns cudaErrorInvalidValue.
+// (pallas_engine.py:1064-1070) returns cudaErrorInvalidValue.  win is
+// the int32 scratch of workspace_ints a pair, or null to keep the
+// workspace in shared memory.
 extern "C" int wfa_score_loop(const uint8_t* qb, const uint8_t* tbuf,
                               const int32_t* qlen, const int32_t* tlen,
                               const int32_t* toff, int B, int Lq, int Ltb,
@@ -938,10 +1308,38 @@ extern "C" int wfa_score_loop(const uint8_t* qb, const uint8_t* tbuf,
       min_wf_len, max_dist_diff, K, win, out, aux, nullptr, none, stream);
 }
 
+// The TIMED instantiations of modes 0 (K1) and 2 (K1-long), for the phase
+// profile only: wfa_score_loop's arguments plus cycles int64[B, kPhases]
+// (extend, termination, reduce, flush, next, bands, steps), which the caller
+// zeroes (a pair that returns before its loop writes none).
+extern "C" int wfa_score_loop_phases(const uint8_t* qb, const uint8_t* tbuf,
+                                     const int32_t* qlen,
+                                     const int32_t* tlen,
+                                     const int32_t* toff, int B, int Lq,
+                                     int Ltb, int S, int K, int x, int oe,
+                                     int e, int reduce_on, int min_wf_len,
+                                     int max_dist_diff, int mode, int kw,
+                                     int32_t* win, int32_t* out, void* aux,
+                                     int32_t* aux_base, long long* cycles,
+                                     void* stream) {
+  const Handoff none{};
+  if (mode == 2)
+    return launch_loop<true, true, kFull, int16_t, false, true>(
+        qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S, K, x, oe, e, reduce_on,
+        min_wf_len, max_dist_diff, K, win, out, aux, aux_base, none, stream,
+        cycles);
+  if (mode == 0)
+    return launch_loop<true, false, kFull, int32_t, false, true>(
+        qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S, K, x, oe, e, reduce_on,
+        min_wf_len, max_dist_diff, K, win, out, aux, nullptr, none, stream,
+        cycles);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // K3, phase 1 of the two-phase semi-global route: scores 0 .. S0 - 1 at
 // the full span Kf, aux_old[3, S0, B, Kf] (int16 cells when cell16), the
-// exports of Handoff at the narrow width K2.  win is the int32 scratch,
-// (WM + 2 WE + 3) * Kf a pair.
+// exports of Handoff at the narrow width K2.  win is the int32 scratch of
+// workspace_ints(Kf, WM, WE, 3) a pair, or null for shared memory.
 extern "C" int wfa_prefix(const uint8_t* qb, const uint8_t* tbuf,
                           const int32_t* qlen, const int32_t* tlen,
                           const int32_t* toff, int B, int Lq, int Ltb,
@@ -956,13 +1354,14 @@ extern "C" int wfa_prefix(const uint8_t* qb, const uint8_t* tbuf,
                     : &launch_loop<false, false, kPrefix, int32_t>;
   return run(qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S0 + 1, Kf, x, oe, e,
              reduce_on, min_wf_len, max_dist_diff, Kf, win, nullptr, aux_old,
-             nullptr, ho, stream);
+             nullptr, ho, stream, nullptr);
 }
 
 // K4, phase 2: resumes at S0 from the Handoff exports (width K) and runs
 // to S - 1 in the narrow window of origin -toff2; aux2[3, S - S0, B, K]
 // (int16 cells when cell16); out as wfa_score_loop's.  win is the int32
-// scratch, (WM + 2 WE) * K a pair.
+// scratch of workspace_ints(K, WM, WE, 0) a pair, or null for shared
+// memory.
 extern "C" int wfa_resume(const uint8_t* qb, const uint8_t* tbuf2,
                           const int32_t* qlen, const int32_t* tlen,
                           const int32_t* toff2, int B, int Lq, int Ltb2,
@@ -977,5 +1376,5 @@ extern "C" int wfa_resume(const uint8_t* qb, const uint8_t* tbuf2,
                     : &launch_loop<false, false, kResume, int32_t>;
   return run(qb, tbuf2, qlen, tlen, toff2, B, Lq, Ltb2, S, K, x, oe, e,
              reduce_on, min_wf_len, max_dist_diff, K, win, out, aux2, nullptr,
-             ho, stream);
+             ho, stream, nullptr);
 }

@@ -1,0 +1,273 @@
+"""Randomized check of the port's card kernels against their plain
+versions and of its results against the oracle.
+
+    python -m wfa_tpu_torch.fuzz [--seed 0] [--cases 40] [--device cuda]
+
+Not a pytest file: it needs the card (``--device cpu`` runs the plain
+versions on both sides, which checks only the harness and the oracle
+comparison).  Each case draws, from ``random.Random(seed)``:
+
+* penalties: random ones, or one of ``DEGENERATE`` (mismatch or gap
+  extension 1, gap open 0: the steps where next() reads the row the
+  reduce just zeroed);
+* global or semi-global, wf-adaptive on (max_dist_diff 20 or 50) or off;
+* an engine: global ``"auto"``, ``"long"`` or ``"auto:kw<KW>"`` at KW
+  below k_win; semi-global ``"auto"`` at the full span or
+  ``"semi2:<S0>"``;
+* k_win on either side of the score loop's shared-memory limit
+  (``kernel_engine.workspace``: the largest window whose workspace fits
+  the block's shared memory, and the next one up, or 128);
+* a batch of 4-16 pairs of 60-450 bases at 2-20% error, with an
+  identical pair, a prefix pair and, in one case of three, raw bytes
+  outside ACGT.
+
+Then it holds, at tolerance 0:
+
+1. the card's outputs against the plain versions': ``align_full2``'s byte
+   (or raw) streams, every key; for ``"semi2"`` the phase-1 exports
+   (``semi2.canonical_exports``) and the results of ``BatchAligner``;
+2. every result the card serves against the oracle, decoded at once
+   (score, CIGAR, coordinates, counts), and the served sets of card and
+   plain alike;
+3. for global cases, the results with ``WFA_EDIT_TOKENS=0`` (full token
+   streams) against those with the edit-only default.
+
+A mismatch prints one JSON line (seed, case, config, the pair and the
+first tensor or field that diverges) and the run exits 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import random
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .constants import AdaptiveReductionOption, Options, Penalties
+from .engine import (BatchAligner, EngineConfig, _pack_all, align_full2,
+                     windows)
+from .kernel_engine import workspace
+from .oracle import Aligner as OracleAligner
+
+FIELDS = ("score", "q_begin", "q_end", "t_begin", "t_end", "align_len",
+          "matches", "gaps", "gap_regions")
+# x = 1, e = 1 or o = 0: the zero-penalty steps (score_loop.cu next())
+DEGENERATE = (Penalties(1, 1, 1), Penalties(2, 0, 2), Penalties(1, 2, 2),
+              Penalties(5, 1, 1), Penalties(1, 4, 1), Penalties(4, 6, 1),
+              Penalties(2, 1, 1), Penalties(2, 3, 1))
+
+
+def limit_sides(cfg: EngineConfig, mode) -> tuple:
+    """(K, K'): the largest multiple of 128 whose workspace goes to shared
+    memory and the next one, whose workspace goes to the scratch (128
+    twice when even 128 does not fit)."""
+    k = 128
+    while workspace(dataclasses.replace(cfg, k_win=k + 128), mode)[1]:
+        k += 128
+    if not workspace(dataclasses.replace(cfg, k_win=k), mode)[1]:
+        return 128, 128
+    return k, k + 128
+
+
+def _mutate(rng: random.Random, s: bytes, err: float) -> bytes:
+    out = bytearray()
+    for ch in s:
+        r = rng.random()
+        if r < err / 3:
+            out.append(rng.choice(b"ACGT"))  # substitution
+        elif r < 2 * err / 3:
+            continue  # deletion
+        elif r < err:
+            out += bytes([ch, rng.choice(b"ACGT")])  # insertion
+        else:
+            out.append(ch)
+    return bytes(out) or b"A"
+
+
+def draw_pairs(rng: random.Random, n: int, length: int, err: float,
+               raw: bool) -> list:
+    pairs = []
+    for _ in range(n):
+        q = bytes(rng.choice(b"ACGT") for _ in range(
+            rng.randint(max(1, length // 2), length)))
+        pairs.append((q, _mutate(rng, q, err)))
+    q = pairs[0][0]
+    pairs[1] = (q, q)  # identical: one extension to the rows' end
+    pairs[2] = (q[: len(q) // 2], q)  # a prefix: a long gap at the end
+    if raw:
+        pairs[3] = (b"NNACGTX" + pairs[3][0], b"NACGTXAC" + pairs[3][1])
+    return pairs
+
+
+def draw_case(rng: random.Random) -> dict:
+    pen = (rng.choice(DEGENERATE) if rng.random() < 0.4 else
+           Penalties(rng.randint(1, 8), rng.randint(0, 8), rng.randint(1, 4)))
+    ga = rng.random() < 0.6
+    ad = (AdaptiveReductionOption(10, rng.choice((20, 50)), 1)
+          if rng.random() < 0.7 else None)
+    length = rng.randint(60, 450)
+    pairs = draw_pairs(rng, rng.randint(4, 16), length,
+                       rng.choice((0.02, 0.05, 0.1, 0.2)),
+                       rng.random() < 0.33)
+    longest = max(max(len(q), len(t)) for q, t in pairs)
+    spread = max(abs(len(q) - len(t)) for q, t in pairs)
+    worst = pen.mismatch * longest + pen.gap_open + pen.gap_ext * (spread + 1)
+    s_cap = -(-int(worst * rng.choice((0.3, 0.6, 1.0)) + 8) // 8) * 8
+    base = EngineConfig(penalties=pen, global_alignment=ga, adaptive=ad,
+                        s_cap=s_cap)
+    span = -(-(2 * longest + 2) // 128) * 128
+    if ga:
+        engine = rng.choice(("auto", "long", "kw"))
+        mode = {"auto": 0, "long": 2, "kw": 3}[engine]
+        k_win = rng.choice((128,) + limit_sides(base, mode))
+        # the windows must hold the terminal diagonal
+        while k_win < 2 * spread + 8:
+            k_win += 128
+        if engine == "kw":
+            k_win = max(k_win, 256)
+            kw = rng.choice([w for w in (128, 256, 384) if w < k_win
+                             and (k_win - w) // 32 <= 31] or [k_win - 128])
+            engine = f"auto:kw{kw}"
+    elif rng.random() < 0.5:
+        engine, k_win = "auto", span  # the full span
+    else:
+        wm, _ = windows(pen)
+        engine = f"semi2:{max(wm, rng.choice((16, 40, 64)))}"
+        k_win = min(rng.choice((256,) + limit_sides(base, "resume")), span)
+        s_cap = max(s_cap, int(engine.split(":")[1]) + 8)
+    return {"penalties": dataclasses.astuple(pen), "global": ga,
+            "adaptive": dataclasses.astuple(ad) if ad else None,
+            "engine": engine, "k_win": k_win, "s_cap": s_cap,
+            "length": length, "pairs": pairs}
+
+
+def _aligner(case: dict, device: str) -> BatchAligner:
+    ad = case["adaptive"]
+    return BatchAligner(Penalties(*case["penalties"]),
+                        Options(case["global"]),
+                        AdaptiveReductionOption(*ad) if ad else None,
+                        k_win=case["k_win"], s_cap=case["s_cap"],
+                        device=device, engine=case["engine"])
+
+
+def _result_diff(a, b):
+    """The first field (or the CIGAR) where results a and b differ."""
+    if a.cigar(False) != b.cigar(False):
+        return "cigar"
+    for f in FIELDS:
+        if getattr(a, f) != getattr(b, f):
+            return f
+    return None
+
+
+def check_case(case: dict, device: str) -> tuple:
+    """(every mismatch of one case as (what, pair index or None), the
+    pairs the card served)."""
+    bad = []
+    pairs = case["pairs"]
+    card, plain = _aligner(case, device), _aligner(case, "cpu")
+    cfg = card.cfg
+    # 1. the card's tensors against the plain versions'
+    qb, tbuf, qlen, tlen, toff, Lq, Ltb, qp, tp = _pack_all(
+        pairs, cfg.k_win, global_alignment=cfg.global_alignment)
+    ok2 = tp is not None
+    seq = torch.from_numpy(np.concatenate([qp, tp] if ok2 else [qb, tbuf],
+                                          axis=1))
+    lens = torch.from_numpy(np.stack([qlen, tlen, toff], 1).astype(np.int32))
+    if card.engine == "semi2":
+        from . import semi2 as ts
+
+        Kf = ts.prefix_span(qlen, tlen)
+        pkw = dict(cfg=dataclasses.replace(cfg, k_win=Kf), Lq=Lq, Ltb=Ltb,
+                   S0=card.s_switch, K2=cfg.k_win, packed=ok2)
+        ref = ts.canonical_exports(ts.prefix_export(seq, lens, **pkw))
+        got = ts.canonical_exports(ts.prefix_export(
+            seq.to(device), lens.to(device), **pkw))
+        bad += [(f"exports[{k}]", None) for k in ref
+                if not torch.equal(ref[k], got[k].cpu())][:1]
+    else:
+        kw = dict(cfg=cfg, B=len(pairs), Lq=Lq, Ltb=Ltb, packed=ok2,
+                  engine=card.engine)
+        ref = align_full2(seq, lens, **kw)
+        got = align_full2(seq.to(device), lens.to(device), **kw)
+        if sorted(ref) != sorted(got):
+            bad.append((f"align_full2 keys {sorted(got)}", None))
+        else:
+            bad += [(f"align_full2[{k}]", None) for k in ref
+                    if not torch.equal(ref[k], got[k].cpu())][:1]
+    # 2. served sets alike, served results equal the oracle
+    res = card.align_batch(pairs, fallback=False)
+    res_plain = plain.align_batch(pairs, fallback=False)
+    oracle = OracleAligner(cfg.penalties, Options(cfg.global_alignment),
+                           cfg.adaptive)
+    for i, (a, b) in enumerate(zip(res, res_plain)):
+        if (a is None) != (b is None):
+            bad.append(("served", i))
+        elif a is not None:
+            what = _result_diff(a, b)
+            if what:
+                bad.append((f"card vs plain: result.{what}", i))
+            else:
+                what = _result_diff(a, oracle.align(*pairs[i]))
+                if what:
+                    bad.append((f"vs the oracle: result.{what}", i))
+    # 3. full token streams give the same results as edit-only ones
+    if cfg.global_alignment:
+        before = os.environ.get("WFA_EDIT_TOKENS")
+        os.environ["WFA_EDIT_TOKENS"] = "0"
+        try:
+            full = card.align_batch(pairs, fallback=False)
+        finally:
+            if before is None:
+                del os.environ["WFA_EDIT_TOKENS"]
+            else:
+                os.environ["WFA_EDIT_TOKENS"] = before
+        for i, (a, b) in enumerate(zip(res, full)):
+            if (a is None) != (b is None):
+                bad.append(("WFA_EDIT_TOKENS=0 served", i))
+            elif a is not None and _result_diff(a, b):
+                bad.append((f"WFA_EDIT_TOKENS=0 {_result_diff(a, b)}", i))
+    served = sum(r is not None for r in res)
+    return bad, served
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cases", type=int, default=40)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args()
+    if args.device != "cpu" and not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card (or --device cpu)")
+    rng = random.Random(args.seed)
+    t0 = time.perf_counter()
+    n_bad = n_pairs = n_served = 0
+    for c in range(args.cases):
+        case = draw_case(rng)
+        bad, served = check_case(case, args.device)
+        n_pairs += len(case["pairs"])
+        n_served += served
+        desc = {k: v for k, v in case.items() if k != "pairs"}
+        print(f"case {c}: {json.dumps(desc)} {len(case['pairs'])} pairs, "
+              f"{served} served, {len(bad)} mismatches", flush=True)
+        for what, i in bad:
+            n_bad += 1
+            print(json.dumps({"seed": args.seed, "case": c, **desc,
+                              "diverges": what, "pair_index": i,
+                              "pair": (None if i is None else [
+                                  x.decode("latin-1")
+                                  for x in case["pairs"][i]])}))
+    print(f"fuzz seed {args.seed}: {args.cases} cases, {n_pairs} pairs, "
+          f"{n_served} served by the {args.device} kernels, {n_bad} "
+          f"mismatches in {time.perf_counter() - t0:.1f} s")
+    sys.exit(1 if n_bad else 0)
+
+
+if __name__ == "__main__":
+    main()

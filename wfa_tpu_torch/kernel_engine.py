@@ -32,22 +32,62 @@ from .engine import (EngineConfig, check_aux_kw, run_batch_kw_plain,
 from .semi2 import META1_COLS, prefix_export_plain
 
 
-def scratch_ints(cfg: EngineConfig, staged: bool = False) -> int:
-    """int32 cells of window scratch per pair: WM rows of M and WE rows
-    each of I and D, K diagonals wide, plus three staged aux rows (the
-    long-read and KW modes', or the prefix's aux row S0) when
-    ``staged``."""
+# shared memory a launch gets without a function attribute (the kernel's
+# kSharedBytes)
+SHARED_BYTES = 48 * 1024
+# ints of a block's shared memory ahead of the band slots (the kernel's
+# kRedInts block_min slots)
+RED_INTS = 32
+# staged aux rows of the score loop's C modes (0 global, 1 semi-global, 2
+# long-read, 3 KW) and of K3 / K4 (the kernel's stage_rows): the
+# long-read and KW modes stage the two newest rows of each plane, K3 its
+# aux row S0
+STAGE_ROWS = {0: 0, 1: 0, 2: 6, 3: 6, "prefix": 3, "resume": 0}
+# the mode argument of the C entry wfa_workspace for each key of STAGE_ROWS
+C_MODES = {0: 0, 1: 1, 2: 2, 3: 3, "prefix": 4, "resume": 5}
+
+
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def workspace(cfg: EngineConfig, mode) -> tuple:
+    """(ints, shared): the int32 cells of one pair's score-loop workspace
+    in ``mode`` (a key of ``STAGE_ROWS``): WM rows of M and WE rows each
+    of I and D, ``cfg.k_win`` diagonals wide, the staged aux rows, three
+    ballot words for every 32 columns, rounded up to a multiple of 4; and
+    whether it goes to the block's shared memory: when it fits in
+    ``SHARED_BYTES`` after the reduction slots (``RED_INTS``) and band
+    slots (3 WM + 6 WE), rounded up to a multiple of 4.  Otherwise the
+    launch passes a device scratch of ``ints`` a pair.  The choice is by
+    shape only.  The kernel's C entry ``wfa_workspace`` gives the same
+    pair from the layout the kernel uses (``tests/test_torch_cuda.py``
+    holds the two together); a launch whose shared memory would pass the
+    limit is refused."""
     wm, we = windows(cfg.penalties)
-    return (wm + 2 * we + (3 if staged else 0)) * cfg.k_win
+    K = cfg.k_win
+    ints = _round4((wm + 2 * we + STAGE_ROWS[mode]) * K
+                   + 3 * ((K + 31) // 32))
+    slots = _round4(RED_INTS + 3 * wm + 6 * we)
+    return ints, 4 * (slots + ints) <= SHARED_BYTES
 
 
-def _launch(qb, tbuf, qlen, tlen, toff, cfg: EngineConfig, Lq: int,
-            Ltb: int, mode: int, aux, aux_base, kw: int = 0):
-    """Check the inputs and launch ``wfa_score_loop`` in ``mode`` (0
-    global, 1 semi-global, 2 long-read, 3 KW with ``kw`` columns and
-    ``aux_base`` the sbase words) on the current stream; returns the out
-    rows int32[7, B]."""
-    from ._build import check_inputs, launch, stream_ptr
+def _scratch(cfg: EngineConfig, mode, B: int, dev):
+    """The launch's device scratch, or None when the workspace goes to
+    shared memory."""
+    ints, shared = workspace(cfg, mode)
+    if shared:
+        return None
+    return torch.empty((B, ints), dtype=torch.int32, device=dev)
+
+
+def loop_args(qb, tbuf, qlen, tlen, toff, cfg: EngineConfig, Lq: int,
+              Ltb: int, mode: int, aux, aux_base, kw: int = 0):
+    """Check the inputs of ``wfa_score_loop`` in ``mode`` (0 global, 1
+    semi-global, 2 long-read, 3 KW with ``kw`` columns and ``aux_base``
+    the sbase words); returns (its arguments up to the stream, the out
+    rows int32[7, B] they write)."""
+    from ._build import check_inputs
 
     B = qb.shape[0]
     p = cfg.penalties
@@ -56,17 +96,27 @@ def _launch(qb, tbuf, qlen, tlen, toff, cfg: EngineConfig, Lq: int,
     check_inputs("run_batch", dev, qb=(qb, torch.uint8, (B, Lq)),
                  tbuf=(tbuf, torch.uint8, (B, Ltb)), qlen=(qlen, i32, (B,)),
                  tlen=(tlen, i32, (B,)), toff=(toff, i32, (B,)))
-    win = torch.empty((B, scratch_ints(cfg, staged=mode >= 2)), dtype=i32,
-                      device=dev)
     out = torch.empty((7, B), dtype=i32, device=dev)
     ad = cfg.adaptive
-    launch("wfa_score_loop", qb, tbuf, qlen, tlen, toff,
-           *(ctypes.c_int(v) for v in (
-               B, Lq, Ltb, cfg.s_cap, cfg.k_win, p.mismatch,
-               p.gap_open + p.gap_ext, p.gap_ext, int(ad is not None),
-               ad.min_wf_len if ad else 0, ad.max_dist_diff if ad else 0,
-               mode, kw)),
-           win, out, aux, aux_base, stream_ptr(dev))
+    return (qb, tbuf, qlen, tlen, toff,
+            *(ctypes.c_int(v) for v in (
+                B, Lq, Ltb, cfg.s_cap, cfg.k_win, p.mismatch,
+                p.gap_open + p.gap_ext, p.gap_ext, int(ad is not None),
+                ad.min_wf_len if ad else 0, ad.max_dist_diff if ad else 0,
+                mode, kw)),
+            _scratch(cfg, mode, B, dev), out, aux, aux_base), out
+
+
+def _launch(qb, tbuf, qlen, tlen, toff, cfg: EngineConfig, Lq: int,
+            Ltb: int, mode: int, aux, aux_base, kw: int = 0):
+    """Check the inputs and launch ``wfa_score_loop`` in ``mode``
+    (:func:`loop_args`) on the current stream; returns the out rows
+    int32[7, B]."""
+    from ._build import launch, stream_ptr
+
+    args, out = loop_args(qb, tbuf, qlen, tlen, toff, cfg, Lq, Ltb, mode,
+                          aux, aux_base, kw)
+    launch("wfa_score_loop", *args, stream_ptr(qb.device))
     return out
 
 
@@ -189,8 +239,7 @@ def run_prefix(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig, Lq: int,
           "meta1": torch.empty((B, len(META1_COLS)), dtype=i32, device=dev),
           "aux_old": torch.empty((3, S0, B, Kf), device=dev,
                                  dtype=torch.int16 if cell16 else i32)}
-    win = torch.empty((B, scratch_ints(cfg, staged=True)), dtype=i32,
-                      device=dev)
+    win = _scratch(cfg, "prefix", B, dev)
     p, ad = cfg.penalties, cfg.adaptive
     launch("wfa_prefix", qb, tbuf, qlen, tlen, toff,
            *(ctypes.c_int(v) for v in (
@@ -245,7 +294,7 @@ def run_resume(qb, tbuf2, qlen, tlen, toff2, win_m, win_i, win_d, ainit,
     cell16 = semi_cell16(Ltb_full)
     aux2 = torch.empty((3, S - S0, B, K), device=dev,
                        dtype=torch.int16 if cell16 else i32)
-    win = torch.empty((B, scratch_ints(cfg)), dtype=i32, device=dev)
+    win = _scratch(cfg, "resume", B, dev)
     out = torch.empty((7, B), dtype=i32, device=dev)
     p, ad = cfg.penalties, cfg.adaptive
     launch("wfa_resume", qb, tbuf2, qlen, tlen, toff2,

@@ -17,11 +17,17 @@ wf-adaptive buckets whose full span
 passes 512 diagonals take the two-phase route (engine ``"semi2:<S0>"``,
 :mod:`wfa_tpu_torch.semi2`) on tiers 0-2 and K1-semi at the full span on
 tier 3, as ``wfa_tpu.pipeline`` routes them (pipeline.py:112-123).
+A device fault (a RuntimeError from submitting or finishing a batch)
+re-queues the chunk for the next tier, and after two faults in one call
+the rest finishes on the oracle, as ``wfa_tpu.pipeline`` does.  A kernel
+that does not build or a launch the kernel refuses
+(``_build.KernelError``) is a fault of the code and propagates.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from .cigar import AlignmentResult
@@ -31,7 +37,7 @@ from .device_backtrace import iter_capacity
 from .engine import (BatchAligner, EngineConfig, _pad_len, engine_kw,
                      semi_cell16, windows)
 from .io import bucket_pairs
-from .kernel_engine import scratch_ints
+from .kernel_engine import workspace
 from .oracle import Aligner as OracleAligner
 
 # reads longer than this keep the tier-0 window on every tier and, when
@@ -69,15 +75,17 @@ def batch_bytes_per_pair(cfg: EngineConfig, longest: int,
                          engine: str = "auto") -> int:
     """Device bytes one pair of a batch allocates on the main path: the
     aux [3, S, K] cells (K1-kw, ``cfg.aux_kw`` set: KW columns; plus
-    K1-long's row bases or K1-kw's sbase words, int32 a row) and window
-    scratch of the score loop (with the staged rows of both), the token
+    K1-long's row bases or K1-kw's sbase words, int32 a row) and the score
+    loop's workspace (with the staged rows of both), counted as device
+    scratch even where it goes to shared memory, the token
     buffers and compaction temporaries of K2 (~40 B per emission slot),
     and the sequence rows."""
     rebased = engine == "long" or cfg.aux_kw is not None
     ns = 2 * iter_capacity(cfg.s_cap, cfg.penalties) + 5
     return (aux_cell_bytes(rebased) * cfg.s_cap * (cfg.aux_kw or cfg.k_win)
             + (4 * cfg.s_cap if rebased else 0)
-            + 4 * scratch_ints(cfg, rebased) + 40 * ns
+            + 4 * workspace(cfg, 2 if rebased else 0)[0]
+            + 40 * ns
             + 4 * (2 * longest + cfg.k_win))
 
 
@@ -92,10 +100,11 @@ def semi2_bytes_per_pair(cfg: EngineConfig, Kf: int, S0: int, Ltb: int,
                          longest: int) -> int:
     """Device bytes one pair of a two-phase batch holds until K2 has run
     (``cfg`` is phase 2's: k_win the narrow window, s_cap the total cap):
-    phase 1's full-span aux ``aux_old`` (3 x S0 x Kf cells) and K3's window
-    scratch at Kf, the exports at k_win, phase 2's aux (3 x (s_cap - S0) x
-    k_win cells) and K4's scratch, K2's token buffers and compaction
-    temporaries (~40 B per emission slot), and the sequence rows (the
+    phase 1's full-span aux ``aux_old`` (3 x S0 x Kf cells) and K3's
+    workspace at Kf, the exports at k_win, phase 2's aux (3 x (s_cap - S0)
+    x k_win cells) and K4's workspace (each counted as device scratch),
+    K2's token buffers and compaction temporaries (~40 B per emission
+    slot), and the sequence rows (the
     re-placed target beside the first).  Cells are int16 when the phase-1
     buffer of Ltb columns allows (``engine.semi_cell16``), for both
     phases."""
@@ -104,9 +113,11 @@ def semi2_bytes_per_pair(cfg: EngineConfig, Kf: int, S0: int, Ltb: int,
     wm, we = windows(cfg.penalties)
     rows = wm + 2 * we
     ns = 2 * iter_capacity(S, cfg.penalties) + 5
-    return (3 * S0 * Kf * cell + 4 * (rows + 3) * Kf
+    ws_k3 = workspace(dataclasses.replace(cfg, k_win=Kf), "prefix")[0]
+    ws_k4 = workspace(cfg, "resume")[0]
+    return (3 * S0 * Kf * cell + 4 * ws_k3
             + 4 * (rows + 3) * K2 + 4 * (3 * rows + 9)
-            + 3 * (S - S0) * K2 * cell + 4 * rows * K2 + 40 * ns
+            + 3 * (S - S0) * K2 * cell + 4 * ws_k4 + 40 * ns
             + 4 * (3 * longest + K2))
 
 
@@ -124,6 +135,7 @@ class AlignmentPipeline:
         # pairs served per tier in the last align_all ("oracle": the final
         # exact fallback)
         self.served: Dict[object, int] = {}
+        self._device_errors = 0  # device faults in the current align_all
 
     def _tier_caps(self, lq: int, lt: int, tier: int, skey=None):
         """(k_win, s_cap, b_cap, engine) for a bucket class and tier
@@ -237,7 +249,14 @@ class AlignmentPipeline:
         pending = bucket_pairs(valid)
         prev_caps = {}  # bucket -> previous tier's caps
         score_seen = {}  # bucket -> max final score observed this call
+        # device faults are counted per call (wfa_tpu/pipeline.py:376-379):
+        # a faulted chunk retries on the next tier, at the same caps if the
+        # ladder has nothing wider, and after two faults the rest finishes
+        # on the oracle
+        self._device_errors = 0
         for tier in (0, 1, 2, 3):
+            if self._device_errors >= 2:
+                break
             nxt = {key: [] for key in pending}
             for key, items in pending.items():
                 if not items:
@@ -245,8 +264,9 @@ class AlignmentPipeline:
                 lq_max = max(len(p[0]) for _, p in items)
                 lt_max = max(len(p[1]) for _, p in items)
                 caps = self._tier_caps(lq_max, lt_max, tier, skey=key)
-                if prev_caps.get(key) == caps:
-                    # nothing wider on the ladder: go to the fallback
+                if prev_caps.get(key) == caps and self._device_errors == 0:
+                    # nothing wider on the ladder: go to the fallback (a
+                    # fault, by contrast, retries at the same caps)
                     nxt[key] = items
                     continue
                 prev_caps[key] = caps
@@ -257,12 +277,20 @@ class AlignmentPipeline:
                 mx = score_seen.get(key, -1)
                 # one batch ahead: the next batch's host pack and launch
                 # overlap the device work of the one being fetched
-                handle = eng.submit_batch([p for _, p in chunks[0]])
+                handle = self._submit(eng, chunks[0])
                 for ci, chunk in enumerate(chunks):
-                    nxt_handle = (eng.submit_batch([p for _, p in chunks[ci + 1]])
+                    nxt_handle = (self._submit(eng, chunks[ci + 1])
                                   if ci + 1 < len(chunks) else None)
-                    out = eng.finish_batch(handle, fallback=False)
+                    out = None
+                    if handle is not None:
+                        try:
+                            out = eng.finish_batch(handle, fallback=False)
+                        except RuntimeError as exc:
+                            self._device_fault(exc)
                     handle = nxt_handle
+                    if out is None:  # faulted, or not run after two faults
+                        nxt[key].extend(chunk)
+                        continue
                     for (idx, pair), res in zip(chunk, out):
                         if res is None:
                             nxt[key].append((idx, pair))
@@ -283,3 +311,26 @@ class AlignmentPipeline:
         self._score_memory.update(score_seen)
         self.served = served
         return results  # type: ignore[return-value]
+
+    def _submit(self, eng: BatchAligner, chunk):
+        """``eng.submit_batch`` of a chunk's pairs, or None when the device
+        faulted (a RuntimeError: an out-of-memory error, an illegal address)
+        or has faulted twice in this call.  Host errors (TypeError,
+        ValueError) and kernel errors (``KernelError``: no build, a refused
+        launch) propagate: sending them to the oracle would hide a bug."""
+        if self._device_errors >= 2:
+            return None
+        try:
+            return eng.submit_batch([p for _, p in chunk])
+        except RuntimeError as exc:
+            self._device_fault(exc)
+            return None
+
+    def _device_fault(self, exc: Exception) -> None:
+        """Count a device fault and say on stderr what follows
+        (wfa_tpu/pipeline.py:673-680)."""
+        self._device_errors += 1
+        then = ("falling back to host oracle" if self._device_errors >= 2
+                else "retrying")
+        print(f"wfa-tpu-torch: device error ({exc}); {then}",
+              file=sys.stderr)
