@@ -20,9 +20,11 @@ spaced results of each against the port's exact oracle:
   64 pairs of l=10000 (bench.py's two rows, bench.py:183-189), e=0.05,
   4/6/2, 10/50/1.  K3 (phase 1), K4 (phase 2) and K2 over both aux
   tensors are checked on the very batches each path gives them (its first
-  batch at each (Kf, S0, k_win, s_cap) it runs); K3 also at Penalties(4,
-  6, 1), the penalties only the TPU's whole-K prefix kernel takes, on 256
-  pairs of l=1000, with a 64-pair two-phase run there against the oracle;
+  batch at each (Kf, S0, k_win, s_cap) it runs), and K3 keeps a record at
+  each path's shape (Kf 2048 and 20,096); K3 also at Penalties(4,
+  6, 1), the penalties only the TPU's whole-K prefix kernel takes: a
+  two-phase run of 256 pairs of l=1000 against the oracle, and K3, K4 and
+  K2 checked on the batch that run gave them;
   then one A/B of the two-phase route against K1-semi at the full span on
   1024 pairs of l=1000, in turns;
 * global reads just past int16 offsets: 4096 pairs of l=4000, e=0.05,
@@ -36,9 +38,9 @@ spaced results of each against the port's exact oracle:
   both checked on those same 64 pairs, the path's one batch (the plain
   K1-long takes ~100 s a call, ~6 ms for each of ~14,600 scores); all 64
   results checked against the oracle;
-* then the per-phase cycle split of a score step of K1 and K1-long on the
-  global l=1000 and l=50000 paths' first batches (the timed instantiation
-  of ``wfa_tpu_torch.profiling --phases``), one line each.
+* then the per-phase cycle split of a score step of K1, K1-long, K1-kw
+  and K3 (Kf 2048 and 20,096) on their paths' first batches (the timed
+  instantiations of ``wfa_tpu_torch.profiling --phases``), one line each.
 
 The semi-global l=1000 path checks 256 results, the l=10000 and the long
 paths all 64, the others 512; the oracle runs in a pool of one process
@@ -284,12 +286,13 @@ def phase_build() -> None:
 
 
 def phase_steps(card: str) -> None:
-    """The score loop's per-phase cycle split of K1 and K1-long on their
-    paths' first batches (``profiling.phase_split``: the timed
-    instantiation, which no path runs), one JSON line each."""
-    from wfa_tpu_torch.profiling import PHASE_BATCHES, phase_split
+    """The score loop's per-phase cycle split of K1, K1-long, K1-kw and K3
+    on their paths' first batches (``profiling.phase_split``: the timed
+    instantiations, which no path runs), one JSON line each."""
+    from wfa_tpu_torch.profiling import (PHASE_BATCHES, SEMI2_BATCHES,
+                                         phase_split)
 
-    for name in PHASE_BATCHES:
+    for name in (*PHASE_BATCHES, *SEMI2_BATCHES):
         print(f"phases {name} on {card}: {json.dumps(phase_split(name))}",
               flush=True)
 
@@ -814,22 +817,23 @@ def merge(recs, new) -> None:
         rec["max_abs_err"] = max(rec["max_abs_err"], n["max_abs_err"])
 
 
-def check_own_batches(seen, length: int, reps: int, recs, k1_recs):
+def check_own_batches(seen, length: int, reps: int, recs, k1_recs,
+                      pen=None, tag: str = ""):
     """The two-phase route's kernels on each batch a path gave them (its
     first at each engine key), and K1-semi and K2 on the batches of its
-    full-span last tier; the first batch's times stay in ``recs`` (K3, K4,
-    K2) unless it is already filled."""
+    full-span last tier, at ``pen`` (default 4/6/2); the first batch's
+    times stay in ``recs`` (K3, K4, K2) unless it is already filled."""
     import torch
     from wfa_tpu_torch import AdaptiveReductionOption, Penalties
     from wfa_tpu_torch.engine import EngineConfig, _pack_all, inputs_from_packed
 
-    pen = Penalties(4, 6, 2)
+    pen = pen or Penalties(4, 6, 2)
     for key, pairs in seen.items():
         if key[0] == "semi2":
             _, Kf, S0, k_win, s_cap = key
             new = phase_semi2(pairs, pen, S0, k_win, s_cap, reps,
-                              f"l={length} Kf {Kf} S0 {S0} ({len(pairs)} "
-                              f"pairs, s_cap {s_cap})")
+                              f"{tag}l={length} Kf {Kf} S0 {S0} "
+                              f"({len(pairs)} pairs, s_cap {s_cap})")
             if not recs:
                 recs.extend(new)
             else:
@@ -848,10 +852,13 @@ def check_own_batches(seen, length: int, reps: int, recs, k1_recs):
 
 
 def phase_bwa(reps: int, recs, card: str):
-    """K3, K4 and K2 at Penalties(4, 6, 1) (x, e or o+e below 2: the
-    TPU's whole-K EXPORT kernel, pallas_engine.py:1259) on 256 pairs of
-    l=1000, then a 64-pair two-phase run at those penalties against the
-    oracle, its launch counts read around it.  Returns K3's record there."""
+    """The two-phase route at Penalties(4, 6, 1) (x, e or o+e below 2:
+    the TPU's whole-K EXPORT kernel, pallas_engine.py:1259) on 256 pairs
+    of l=1000 against the oracle, its launch counts read around the timed
+    call; then K3, K4 and K2 against their plain versions on the batch
+    that run gave them, so that K3's record (its check, time, bound and
+    launches) holds the one launch plan the run took.  Returns K3's
+    record."""
     import torch
     from wfa_tpu_torch import (AdaptiveReductionOption, OracleAligner,
                                Options, Penalties)
@@ -860,27 +867,30 @@ def phase_bwa(reps: int, recs, card: str):
 
     pen, ad = Penalties(4, 6, 1), AdaptiveReductionOption(10, 50, 1)
     pairs = generate_pairs(N_BWA, 1000, 0.05, seed=42)
-    rec3, rec4, rec2 = phase_semi2(pairs, pen, 64, 256, 640, reps,
-                                   "4/6/1 l=1000")
-    merge(recs[1:], (rec4, rec2))
-    rec3.update(name="score_loop_prefix_4_6_1",
-                replaces="wfa_tpu/pallas_engine.py:1259")
     eng = BatchAligner(pen, Options(False), ad, k_win=256, s_cap=640,
                        engine="semi2:64", device=DEVICE)
-    run = pairs[:64]
-    eng.align_batch(run, fallback=False)  # warm
-    reset_counters()
-    res = eng.align_batch(run, fallback=False)
-    torch.cuda.synchronize()
-    launches = read_counters()
-    rec3["launches"] = launches["score_loop_prefix"]["prefix"]
+    with record_batches() as seen:
+        eng.align_batch(pairs, fallback=False)  # warm
+        reset_counters()
+        res = eng.align_batch(pairs, fallback=False)
+        torch.cuda.synchronize()
+        launches = read_counters()
+    k3_launches = launches["score_loop_prefix"]["prefix"]
     served = [i for i, r in enumerate(res) if r is not None]
-    print(f"4/6/1 l=1000 two-phase: {len(served)} of {len(run)} pairs served "
-          f"at tier-0 caps on {card}; launches {launches}")
-    if len(served) < len(run) // 2 or rec3["launches"] <= 0:
+    print(f"4/6/1 l=1000 two-phase: {len(served)} of {len(pairs)} pairs "
+          f"served at tier-0 caps on {card}; launches {launches}; batches "
+          f"{[(key, len(p)) for key, p in seen.items()]}")
+    if len(served) < len(pairs) // 2 or k3_launches <= 0:
         fail("4/6/1 two-phase run served too few pairs or launched no K3")
-    oracle_check("4/6/1 l=1000 two-phase", run, res, served,
+    oracle_check("4/6/1 l=1000 two-phase", pairs, res, served,
                  OracleAligner(pen, Options(False), ad))
+    new = []
+    check_own_batches(seen, 1000, reps, new, [], pen, "4/6/1 ")
+    rec3, rec4, rec2 = new
+    merge(recs[1:], (rec4, rec2))
+    rec3.update(name="score_loop_prefix_4_6_1",
+                replaces="wfa_tpu/pallas_engine.py:1259",
+                launches=k3_launches)
     return rec3
 
 
@@ -947,9 +957,17 @@ def main() -> None:
     check_own_batches(seen, 1000, 3, semi2_recs, (rec3, rec4))
     for rec, (counter, mode) in zip(semi2_recs, need2):
         rec["launches"] = launches[counter][mode]
-    _, seen = phase_main(N_SEMI_LONG, 10000, False, BATCH, N_SEMI_LONG, card,
-                         SEMI_CHECKS, need2, SEMI2_CHECKS)
-    check_own_batches(seen, 10000, 3, semi2_recs, (rec3, rec4))
+    launches, seen = phase_main(N_SEMI_LONG, 10000, False, BATCH,
+                                N_SEMI_LONG, card, SEMI_CHECKS, need2,
+                                SEMI2_CHECKS)
+    # K3 at Kf 20,096 keeps a record of its own: its time, bound and
+    # launches at the l=10000 path's shape
+    long_recs = []
+    check_own_batches(seen, 10000, 3, long_recs, (rec3, rec4))
+    merge(semi2_recs, long_recs)
+    k3_long = long_recs[0]
+    k3_long.update(name="score_loop_prefix_l10000",
+                   launches=launches["score_loop_prefix"]["prefix"])
     rec_bwa = phase_bwa(3, semi2_recs, card)
     phase_ab(card)
     # reads just past int16 offsets: the path, then K1-kw and K2 over its
@@ -981,8 +999,8 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     k3, k4, k2d = semi2_recs
-    recs = [rec1, rec3, rec7, rec5, k3, rec_bwa, k4, rec2, rec4, rec8, rec6,
-            k2d]
+    recs = [rec1, rec3, rec7, rec5, k3, k3_long, rec_bwa, k4, rec2, rec4,
+            rec8, rec6, k2d]
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in recs]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

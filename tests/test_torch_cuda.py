@@ -187,7 +187,9 @@ def test_workspace_matches_the_kernel(card):
 
     from wfa_tpu_torch import _build
     from wfa_tpu_torch import engine as te
-    from wfa_tpu_torch.kernel_engine import C_MODES, loop_args, workspace
+    from wfa_tpu_torch.kernel_engine import (C_MODES, PREFIX_SHAPES,
+                                             SHARED_OPTIN, loop_args,
+                                             prefix_plan, workspace)
 
     lib = _build.library()
     shared = ctypes.c_int(-1)
@@ -201,7 +203,34 @@ def test_workspace_matches_the_kernel(card):
                     cmode, ctypes.byref(shared))
                 assert workspace(cfg, mode) == (ints, bool(shared.value)), (
                     pen, k, mode)
-    assert lib.wfa_workspace(128, 4, 8, 2, 6, ctypes.byref(shared)) == -1
+    assert lib.wfa_workspace(128, 4, 8, 2, 7, ctypes.byref(shared)) == -1
+    # K3's launch plan: its shared memory at every width and place, and
+    # the launches the kernel refuses (-1): a place that does not fit, a
+    # width not built
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for pen in (Penalties(4, 6, 2), Penalties(4, 6, 1), Penalties(9, 13, 5)):
+        for k in (512, 2048, 3072, 3200, 6272, 6400, 20096):
+            cfg = te.EngineConfig(penalties=pen, k_win=k)
+            args = (k, pen.mismatch, pen.gap_open + pen.gap_ext, pen.gap_ext)
+            for cell16 in (False, True):
+                for t, cl in PREFIX_SHAPES:
+                    for scratch in (True, False):
+                        plan = prefix_plan(cfg, 64, cell16, sms, t, scratch,
+                                           cl)
+                        # the slots grow with the block's warps, so the
+                        # workspace fits shared memory by shape
+                        ok = scratch or (cl == 1 and plan.shared_bytes
+                                         <= SHARED_OPTIN)
+                        assert lib.wfa_prefix_shared(
+                            *args, cell16, t, cl, scratch) == (
+                                plan.shared_bytes if ok else -1)
+                for B in (64, 256, 2048):
+                    plan = prefix_plan(cfg, B, cell16, sms)
+                    assert plan.shared_bytes == lib.wfa_prefix_shared(
+                        *args, cell16, plan.threads, plan.cluster,
+                        plan.scratch)
+                for t, cl in ((64, 1), (128, 1), (512, 2), (1024, 4)):
+                    assert lib.wfa_prefix_shared(*args, cell16, t, cl, 1) == -1
     # a null scratch where the workspace does not fit: refused, and the
     # context stays usable
     cfg = te.EngineConfig(penalties=Penalties(4, 6, 2), adaptive=ADAPTIVE,
@@ -457,18 +486,70 @@ def _band_union(ex, b):
     return min(lo), max(hi)
 
 
-# (penalties, S0, k_win, s_cap, length, error, pairs): tier 0 and tier 1
-# of the ladder at l=1000, l=5000, and penalties whose x, e or o+e is
-# below 2 (the TPU's whole-K EXPORT kernel, row 6 of PERF.md's table).
-# "edge" sizes phase 2's window to the suffix pair's band union, so its
-# band starts at the window's left edge.
+def _at_span(pairs, Kf, seed):
+    """``pairs`` with the first one's target cut or grown (random bases)
+    so that its query and target lengths sum to Kf - 1: the batch's full
+    span is then Kf (``semi2.prefix_span``) if no other pair is longer."""
+    q, t = pairs[0]
+    rng = np.random.default_rng(seed)
+    need = Kf - 1 - len(q)
+    extra = np.frombuffer(b"ACGT", np.uint8)[
+        rng.integers(0, 4, max(0, need - len(t)))].tobytes()
+    return [(q, (t + extra)[:need])] + list(pairs[1:])
+
+
+# (penalties, S0, k_win, s_cap, parts): the batch is the (pairs, length,
+# error) parts in order, pairs (m, a) meaning int(m x the card's SMs) + a;
+# tier 0 and tier 1 of the ladder at l=1000, l=5000 and l=10000 (Kf
+# 20,096), and penalties whose x, e or o+e is below 2 (the TPU's whole-K
+# EXPORT kernel, row 6 of PERF.md's table).  "edge" sizes phase 2's
+# window to the suffix pair's band union, so its band starts at the
+# window's left edge.  "overflow2" holds pairs still wider than K2 at S0,
+# "done_in_prefix" pairs that finish inside the prefix, both beside live
+# ones.  The "shared_*" and "scratch_*" cases sit on either side of each
+# threshold of K3's block shape (kernel_engine.prefix_block_shape: in
+# shared memory 512 threads up to a pair an SM, else 256; in the scratch a
+# cluster of two 1024-thread blocks up to half a pair an SM, one block of
+# 1024 up to a pair an SM for every 2048 columns of span, else 256).
+# SPANS sets the full span of a case: for the "span_*" cases on either
+# side of where K3's plan moves its int16 workspace from shared memory to
+# the scratch (Kf 3072 and 3200 at 4/6/2), for "scratch_1024_1" and
+# "scratch_256" at 4096.
 SEMI2_CASES = {
-    "tier0_l1000": (Penalties(4, 6, 2), 64, 256, 640, 1000, 0.05, 64),
-    "tier1_l1000": (Penalties(4, 6, 2), 112, 512, 1920, 1000, 0.1, 32),
-    "tier0_l5000": (Penalties(4, 6, 2), 64, 256, 2816, 5000, 0.05, 8),
-    "penalties_4_6_1": (Penalties(4, 6, 1), 64, 256, 640, 1000, 0.05, 32),
-    "edge": (Penalties(2, 1, 1), 40, None, 256, 200, 0.2, 8),
+    "tier0_l1000": (Penalties(4, 6, 2), 64, 256, 640, ((64, 1000, 0.05),)),
+    "tier1_l1000": (Penalties(4, 6, 2), 112, 512, 1920, ((32, 1000, 0.1),)),
+    "tier0_l5000": (Penalties(4, 6, 2), 64, 256, 2816, ((8, 5000, 0.05),)),
+    "tier0_l10000": (Penalties(4, 6, 2), 64, 256, 5632,
+                     ((4, 10000, 0.05),)),
+    "penalties_4_6_1": (Penalties(4, 6, 1), 64, 256, 640,
+                        ((32, 1000, 0.05),)),
+    "edge": (Penalties(2, 1, 1), 40, None, 256, ((8, 200, 0.2),)),
+    "overflow2": (Penalties(4, 6, 2), 64, 128, 640,
+                  ((8, 1000, 0.02), (8, 1000, 0.25))),
+    "done_in_prefix": (Penalties(4, 6, 2), 64, 256, 640,
+                       ((8, 800, 0.002), (8, 800, 0.05))),
+    "shared_512": (Penalties(4, 6, 2), 64, 256, 384, (((1, 0), 600, 0.05),)),
+    "shared_256": (Penalties(4, 6, 2), 64, 256, 384, (((1, 1), 600, 0.05),)),
+    "scratch_cluster": (Penalties(4, 6, 2), 64, 256, 1280,
+                        (((0.5, 0), 2100, 0.05),)),
+    "scratch_1024": (Penalties(4, 6, 2), 64, 256, 1280,
+                     (((0.5, 1), 2100, 0.05),)),
+    "scratch_1024_1": (Penalties(4, 6, 2), 64, 256, 1280,
+                       (((2, 0), 1900, 0.05),)),
+    "scratch_256": (Penalties(4, 6, 2), 64, 256, 1280,
+                    (((2, 1), 1900, 0.05),)),
+    "span_shared": (Penalties(4, 6, 2), 64, 256, 1024, ((8, 1500, 0.05),)),
+    "span_scratch": (Penalties(4, 6, 2), 64, 256, 1024, ((8, 1500, 0.05),)),
 }
+SPANS = {"span_shared": 3072, "span_scratch": 3200, "scratch_1024_1": 4096,
+         "scratch_256": 4096}
+# ((threads, blocks a pair), the workspace in the scratch) of the plan's
+# threshold cases
+THREADS = {"shared_512": ((512, 1), False), "shared_256": ((256, 1), False),
+           "scratch_cluster": ((1024, 2), True),
+           "scratch_1024": ((1024, 1), True),
+           "scratch_1024_1": ((1024, 1), True),
+           "scratch_256": ((256, 1), True)}
 
 
 @pytest.mark.parametrize("case", list(SEMI2_CASES))
@@ -482,15 +563,29 @@ def test_semi2_kernels_match_plain(card, case):
     from wfa_tpu_torch import semi2 as ts
     from wfa_tpu_torch.device_backtrace import (device_backtrace,
                                                 device_backtrace_plain)
-    from wfa_tpu_torch.kernel_engine import run_prefix, run_resume
+    from wfa_tpu_torch.kernel_engine import prefix_plan, run_prefix, run_resume
 
-    pen, S0, k_win, s_cap, length, err, n = SEMI2_CASES[case]
-    pairs = generate_pairs(n, length, err, seed=17)
+    pen, S0, k_win, s_cap, parts = SEMI2_CASES[case]
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    pairs = [p for i, (n, length, err) in enumerate(parts)
+             for p in generate_pairs(
+                 n if isinstance(n, int) else int(n[0] * sms) + n[1],
+                 length, err, seed=17 + i)]
     if case == "edge":
-        pairs[0] = _suffix_pair(length, err, 3)
+        pairs[0] = _suffix_pair(200, 0.2, 3)
+    if case in SPANS:
+        pairs = _at_span(pairs, SPANS[case], 5)
     packed = te._pack_all(pairs, 128, global_alignment=False)
     qb, tbuf, qlen, tlen, toff, Lq, Ltb = te.inputs_from_packed(packed, card)
     Kf = ts.prefix_span(packed[2], packed[3])
+    plan = prefix_plan(te.EngineConfig(penalties=pen, k_win=Kf),
+                       len(pairs), te.semi_cell16(Ltb), sms)
+    if case in SPANS:
+        assert Kf == SPANS[case]
+    if case.startswith("span_"):
+        assert te.semi_cell16(Ltb) and plan.scratch == (case == "span_scratch")
+    if case in THREADS:
+        assert ((plan.threads, plan.cluster), plan.scratch) == THREADS[case]
     args = (qb, tbuf, qlen, tlen, toff)
     if k_win is None:
         # the suffix pair's band union at S0 (K2 = Kf holds every band)
@@ -515,6 +610,10 @@ def test_semi2_kernels_match_plain(card, case):
     m1 = ex["meta1"].cpu()
     live = (m1[:, ts.M1_DONE] == 0) & (m1[:, ts.M1_OVF] == 0)
     assert bool(live.any())
+    if case == "overflow2":
+        assert bool((m1[:, ts.M1_OVF] > 0).any())
+    if case == "done_in_prefix":
+        assert bool((m1[:, ts.M1_DONE] > 0).any())
     k02 = m1[:, ts.M1_K02].numpy()
     if case == "edge":
         # the window starts past diagonal 0, at the band's low end
@@ -547,3 +646,53 @@ def test_semi2_kernels_match_plain(card, case):
     for a, b in zip(device_backtrace_plain(*bt_args, **kw),
                     device_backtrace(*bt_args, **kw)):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+# K3's plain exports by batch, shared by the plan cases
+_PLAIN_K3 = {}
+
+
+@pytest.mark.parametrize("place", ["scratch", "shared"])
+@pytest.mark.parametrize("shape", ["256", "512", "1024", "1024x2"])
+@pytest.mark.parametrize("length", [1000, 5000], ids=["int16", "int32"])
+def test_prefix_plans_match_plain(card, length, shape, place):
+    """K3 at every launch plan it can take (each block shape it is built
+    for, threads x blocks a pair, its workspace in the device scratch or,
+    at Kf 2048 in one block a pair, in shared memory) gives the exports of
+    its plain version, at both cell types (int16 at l=1000, int32 at
+    l=5000, where it runs in the scratch only); a plan that does not fit
+    is refused."""
+    from wfa_tpu_torch import _build
+    from wfa_tpu_torch import engine as te
+    from wfa_tpu_torch import semi2 as ts
+    from wfa_tpu_torch.kernel_engine import (_prefix_launch, prefix_plan,
+                                             workspace)
+
+    pen = Penalties(4, 6, 2)
+    pairs = generate_pairs(16 if length == 1000 else 4, length, 0.05,
+                           seed=41)
+    packed = te._pack_all(pairs, 128, global_alignment=False)
+    args = te.inputs_from_packed(packed, card)
+    Kf = ts.prefix_span(packed[2], packed[3])
+    cfg = te.EngineConfig(penalties=pen, global_alignment=False,
+                          adaptive=ADAPTIVE, k_win=Kf, s_cap=640)
+    kw = dict(cfg=cfg, Lq=args[5], Ltb=args[6], S0=64, K2=256)
+    cell16 = te.semi_cell16(args[6])
+    assert cell16 == (length == 1000)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    threads, _, cl = shape.partition("x")
+    plan = prefix_plan(cfg, len(pairs), cell16, sms, int(threads),
+                       place == "scratch", int(cl or 1))
+    if place == "shared" and (plan.cluster > 1 or not workspace(
+            cfg, "prefix16" if cell16 else "prefix")[1]):
+        with pytest.raises(_build.KernelError):
+            _prefix_launch(*args[:5], **kw, plan=plan)
+        return
+    if length not in _PLAIN_K3:
+        _PLAIN_K3[length] = ts.canonical_exports(
+            ts.prefix_export_plain(*args[:5], **kw))
+    ref = _PLAIN_K3[length]
+    got = ts.canonical_exports(_prefix_launch(*args[:5], **kw, plan=plan))
+    for key in ref:
+        assert ref[key].dtype == got[key].dtype, key
+        assert torch.equal(ref[key], got[key]), key

@@ -302,6 +302,107 @@ def test_numpy_pack_matches_jax(raw, monkeypatch):
         assert np.array_equal(a, b)
 
 
+def test_prefix_launch_plan():
+    """K3's launch plan (kernel_engine.prefix_plan) at the two-phase
+    paths' shapes, Kf 2048 (l=1000, int16 cells; 2048 pairs, and 256 as
+    the smoke's 4/6/1 record) and 20,096 (l=10000, int32 cells, 64 pairs),
+    at 4/6/2 and 4/6/1 on an H100's 132 SMs: its block shape (threads,
+    cluster width), the workspace's place and the shared memory it asks
+    for, which never passes what a Hopper block may have (232,448 bytes)
+    and agrees with workspace(); the block shape by pairs an SM on either
+    side of each threshold; and over every shape, span and place, the
+    shared bytes of a plan are the slots, plus the workspace where it lies
+    in shared memory."""
+    import dataclasses
+
+    from wfa_tpu_torch.kernel_engine import (BLOCK_RESERVED, H100_SMS,
+                                             PREFIX_SHAPES,
+                                             PREFIX_SHARED_WARPS,
+                                             RED_INTS_A_WARP, SHARED_OPTIN,
+                                             SM_SHARED, every_prefix_plan,
+                                             prefix_block_shape, prefix_plan,
+                                             workspace)
+
+    assert SHARED_OPTIN == 232448 and H100_SMS == 132
+    assert {prefix_block_shape(kf, B, scratch, H100_SMS)
+            for kf in (2048, 4096, 20096) for B in (1, 66, 67, 264, 265,
+                                                    2048)
+            for scratch in (False, True)} == set(PREFIX_SHAPES)
+    base = te.EngineConfig(penalties=Penalties(4, 6, 2), k_win=2048)
+    for pen, wm, we in ((Penalties(4, 6, 2), 9, 3),
+                        (Penalties(4, 6, 1), 8, 2)):
+        # the slots: eight reduction ints for each warp of a pair, then
+        # the band slots, rounded up to 4
+        red = lambda warps: RED_INTS_A_WARP * warps + 3 * wm + 6 * we
+        slots = lambda warps: (red(warps) + 3) // 4 * 4
+        for (kf, B, cell16), (threads, scratch) in PREFIX_EXPECTED.items():
+            cfg = dataclasses.replace(base, penalties=pen, k_win=kf)
+            ints, fits = workspace(cfg, "prefix16" if cell16 else "prefix")
+            plan = prefix_plan(cfg, B, cell16, H100_SMS)
+            warps = threads[0] * threads[1] // 32
+            assert plan == (*threads[:1], 4 * (red(warps) if scratch else
+                                               slots(warps) + ints),
+                            scratch, ints, threads[1])
+            assert plan.shared_bytes <= SHARED_OPTIN
+            assert scratch or fits
+            if not scratch:  # three blocks an SM, with room to spare
+                assert 3 * (plan.shared_bytes + BLOCK_RESERVED) <= (
+                    SM_SHARED - 4096)
+        # the block shape by pairs an SM, either side of each threshold:
+        # in shared memory (int16 cells at Kf 2048), in the scratch (int32
+        # cells at Kf 4096 and 20,096: one 1024-thread block a pair while
+        # an SM gets at most a pair for every 2048 columns)
+        at = lambda kf: dataclasses.replace(base, penalties=pen, k_win=kf)
+        for cfg, cell16, shapes in (
+                (at(2048), True,
+                 ((132, (512, 1)), (133, (256, 1)), (2048, (256, 1)))),
+                (at(4096), False, ((66, (1024, 2)), (67, (1024, 1)),
+                                   (264, (1024, 1)), (265, (256, 1)))),
+                (at(20096), False, ((66, (1024, 2)), (67, (1024, 1)),
+                                    (1295, (1024, 1)), (1296, (256, 1))))):
+            for B, shape in shapes:
+                plan = prefix_plan(cfg, B, cell16, H100_SMS)
+                assert ((plan.threads, plan.cluster), plan.scratch) == (
+                    shape, not cell16)
+        for kf in range(512, 24000, 128):
+            cfg = dataclasses.replace(base, penalties=pen, k_win=kf)
+            for cell16 in (False, True):
+                ints, fits = workspace(cfg, "prefix16" if cell16 else "prefix")
+                assert fits == (4 * (slots(PREFIX_SHARED_WARPS) + ints)
+                                <= SHARED_OPTIN)
+                for t, cl in PREFIX_SHAPES:
+                    plan = prefix_plan(cfg, 64, cell16, H100_SMS, t, True,
+                                       cl)
+                    assert plan.shared_bytes == 4 * red(t * cl // 32)
+                    if fits and cl == 1:
+                        plan = prefix_plan(cfg, 64, cell16, H100_SMS, t,
+                                           False)
+                        assert plan.shared_bytes == 4 * (slots(t // 32)
+                                                         + ints)
+                for B in (64, 256, 2048):
+                    plan = prefix_plan(cfg, B, cell16, H100_SMS)
+                    assert plan.shared_bytes <= SHARED_OPTIN
+                    assert plan.scratch or fits
+                # every plan the kernel takes: each shape in the scratch,
+                # and in shared memory where its own slots let it fit
+                plans = every_prefix_plan(cfg, 64, cell16, H100_SMS)
+                assert [p for p in plans if p.scratch] == [
+                    prefix_plan(cfg, 64, cell16, H100_SMS, t, True, cl)
+                    for t, cl in PREFIX_SHAPES]
+                assert [p for p in plans if not p.scratch] == [
+                    prefix_plan(cfg, 64, cell16, H100_SMS, t, False)
+                    for t, cl in PREFIX_SHAPES
+                    if cl == 1 and 4 * (slots(t // 32) + ints)
+                    <= SHARED_OPTIN]
+
+
+# K3's plan at the two-phase paths' shapes: (Kf, pairs, int16 cells) ->
+# ((threads, blocks a pair), the workspace in the scratch)
+PREFIX_EXPECTED = {(2048, 2048, True): ((256, 1), False),
+                   (2048, 256, True): ((256, 1), False),
+                   (20096, 64, False): ((1024, 2), True)}
+
+
 def test_workspace_placement_and_size():
     """The score loop's workspace: its int32 count (the windows, the
     staged rows, three ballot words per 32 columns, rounded up to 4;
@@ -311,8 +412,8 @@ def test_workspace_placement_and_size():
     import dataclasses
 
     from wfa_tpu_torch.device_backtrace import iter_capacity
-    from wfa_tpu_torch.kernel_engine import (RED_INTS, SHARED_BYTES,
-                                             STAGE_ROWS, workspace)
+    from wfa_tpu_torch.kernel_engine import (RED_INTS_A_WARP, SHARED_BYTES,
+                                             STAGE_ROWS, WARPS, workspace)
     from wfa_tpu_torch.pipeline import batch_bytes_per_pair
 
     cfg = te.EngineConfig(penalties=Penalties(4, 6, 2), k_win=128, s_cap=640)
@@ -323,15 +424,21 @@ def test_workspace_placement_and_size():
     assert STAGE_ROWS[2] == STAGE_ROWS[3] == 6
     assert workspace(at(384), 2) == (21 * 384 + 36, True)
     assert workspace(at(256), 3) == (21 * 256 + 24, True)
-    # K3 at the full span of l=1000 stays in the scratch, K4's narrow
-    # window goes to shared memory
-    assert workspace(at(2048), "prefix") == (18 * 2048 + 192, False)
+    # K3 at the full span of l=1000 fits the 227 KB it opts in to (at
+    # l=10000 it goes to the scratch), K4's narrow window goes to shared
+    # memory
+    assert workspace(at(2048), "prefix") == (18 * 2048 + 192, True)
+    assert workspace(at(20096), "prefix") == (18 * 20096 + 1884, False)
+    # its int16 cells, the ballot words after whole 16-byte words of them
+    assert workspace(at(2048), "prefix16") == (9 * 2048 + 192, True)
+    assert workspace(at(100), "prefix16") == (
+        (18 * 100 * 2 + 15) // 16 * 4 + 12, True)
     assert workspace(at(256), "resume") == (15 * 256 + 24, True)
     # an odd width rounds up to 4 ints
     assert workspace(at(100), 0) == (15 * 100 + 12, True)
     assert workspace(at(101), 0) == (15 * 101 + 12 + 1, True)
     # the limit, with the slots: reduction, then 3 WM + 6 WE, rounded to 4
-    slots = (RED_INTS + 3 * 9 + 6 * 3 + 3) // 4 * 4
+    slots = (RED_INTS_A_WARP * WARPS + 3 * 9 + 6 * 3 + 3) // 4 * 4
     for mode, (inside, outside) in ((0, (768, 896)), (2, (512, 640)),
                                     (3, (512, 640))):
         for k, shared in ((inside, True), (outside, False)):

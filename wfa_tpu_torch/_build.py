@@ -43,14 +43,18 @@ _SIGNATURES = {
     # wfa_score_loop's, then cycles before the stream
     "wfa_score_loop_phases": [_P] * 5 + [_I] * 13 + [_P] * 6,
     # qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S0, Kf, K2, x, oe, e,
-    # reduce_on, min_wf_len, max_dist_diff, cell16, win, aux_old, win_m,
-    # win_i, win_d, ainit, b_m, b_ie, meta1, stream
-    "wfa_prefix": [_P] * 5 + [_I] * 13 + [_P] * 10,
+    # reduce_on, min_wf_len, max_dist_diff, cell16, threads, cluster, win,
+    # aux_old, win_m, win_i, win_d, ainit, b_m, b_ie, meta1, cycles, stream
+    "wfa_prefix": [_P] * 5 + [_I] * 15 + [_P] * 11,
+    # K, x, oe, e, cell16, threads, cluster, scratch: K3's dynamic shared
+    # memory
+    "wfa_prefix_shared": [_I] * 8,
     # qb, tbuf2, qlen, tlen, toff2, B, Lq, Ltb2, S, S0, K, x, oe, e,
     # reduce_on, min_wf_len, max_dist_diff, cell16, win, out, aux2, win_m,
     # win_i, win_d, ainit, b_m, b_ie, meta1, stream
     "wfa_resume": [_P] * 5 + [_I] * 13 + [_P] * 11,
-    # K, x, oe, e, mode (wfa_score_loop's 0-3, 4 K3, 5 K4), *shared
+    # K, x, oe, e, mode (wfa_score_loop's 0-3, 4 K3, 5 K4, 6 K3 int16),
+    # *shared
     "wfa_workspace": [_I] * 5 + [ctypes.POINTER(_I)],
     # aux, aux_c16, aux_base, sbase, aux_old, old_c16, s_split, Kf,
     # k0_old, start_cell, k0, start_s, start_k, qlen, tlen, active0, B, S,

@@ -125,6 +125,21 @@
 //    narrow window of origin k02 and width K2, in JAX's slot order (slot r
 //    holds the score in (S0 - W, S0] congruent to r mod W, which is where
 //    the circular windows keep it), so no gather pass follows.
+//  * K3's launch shape, which kernel_engine.prefix_plan picks by shape
+//    (PERF.md §6): its window and staged cells are its aux cells,
+//    int16 where every offset fits them (a pair's workspace at Kf 2048 is
+//    74 KB), in shared memory where two blocks fit an SM (opting in past
+//    48 KB), else in the scratch; NT threads a block, 256 to 1024 (256
+//    where pairs share an SM, more where a pair or fewer has one, so that
+//    more loads are in flight), or a thread-block cluster of CL = 2
+//    1024-thread blocks a pair over the scratch where every pair's blocks
+//    fit the card at once (64 pairs of Kf 20,096 on 128 SMs): every pass
+//    strides the pair's CL x NT threads, a block reduction writes each
+//    warp's partial to every block's slots through distributed shared
+//    memory, and every barrier is the cluster's.  Its end finder reads
+//    only the band (every semi-global mode's does), and it zeroes its
+//    workspace and the aux rows' tails outside next()'s columns with
+//    16-byte stores.
 //  * K4, the resume (PHASE = kResume): replaces pallas_engine.py::_kernel
 //    with RESUME = S0 (via pallas_run_resume, 1394-1578).  No seeding: the
 //    windows, band slots and aux row S0 come from those exports, done,
@@ -148,11 +163,16 @@
 // 14,500 x 384 x 64 pairs ~ 2.1 GB, take ~0.64 ms at 3.35 TB/s, so memory
 // is far from the limit, and a 64-pair batch fills 64 of the 132 SMs.
 // Semi-global windows are the full span (K = 2048 at l = 1000), where the
-// whole-window aux rows dominate; K3 strides the full span (Kf = 20,096
-// at l = 10000) for only S0 = 64 steps, K4 the narrow window.
+// whole-window aux rows dominate; K4 strides the narrow window.  K3 runs
+// S0 = 64 steps of which the first ~16-30 pass over the whole span (Kf =
+// 20,096 at l = 10000, 64 pairs) and the rest over a band of 3-40
+// diagonals: the wide steps' chains of scratch loads set its pace, which
+// wider blocks and clusters hide, and a batch of 64 pairs fills 64 of the
+// 132 SMs in single blocks.
 
 #include <cstdint>
 #include <type_traits>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -166,10 +186,14 @@ constexpr int kMaxRebased = 4095;  // (v << 3) | tag must fit int16
 // score-loop phases: the whole run, or phase 1 / phase 2 of the two-phase
 // semi-global route
 constexpr int kFull = 0, kPrefix = 1, kResume = 2;
-// meta1 columns (wfa_tpu/semi2.py:48-52)
 // TIMED instantiations: per-block clock64() sums of thread 0, by phase
+// (the end finder, the aux rows' zero tail, the set-up before the first
+// step and the prefix's exports after the last have their own), then the
+// steps
 constexpr int kPhExtend = 0, kPhTerm = 1, kPhReduce = 2, kPhFlush = 3,
-              kPhNext = 4, kPhBands = 5, kPhSteps = 6, kPhases = 7;
+              kPhNext = 4, kPhBands = 5, kPhEnd = 6, kPhTail = 7,
+              kPhSetup = 8, kPhExport = 9, kPhSteps = 10, kPhases = 11;
+// meta1 columns (wfa_tpu/semi2.py:48-52)
 constexpr int kM1Done = 0, kM1Fs = 1, kM1Term = 2, kM1EFound = 3, kM1Es = 4,
               kM1Ek = 5, kM1ECell = 6, kM1Ovf = 7, kM1K02 = 8, kM1Cols = 9;
 
@@ -189,28 +213,83 @@ struct Handoff {
   int K2;  // the narrow window's width
 };
 
-// Block-wide minimum of N values at once, with one barrier (a maximum
-// passes its negation; all values lie in [-kBig, kBig]).  Every thread gets
-// the results.  `red` holds N * kWarps slots; each call site has its own,
-// and every path between two calls of one site crosses another barrier, so
-// no thread still reads the slots a call writes.
-template <int N>
+// Every thread of a pair's blocks waits for all: the block's barrier, or
+// with CL blocks a pair (a thread-block cluster) the cluster's, whose
+// arrive releases and whose wait acquires every write before it, to
+// global and shared memory alike.
+template <int CL>
+__device__ __forceinline__ void pair_barrier() {
+  if constexpr (CL > 1) {
+    cooperative_groups::this_cluster().sync();
+  } else {
+    __syncthreads();
+  }
+}
+
+// Minimum of N values at once over a pair's W warps (its one block, or
+// the CL blocks of its cluster), with one barrier (a maximum passes its
+// negation; all values lie in [-kBig, kBig]).  Every thread gets the
+// results.  `red` holds N * W slots in each block; a warp's lane 0 writes
+// its slots in every block of the cluster.  Each call site has its own
+// slots, and every path between two calls of one site crosses another
+// barrier, so no thread still reads the slots a call writes.
+template <int W, int CL, int N>
 __device__ __forceinline__ void block_min(int (&v)[N], int* red) {
 #pragma unroll
   for (int i = 0; i < N; ++i) v[i] = __reduce_min_sync(0xffffffffu, v[i]);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   if (lane == 0) {
+    if constexpr (CL > 1) {
+      auto cluster = cooperative_groups::this_cluster();
+      const int warp = static_cast<int>(cluster.block_rank()) *
+                           (W / CL) + (threadIdx.x >> 5);
+      for (int r = 0; r < CL; ++r) {
+        int* dst = cluster.map_shared_rank(red, r);
 #pragma unroll
-    for (int i = 0; i < N; ++i) red[i * kWarps + warp] = v[i];
+        for (int i = 0; i < N; ++i) dst[i * W + warp] = v[i];
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i) red[i * W + (threadIdx.x >> 5)] = v[i];
+    }
   }
-  __syncthreads();
+  pair_barrier<CL>();
+  if constexpr (W <= kWarps) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    int m = red[i * kWarps];
+    for (int i = 0; i < N; ++i) {
+      int m = red[i * W];
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) m = min(m, red[i * kWarps + w]);
-    v[i] = m;
+      for (int w = 1; w < W; ++w) m = min(m, red[i * W + w]);
+      v[i] = m;
+    }
+  } else {  // lane w reads the slots of warps w, w + 32, .., and the warp
+            // reduces them
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      int m = kBig;
+#pragma unroll
+      for (int w = lane; w < W; w += 32) m = min(m, red[i * W + w]);
+      v[i] = __reduce_min_sync(0xffffffffu, m);
+    }
   }
+}
+
+// Zero the cells [a, b) of a row with 16-byte stores, the few cells before
+// the first 16-byte boundary and after the last one singly; the T threads
+// of a pair share the work, this one being thread `tid`.
+template <int T, typename C>
+__device__ __forceinline__ void zero_cells(C* row, int a, int b, int tid) {
+  static_assert(16 % sizeof(C) == 0 && 16 / sizeof(C) <= T, "cell size");
+  if (a >= b) return;
+  constexpr int V = 16 / sizeof(C);
+  const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(row + a) & 15);
+  const int head = min(b - a, ((16 - mis) & 15) / static_cast<int>(sizeof(C)));
+  if (tid < head) row[a + tid] = 0;
+  const int a16 = a + head, n16 = (b - a16) / V;
+  int4* p = reinterpret_cast<int4*>(row + a16);
+  for (int i = tid; i < n16; i += T) p[i] = make_int4(0, 0, 0, 0);
+  const int t = a16 + n16 * V;
+  if (tid < b - t) row[t + tid] = 0;
 }
 
 // The lowest and highest set bit, as column indices, of the ballot words
@@ -290,7 +369,8 @@ struct Band {
 
 // Source read of next() (KRange + GetAfterDiff, wfa_component.go:91-167):
 // the offset at window column jj of the row `row`, or 0 when absent.
-__device__ __forceinline__ bool src(const int32_t* row, bool present, int lo,
+template <typename W>
+__device__ __forceinline__ bool src(const W* row, bool present, int lo,
                                     int hi, int k0, int K, int jj, int& val) {
   val = 0;
   if (!present || jj < 0 || jj >= K) return false;
@@ -306,20 +386,28 @@ __device__ __forceinline__ bool src(const int32_t* row, bool present, int lo,
 // ballot words for every 32 columns.  In shared memory when the launch
 // passes no scratch, else in the scratch, one workspace a pair
 // (kernel_engine.workspace picks the place and counts the same ints).
-__host__ __device__ __forceinline__ int64_t workspace_ints(int K, int WM,
-                                                           int WE,
-                                                           int stage_rows) {
+// The window and staged cells are int32 (win_bytes 4), or K3's int16 cells
+// (2), whose rows then fill whole 16-byte words before the ballot words.
+__host__ __device__ __forceinline__ int64_t window_ints(int K, int rows,
+                                                        int win_bytes) {
+  const int64_t cells = (int64_t)rows * K;
+  return win_bytes == 4 ? cells : (cells * win_bytes + 15) / 16 * 4;
+}
+__host__ __device__ __forceinline__ int64_t workspace_ints(
+    int K, int WM, int WE, int stage_rows, int win_bytes = 4) {
   // a multiple of 4, so that rows of a K % 4 == 0 window start 16-byte
   // aligned in every pair's scratch
-  return ((int64_t)(WM + 2 * WE + stage_rows) * K + 3 * ((K + 31) / 32) + 3)
-         & ~int64_t(3);
+  return (window_ints(K, WM + 2 * WE + stage_rows, win_bytes) +
+          3 * ((K + 31) / 32) + 3) & ~int64_t(3);
 }
 
 // shared ints ahead of a workspace in shared memory: the block_min sites'
-// slots, then the band slots, rounded up to a multiple of 4
-constexpr int kRedInts = 8 * kWarps;
-__host__ __device__ constexpr int slot_ints(int WM, int WE) {
-  return (kRedInts + 3 * WM + 6 * WE + 3) & ~3;
+// slots (eight for each warp of a pair, which each of its blocks holds),
+// then the band slots, rounded up to a multiple of 4
+constexpr int kMaxWarps = 64;  // a cluster of two 1024-thread blocks
+__host__ __device__ constexpr int red_ints(int warps) { return 8 * warps; }
+__host__ __device__ constexpr int slot_ints(int warps, int WM, int WE) {
+  return (red_ints(warps) + 3 * WM + 6 * WE + 3) & ~3;
 }
 // staged aux rows in a pair's workspace: REBASE's two newest rows of each
 // plane (row s is flushed while next() writes row s + 1), or the prefix's
@@ -328,24 +416,41 @@ template <bool REBASE, int PHASE>
 __host__ __device__ constexpr int stage_rows() {
   return REBASE ? 6 : (PHASE == kPrefix ? 3 : 0);
 }
-// the dynamic shared memory a launch gets without a function attribute
+// the dynamic shared memory a launch gets without a function attribute;
+// K3 opts in to what a Hopper block may have (232,448 bytes)
 constexpr int64_t kSharedBytes = 48 * 1024;
-// ints of a launch's dynamic shared memory: the slots, and the workspace
-// when it is in shared memory (no scratch)
-inline int64_t shared_ints(int K, int WM, int WE, int stage, bool scratch) {
-  return scratch ? kRedInts + 3 * WM + 6 * WE
-                 : slot_ints(WM, WE) + workspace_ints(K, WM, WE, stage);
+constexpr int64_t kSharedOptIn = 227 * 1024;
+template <int PHASE>
+constexpr int64_t shared_limit() {
+  return PHASE == kPrefix ? kSharedOptIn : kSharedBytes;
 }
+// ints of a launch's dynamic shared memory at `warps` warps a pair: the
+// slots, and the workspace when it is in shared memory (no scratch)
+inline int64_t shared_ints(int warps, int K, int WM, int WE, int stage,
+                           bool scratch, int win_bytes = 4) {
+  return scratch ? red_ints(warps) + 3 * WM + 6 * WE
+                 : slot_ints(warps, WM, WE) +
+                       workspace_ints(K, WM, WE, stage, win_bytes);
+}
+// the warps whose slots decide whether K3's workspace fits shared memory
+// (wfa_workspace, kernel_engine.PREFIX_SHARED_WARPS): a 512-thread
+// block's, the widest that holds its workspace there
+constexpr int kPrefixSharedWarps = 16;
 // blocks an SM the compiler keeps registers for, in the modes whose
 // launches bring thousands of pairs and whose steps the issued
 // instructions pace: K1 and K1-kw 8 (64 registers a thread; the fastest
 // of 1, 6, 8 and of 1, 4, 6, 8), the semi-global modes 6 (of 1, 3, 4, 6),
 // timed in turns on the paths' batches (PERF.md §6); K1-long's one
 // block an SM takes what it needs
+// K3 of a wider block keeps the semi-global modes' registers a thread (as
+// many threads an SM: 3 blocks of 256), and 1 block of 512 or 1024 (a
+// block of 512 takes up to 128 registers a thread, one of 1024 64)
 constexpr int kMinBlocks = 8, kMinBlocksSemi = 6;
-template <bool GLOBAL, bool REBASE, bool KWIN>
+template <bool GLOBAL, bool REBASE, bool KWIN, int NT>
 constexpr int min_blocks() {
-  return GLOBAL ? (!REBASE || KWIN ? kMinBlocks : 1) : kMinBlocksSemi;
+  return GLOBAL ? (!REBASE || KWIN ? kMinBlocks : 1)
+                : (kMinBlocksSemi * kThreads / NT > 0
+                       ? kMinBlocksSemi * kThreads / NT : 1);
 }
 
 // Where the flush writes a row: the value base, K1-kw's window column / 32,
@@ -360,10 +465,14 @@ struct FlushPlan {
 // the int16 cells of a two-phase semi-global phase whose offsets fit them.
 // KWIN (with REBASE): K1-kw's aux rows kw columns wide, and aux_base is
 // sbase[S, B] instead of the long-read mode's aux_base[B, S].
+// NT: threads a block, CL: blocks a pair, a thread-block cluster that
+// splits each pass over the columns, its workspace in the device scratch
+// (K3 only; every other mode runs one block of kThreads).
 template <bool GLOBAL, bool REBASE, int PHASE, typename Cell,
-          bool KWIN = false, bool TIMED = false>
+          bool KWIN = false, bool TIMED = false, int NT = kThreads,
+          int CL = 1>
 __global__ void __launch_bounds__(
-    kThreads, (min_blocks<GLOBAL, REBASE, KWIN>()))
+    NT, (min_blocks<GLOBAL, REBASE, KWIN, NT>()))
     score_loop_kernel(
     const uint8_t* __restrict__ qb, const uint8_t* __restrict__ tbuf,
     const int32_t* __restrict__ qlen, const int32_t* __restrict__ tlen,
@@ -376,38 +485,79 @@ __global__ void __launch_bounds__(
   static_assert(!KWIN || REBASE, "the row window rides the rebased staging");
   static_assert(PHASE == kFull || (!GLOBAL && !REBASE),
                 "the two-phase route is semi-global");
+  static_assert(NT == kThreads || PHASE == kPrefix,
+                "only K3 runs another block width");
+  static_assert(CL == 1 || PHASE == kPrefix, "only K3 runs in clusters");
+  constexpr int PT = NT * CL;  // threads a pair
+  static_assert(NT % 32 == 0 && PT / 32 <= kMaxWarps, "block width");
+  constexpr int kW = PT / 32;  // warps a pair
   constexpr int kStageRows = stage_rows<REBASE, PHASE>();
   using Dst = std::conditional_t<REBASE, int32_t, Cell>;
+  // window cells: K3's are its aux cells (int16 where every offset fits
+  // them, which halves its workspace), every other mode's int32; staged
+  // cells: REBASE's int32 rows, K3's aux row S0 in its aux cells
+  using Win = std::conditional_t<PHASE == kPrefix, Cell, int32_t>;
+  using St = std::conditional_t<REBASE, int32_t, Cell>;
+  constexpr int kWinBytes = sizeof(Win);
   const int S0 = PHASE == kFull ? 0 : ho.S0;
   // aux rows held and the score of the first: S rows, the prefix's S0,
   // the resume's S - S0 from score S0
   const int Sa = PHASE == kFull ? S : (PHASE == kPrefix ? S0 : S - S0);
   const int s_lo = PHASE == kResume ? S0 : 0;
   const int KA = KWIN ? kw : K;  // aux columns a row
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // the pair, and this thread's index over all its blocks' threads; each
+  // block keeps its own band slots, which its first thread writes
+  const int b = blockIdx.x / CL;
+  const int rank = CL > 1 ? blockIdx.x % CL : 0;
+  const int tid = rank * NT + threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool lead = threadIdx.x == 0;
+  auto sync_pair = [] { pair_barrier<CL>(); };
   const int WM = max(x, oe) + 1, WE = e + 1;
   const int KWd = (K + 31) / 32;  // ballot words a row
   extern __shared__ int smem[];
   // one block_min site each: extend, the flush (and the seeding), the end
   // finder
   int* red_ext = smem;
-  int* red_fl = smem + 2 * kWarps;
-  int* red_fe = smem + 6 * kWarps;
-  Band mb{smem + kRedInts, smem + kRedInts + WM, smem + kRedInts + 2 * WM};
-  int* base_ie = smem + kRedInts + 3 * WM;
+  int* red_fl = smem + 2 * kW;
+  int* red_fe = smem + 6 * kW;
+  int* slots = smem + red_ints(kW);
+  Band mb{slots, slots + WM, slots + 2 * WM};
+  int* base_ie = slots + 3 * WM;
   Band ib{base_ie, base_ie + WE, base_ie + 2 * WE};
   Band db{base_ie + 3 * WE, base_ie + 4 * WE, base_ie + 5 * WE};
+
+  // TIMED: thread 0 adds the cycles since the last stamp to a phase
+  long long t_mark = 0, acc[kPhases] = {};
+  auto stamp = [&](int ph) {
+    if constexpr (TIMED) {
+      if (tid == 0) {
+        const long long now = clock64();
+        acc[ph] += now - t_mark;
+        t_mark = now;
+      }
+    }
+  };
+  if constexpr (TIMED) t_mark = clock64();
 
   const int ql = qlen[b], tl = tlen[b], tof = toff[b];
   const int k0 = -tof, Ak = tl - ql, jak = Ak - k0;
   // the workspace: the windows, the staged rows, the ballot words
-  int32_t* Mw = win ? win + b * workspace_ints(K, WM, WE, kStageRows)
-                    : smem + slot_ints(WM, WE);
-  int32_t* Iw = Mw + (int64_t)WM * K;
-  int32_t* Dw = Iw + (int64_t)WE * K;
-  int32_t* stage = Dw + (int64_t)WE * K;
-  uint32_t* mk = reinterpret_cast<uint32_t*>(stage + (int64_t)kStageRows * K);
+  int32_t* ws =
+      win ? win + b * workspace_ints(K, WM, WE, kStageRows, kWinBytes)
+          : smem + slot_ints(kW, WM, WE);
+  Win* Mw = reinterpret_cast<Win*>(ws);
+  Win* Iw = Mw + (int64_t)WM * K;
+  Win* Dw = Iw + (int64_t)WE * K;
+  St* stage = reinterpret_cast<St*>(Dw + (int64_t)WE * K);
+  // (the same address both ways for int32 cells; computed from `ws` it
+  // cost K1-long and K3's 1024-thread blocks registers, PERF.md §6)
+  uint32_t* mk;
+  if constexpr (kWinBytes == 4) {
+    mk = reinterpret_cast<uint32_t*>(stage + (int64_t)kStageRows * K);
+  } else {  // past the int16 rows' last whole 16-byte word
+    mk = reinterpret_cast<uint32_t*>(
+        ws + window_ints(K, WM + 2 * WE + kStageRows, kWinBytes));
+  }
   auto aux_row = [&](int comp, int s) {
     return aux + ((int64_t)(comp * Sa + s - s_lo) * B + b) * KA;
   };
@@ -418,8 +568,7 @@ __global__ void __launch_bounds__(
     if constexpr (REBASE) {
       return stage + (int64_t)((s & 1) * 3 + comp) * K;
     } else {
-      if (PHASE == kPrefix && s == S0)
-        return reinterpret_cast<Cell*>(stage + (int64_t)comp * K);
+      if (PHASE == kPrefix && s == S0) return stage + (int64_t)comp * K;
       return aux_row(comp, s);
     }
   };
@@ -455,7 +604,7 @@ __global__ void __launch_bounds__(
   // is left zero: a fitting row has no cell outside the columns flushed
   // (KWIN: the window holds its bands), so the parity is all zero again
   auto flush_col = [&](int s, const FlushPlan& p, int j) {
-    int32_t* st = stage + (int64_t)(s & 1) * 3 * K + p.cb * 32 + j;
+    St* st = stage + (int64_t)(s & 1) * 3 * K + p.cb * 32 + j;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       const int cell = st[c * K];
@@ -476,7 +625,7 @@ __global__ void __launch_bounds__(
   // multiples of 4 (the workspace rows and aux rows are then aligned)
   const bool vec4 = K % 4 == 0 && KA % 4 == 0;
   auto flush_col4 = [&](int s, const FlushPlan& p, int j) {
-    int32_t* st = stage + (int64_t)(s & 1) * 3 * K + p.cb * 32 + j;
+    St* st = stage + (int64_t)(s & 1) * 3 * K + p.cb * 32 + j;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       int4* src4 = reinterpret_cast<int4*>(st + c * K);
@@ -500,9 +649,9 @@ __global__ void __launch_bounds__(
   // the whole flush of row s
   auto flush_row = [&](int s, const FlushPlan& p) {
     if (vec4) {
-      for (int j = 4 * tid; j < KA; j += 4 * kThreads) flush_col4(s, p, j);
+      for (int j = 4 * tid; j < KA; j += 4 * PT) flush_col4(s, p, j);
     } else {
-      for (int j = tid; j < KA; j += kThreads) flush_col(s, p, j);
+      for (int j = tid; j < KA; j += PT) flush_col(s, p, j);
     }
   };
 
@@ -575,18 +724,18 @@ __global__ void __launch_bounds__(
   if constexpr (PHASE == kResume) {
     // ---- the phase-1 handoff: window rows, band slots, aux row S0
     for (int r = 0; r < WM; ++r)
-      for (int j = tid; j < K; j += kThreads)
+      for (int j = tid; j < K; j += PT)
         Mw[r * K + j] = ho.win_m[((int64_t)r * B + b) * K + j];
     for (int r = 0; r < WE; ++r)
-      for (int j = tid; j < K; j += kThreads) {
+      for (int j = tid; j < K; j += PT) {
         Iw[r * K + j] = ho.win_i[((int64_t)r * B + b) * K + j];
         Dw[r * K + j] = ho.win_d[((int64_t)r * B + b) * K + j];
       }
     for (int c = 0; c < 3; ++c)
-      for (int j = tid; j < K; j += kThreads)
+      for (int j = tid; j < K; j += PT)
         aux_row(c, S0)[j] =
             static_cast<Cell>(ho.ainit[((int64_t)c * B + b) * K + j]);
-    if (tid == 0) {
+    if (lead) {
       for (int r = 0; r < WM; ++r) {
         mb.lo[r] = ho.b_m[(int64_t)r * B + b];
         mb.hi[r] = ho.b_m[(int64_t)(WM + r) * B + b];
@@ -601,18 +750,23 @@ __global__ void __launch_bounds__(
           cb[c]->ex[r] = src_b[(int64_t)2 * WE * B];
         }
     }
-    __syncthreads();
+    sync_pair();
   } else {
-    for (int i = tid; i < WM * K; i += kThreads) Mw[i] = 0;
-    for (int i = tid; i < WE * K; i += kThreads) Iw[i] = Dw[i] = 0;
-    for (int i = tid; i < kStageRows * K; i += kThreads) stage[i] = 0;
-    __syncthreads();
+    if constexpr (PHASE == kPrefix) {
+      // the windows and the staged row S0 lie end to end
+      zero_cells<PT>(Mw, 0, (WM + 2 * WE + kStageRows) * K, tid);
+    } else {
+      for (int i = tid; i < WM * K; i += PT) Mw[i] = 0;
+      for (int i = tid; i < WE * K; i += PT) Iw[i] = Dw[i] = 0;
+      for (int i = tid; i < kStageRows * K; i += PT) stage[i] = 0;
+    }
+    sync_pair();
     if constexpr (GLOBAL) {
       // ---- seeding (wfa.go:143-184): one cell, diagonal 0 at offset 1
       const int j0 = -k0;
       const int cell0 = (1 << 3) | (eq00 ? kMatch : kMismatch);
       const int seed_row = (eq00 || x == 0) ? 0 : x;
-      if (tid == 0) {
+      if (lead) {
         Mw[seed_row * K + j0] = cell0;
         for (int r = 0; r < WM; ++r) {
           mb.lo[r] = r == seed_row ? 0 : kBig;
@@ -621,7 +775,7 @@ __global__ void __launch_bounds__(
         }
       }
       // aux row 0: seed cells have no sources, so their aux is the tag bits
-      for (int j = tid; j < K; j += kThreads) {
+      for (int j = tid; j < K; j += PT) {
         aux_dst(0, 0)[j] = (seed_row == 0 && j == j0) ? (cell0 & 7) : 0;
         aux_dst(1, 0)[j] = 0;
         aux_dst(2, 0)[j] = 0;
@@ -631,7 +785,7 @@ __global__ void __launch_bounds__(
       // k >= 0 at offset k+1 from q[0] == t[k], k < 0 at offset 1 from
       // q[-k] == t[0]; match seeds in row 0, mismatch seeds in row x
       int rs[4] = {kBig, kBig, kBig, kBig};  // min k, -max k of rows 0, x
-      for (int j = tid; j < K; j += kThreads) {
+      for (int j = tid; j < K; j += PT) {
         const int k = k0 + j;
         int aux0 = 0;
         if (k <= tl - 1 && k >= -(ql - 1)) {
@@ -648,7 +802,7 @@ __global__ void __launch_bounds__(
         aux_dst(1, 0)[j] = 0;
         aux_dst(2, 0)[j] = 0;
       }
-      block_min(rs, red_fl);
+      block_min<kW, CL>(rs, red_fl);
       // a mismatch seed beyond the score cap can never be reached
       if (x >= S && rs[2] < kBig) {
         overflow = true;
@@ -656,7 +810,7 @@ __global__ void __launch_bounds__(
         write_meta1(-(ql - 1), true);
         return;
       }
-      if (tid == 0) {
+      if (lead) {
         for (int r = 0; r < WM; ++r) {
           const int i = r == 0 ? 0 : (r == x ? 2 : -1);
           const bool ex = i >= 0 && rs[i] < kBig;
@@ -666,21 +820,26 @@ __global__ void __launch_bounds__(
         }
       }
     }
-    if (tid == 0) {
+    if (lead) {
       for (int r = 0; r < WE; ++r) {
         ib.lo[r] = db.lo[r] = kBig;
         ib.hi[r] = db.hi[r] = -kBig;
         ib.ex[r] = db.ex[r] = 0;
       }
     }
-    __syncthreads();
+    sync_pair();
   }  // seeding
 
   // the nearest stop cell on each side of Ak in an M row (wfa.go:270-375):
-  // the largest 2j + succ at k <= Ak and the smallest 2j + !succ above it
-  auto find_end = [&](int s, const int32_t* row) {
+  // the largest 2j + succ at k <= Ak and the smallest 2j + !succ above it.
+  // Only the row's band [lo, hi] can hold a cell (every other cell of a
+  // window row is zero), so only its columns are read; an empty band finds
+  // nothing, and every thread skips alike
+  auto find_end = [&](int s, const Win* row, int lo, int hi) {
+    const int j0 = max(lo - k0, 0), j1 = min(hi - k0, K - 1);
+    if (j0 > j1) return;
     int r2[2] = {kBig, kBig};  // -(2 j_dn + succ_dn), 2 j_up + !succ_up
-    for (int j = tid; j < K; j += kThreads) {
+    for (int j = j0 + tid; j <= j1; j += PT) {
       const int cell = row[j];
       if (cell <= 0) continue;
       const int k = k0 + j, h = cell >> 3, v = h - k;
@@ -690,7 +849,7 @@ __global__ void __launch_bounds__(
       if (k <= Ak) r2[0] = min(r2[0], -(2 * j + !viol));
       else r2[1] = min(r2[1], 2 * j + viol);
     }
-    block_min(r2, red_fe);
+    block_min<kW, CL>(r2, red_fe);
     const bool succ_dn = r2[0] < kBig && ((-r2[0]) & 1);
     const bool succ_up = r2[1] < kBig && !(r2[1] & 1);
     if (succ_up || succ_dn) {
@@ -702,18 +861,7 @@ __global__ void __launch_bounds__(
     }
   };
 
-  // TIMED: thread 0 adds the cycles since the last stamp to a phase
-  long long t_mark = 0, acc[kPhases] = {};
-  auto stamp = [&](int ph) {
-    if constexpr (TIMED) {
-      if (tid == 0) {
-        const long long now = clock64();
-        acc[ph] += now - t_mark;
-        t_mark = now;
-      }
-    }
-  };
-  if constexpr (TIMED) t_mark = clock64();
+  stamp(kPhSetup);
 
   // The bands of score s (M at s % WM, I and D at s % WE) ride in
   // registers from the next() that found them: every thread reads the same
@@ -740,7 +888,7 @@ __global__ void __launch_bounds__(
     if constexpr (TIMED) ++acc[kPhSteps];
     const int lo_ms = blo[0], hi_ms = bhi[0];
     const bool ex_ms = bex[0];
-    int32_t* row_m = Mw + (int64_t)sm * K;
+    Win* row_m = Mw + (int64_t)sm * K;
     // the band's columns (the window holds every band)
     const int jlo = max(lo_ms - k0, 0), jhi = min(hi_ms - k0, K - 1);
 
@@ -748,7 +896,7 @@ __global__ void __launch_bounds__(
     // with dmin over the extended in-bounds cells and the Ak cell
     int r1[2] = {kBig, kBig};  // dmin, -cell at Ak
     if (ex_ms) {
-      for (int j = jlo + tid; j <= jhi; j += kThreads) {
+      for (int j = jlo + tid; j <= jhi; j += PT) {
         int cell = row_m[j];
         const int k = k0 + j;
         if (cell > 0) {
@@ -767,7 +915,7 @@ __global__ void __launch_bounds__(
         if (j == jak) r1[1] = -cell;
       }
     }
-    block_min(r1, red_ext);
+    block_min<kW, CL>(r1, red_ext);
     stamp(kPhExtend);
 
     // ---------------- termination (wfa.go:235-239) ----------------
@@ -779,14 +927,15 @@ __global__ void __launch_bounds__(
       final_s = s;
       term_cell = cell_ak;
       // the terminating row is searched unreduced
-      if (!GLOBAL && !end_found) find_end(s, row_m);
+      if (!GLOBAL && !end_found) find_end(s, row_m, lo_ms, hi_ms);
+      stamp(kPhEnd);
       // and streamed unreduced.  A row that does not fit overflows the
       // pair; K1-long reports it not done, K1-kw keeps done, final_s and
       // term_cell as the TPU kernel keeps them (see the header)
       if constexpr (REBASE) {
         int rf[2] = {kBig, kBig};  // min offset0, -max offset0
-        const int32_t* st = stage + (int64_t)(s & 1) * 3 * K;
-        for (int j = tid; j < K; j += kThreads) {
+        const St* st = stage + (int64_t)(s & 1) * 3 * K;
+        for (int j = tid; j < K; j += PT) {
 #pragma unroll
           for (int c = 0; c < 3; ++c) {
             const int cell = st[c * K + j];
@@ -796,7 +945,7 @@ __global__ void __launch_bounds__(
             }
           }
         }
-        block_min(rf, red_fl);
+        block_min<kW, CL>(rf, red_fl);
         const FlushPlan p = plan_flush(rf, bex, blo, bhi);
         flush_row(s, p);
         if (!p.fits) {
@@ -829,7 +978,7 @@ __global__ void __launch_bounds__(
       uint32_t* mk_mark = mk + KWd;
       // (word w holds columns jlo + 32 w ..)
       const int nw = (jhi - jlo) >> 5;
-      for (int w = warp; w <= nw; w += kWarps) {
+      for (int w = warp; w <= nw; w += kW) {
         const int j = jlo + w * 32 + lane, k = k0 + j;
         bool marked = false, good = false;
         if (j <= jhi) {
@@ -845,7 +994,7 @@ __global__ void __launch_bounds__(
           mk_mark[w] = m;
         }
       }
-      __syncthreads();
+      sync_pair();
       // first_good, last_good, any_marked, and the last mark below
       // first_good
       // (every warp alike, 32 words at once)
@@ -897,7 +1046,7 @@ __global__ void __launch_bounds__(
       }
       // every thread has read the band slots of score s before this step
       // (bex/blo/bhi); next() reads them after the zero pass's barrier
-      if (tid == 0) {
+      if (lead) {
         mb.lo[sm] = new_lo;
         mb.hi[sm] = new_hi;
         if (bex[1]) ib.lo[se] = plo[1], ib.hi[se] = phi[1];
@@ -920,10 +1069,10 @@ __global__ void __launch_bounds__(
       }
       const int u0 = max(ulo - k0, 0), u1 = min(uhi - k0, K - 1);
       Dst* aux_m = aux_dst(0, s);
-      int32_t* row_i = Iw + (int64_t)se * K;
-      int32_t* row_d = Dw + (int64_t)se * K;
-      const int32_t* st = stage + (int64_t)(s & 1) * 3 * K;
-      for (int j = u0 + tid; j <= u1; j += kThreads) {
+      Win* row_i = Iw + (int64_t)se * K;
+      Win* row_d = Dw + (int64_t)se * K;
+      const St* st = stage + (int64_t)(s & 1) * 3 * K;
+      for (int j = u0 + tid; j <= u1; j += PT) {
         const int k = k0 + j;
         if (reducing) {
           // (an absent cell's aux is zero already: aux mirrors cell
@@ -953,14 +1102,17 @@ __global__ void __launch_bounds__(
         }
       }
       if constexpr (REBASE) {
-        block_min(rf, red_fl);
+        block_min<kW, CL>(rf, red_fl);
       } else {
-        __syncthreads();
+        sync_pair();
       }
     }
     stamp(kPhReduce);
 
-    if (!GLOBAL && !end_found) find_end(s, row_m);
+    // (the post-reduce M band, inside the band the row had)
+    if (!GLOBAL && !end_found && pex[0])
+      find_end(s, row_m, max(plo[0], lo_ms), min(phi[0], hi_ms));
+    stamp(kPhEnd);
     // row s is final: its flush rides next()'s pass; a row that does not
     // fit overflows the pair
     FlushPlan fp{0, 0, true};
@@ -1000,10 +1152,10 @@ __global__ void __launch_bounds__(
       overflow = true;
       break;
     }
-    const int32_t* mo_row = Mw + (int64_t)so * K;
-    const int32_t* mx_row = Mw + (int64_t)sx * K;
-    const int32_t* ie_row = Iw + (int64_t)sie * K;
-    const int32_t* de_row = Dw + (int64_t)sde * K;
+    const Win* mo_row = Mw + (int64_t)so * K;
+    const Win* mx_row = Mw + (int64_t)sx * K;
+    const Win* ie_row = Iw + (int64_t)sie * K;
+    const Win* de_row = Dw + (int64_t)sde * K;
     const bool at_seed = x > 0 && s2 == x;  // the seed row x pre-exists
     // its band, read before thread 0 rewrites the slot
     const bool ex_old = at_seed && mb.ex[s2m] != 0;
@@ -1023,9 +1175,9 @@ __global__ void __launch_bounds__(
     }
     ja = max(ja, 0);
     jb = min(jb, K - 1);
-    int32_t* m_new = Mw + (int64_t)s2m * K;
-    int32_t* i_new = Iw + (int64_t)s2e * K;
-    int32_t* d_new = Dw + (int64_t)s2e * K;
+    Win* m_new = Mw + (int64_t)s2m * K;
+    Win* i_new = Iw + (int64_t)s2e * K;
+    Win* d_new = Dw + (int64_t)s2e * K;
     Dst* am_new = aux_dst(0, s2);
     Dst* ai_new = aux_dst(1, s2);
     Dst* ad_new = aux_dst(2, s2);
@@ -1034,7 +1186,7 @@ __global__ void __launch_bounds__(
     uint32_t* mk_m = mk + 2 * KWd;
     // columns ja..jb, a warp's 32 at a time (the ballots; word w holds
     // columns ja + 32 w ..)
-    for (int jw = ja; jw <= jb; jw += kThreads) {
+    for (int jw = ja; jw <= jb; jw += PT) {
       const int j = jw + tid, k = k0 + j;
       bool wr_i = false, wr_d = false, wr_m = false;
       if (j <= jb) {
@@ -1105,14 +1257,22 @@ __global__ void __launch_bounds__(
       // zero for next() of step s + 1
       flush_row(s, fp);
       stamp(kPhFlush);
-    } else {
+    } else if constexpr (PHASE == kPrefix) {
       // aux rows are written whole: zero where no cell was written
-      for (int j = tid; j < K; j += kThreads) {
+      Dst* const rows[3] = {am_new, ai_new, ad_new};
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        zero_cells<PT>(rows[c], 0, ja, tid);
+        zero_cells<PT>(rows[c], jb + 1, K, tid);
+      }
+      stamp(kPhTail);
+    } else {
+      for (int j = tid; j < K; j += PT) {
         if (j < ja || j > jb) am_new[j] = ai_new[j] = ad_new[j] = 0;
       }
-      stamp(kPhNext);
+      stamp(kPhTail);
     }
-    __syncthreads();
+    sync_pair();
     // the new bands: the lowest and highest written column of each plane
     const int wl = (lo_n - k0 - ja) >> 5, wh = (hi_n - k0 - ja) >> 5;
     int wlo[3], whi[3];  // I, D, M, as columns past ja
@@ -1137,7 +1297,7 @@ __global__ void __launch_bounds__(
     bex[0] = keep;
     blo[0] = keep ? nlo_m : kBig;
     bhi[0] = keep ? nhi_m : -kBig;
-    if (tid == 0) {
+    if (lead) {
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
         const Band& bc = c == 0 ? mb : (c == 1 ? ib : db);
@@ -1151,14 +1311,8 @@ __global__ void __launch_bounds__(
     se = s2e;
     stamp(kPhBands);
   }
-  if constexpr (TIMED) {
-    if (tid == 0)
-      for (int i = 0; i < kPhases; ++i)
-        cycles[(int64_t)b * kPhases + i] = acc[i];
-  }
-
   if constexpr (PHASE == kPrefix) {
-    __syncthreads();  // thread 0's last band slots
+    sync_pair();  // the last band slots
     // ---- the narrow window (wfa_tpu/semi2.py:182-206): the union of
     // every band slot next() can still read, plus Ak, centred in K2
     // columns and clipped to the diagonals that exist
@@ -1182,20 +1336,20 @@ __global__ void __launch_bounds__(
     // ---- the exports, rebased: narrow column j is window column j + d
     // (0 <= d < K after the clip), zero past the window
     const int d = k02 - k0;
-    auto rebased = [&](const int32_t* row, int j) {
+    auto rebased = [&](const Win* row, int j) -> int32_t {
       return j + d < K ? row[j + d] : 0;
     };
     for (int r = 0; r < WM; ++r)
-      for (int j = tid; j < K2; j += kThreads)
+      for (int j = tid; j < K2; j += PT)
         ho.win_m[((int64_t)r * B + b) * K2 + j] = rebased(Mw + r * K, j);
     for (int r = 0; r < WE; ++r)
-      for (int j = tid; j < K2; j += kThreads) {
+      for (int j = tid; j < K2; j += PT) {
         ho.win_i[((int64_t)r * B + b) * K2 + j] = rebased(Iw + r * K, j);
         ho.win_d[((int64_t)r * B + b) * K2 + j] = rebased(Dw + r * K, j);
       }
     for (int c = 0; c < 3; ++c) {
-      const Cell* row = reinterpret_cast<const Cell*>(stage + (int64_t)c * K);
-      for (int j = tid; j < K2; j += kThreads)
+      const Cell* row = stage + (int64_t)c * K;
+      for (int j = tid; j < K2; j += PT)
         ho.ainit[((int64_t)c * B + b) * K2 + j] = j + d < K ? row[j + d] : 0;
     }
     if (tid == 0) {
@@ -1215,17 +1369,28 @@ __global__ void __launch_bounds__(
   } else {
     write_out();
   }
+  stamp(kPhExport);
+  if constexpr (TIMED) {
+    if (tid == 0)
+      for (int i = 0; i < kPhases; ++i)
+        cycles[(int64_t)b * kPhases + i] = acc[i];
+  }
+  if constexpr (CL > 1) sync_pair();  // no block leaves its cluster early
 }
 
-// Launch one instantiation: B blocks of kThreads.  Dynamic shared memory
+// Launch one instantiation: B pairs of CL blocks of NT threads (a cluster
+// of CL blocks a pair when CL > 1, its workspace in the scratch; another
+// launch is refused with cudaErrorInvalidValue).  Dynamic shared memory
 // holds the reduction and band slots, and each pair's workspace when
 // `win` is null (kernel_engine.workspace decides by shape, under the
-// kSharedBytes a launch gets without a function attribute); a launch that
-// would need more (a workspace the caller misplaced, or band slots of
-// penalties near 4000) is refused with cudaErrorInvalidValue.  TIMED adds
-// cycles[B, kPhases].
+// kSharedBytes a launch gets without a function attribute, or for K3 the
+// kSharedOptIn it raises its limit to, once an instantiation and device);
+// a launch that would need more (a workspace the caller misplaced, or band
+// slots of penalties near 4000) is refused with cudaErrorInvalidValue.
+// TIMED adds cycles[B, kPhases].
 template <bool GLOBAL, bool REBASE, int PHASE, typename Cell,
-          bool KWIN = false, bool TIMED = false>
+          bool KWIN = false, bool TIMED = false, int NT = kThreads,
+          int CL = 1>
 int launch_loop(const uint8_t* qb, const uint8_t* tbuf, const int32_t* qlen,
                 const int32_t* tlen, const int32_t* toff, int B, int Lq,
                 int Ltb, int S, int K, int x, int oe, int e, int reduce_on,
@@ -1233,26 +1398,62 @@ int launch_loop(const uint8_t* qb, const uint8_t* tbuf, const int32_t* qlen,
                 int32_t* out, void* aux, int32_t* aux_base, Handoff ho,
                 void* stream, long long* cycles = nullptr) {
   const int WM = (x > oe ? x : oe) + 1, WE = e + 1;
-  const int64_t ints =
-      shared_ints(K, WM, WE, stage_rows<REBASE, PHASE>(), win != nullptr);
-  if (ints * (int64_t)sizeof(int) > kSharedBytes)
+  const int win_bytes = PHASE == kPrefix ? sizeof(Cell) : 4;
+  const int64_t bytes =
+      shared_ints(NT * CL / 32, K, WM, WE, stage_rows<REBASE, PHASE>(),
+                  win != nullptr, win_bytes) *
+      (int64_t)sizeof(int);
+  if (bytes > shared_limit<PHASE>() || (CL > 1 && win == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (B > 0)
-    score_loop_kernel<GLOBAL, REBASE, PHASE, Cell, KWIN, TIMED>
-        <<<B, kThreads, ints * sizeof(int),
-           static_cast<cudaStream_t>(stream)>>>(
-            qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S, K, x, oe, e,
-            reduce_on, min_wf_len, max_dist_diff, kw, win, out,
-            static_cast<Cell*>(aux), aux_base, ho, cycles);
+  auto kernel =
+      score_loop_kernel<GLOBAL, REBASE, PHASE, Cell, KWIN, TIMED, NT, CL>;
+  if (bytes > kSharedBytes) {
+    constexpr int kDevices = 64;
+    static bool raised[kDevices] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess && (dev >= kDevices || !raised[dev])) {
+      err = cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(shared_limit<PHASE>()));
+      if (err == cudaSuccess && dev < kDevices) raised[dev] = true;
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (B > 0 && CL > 1) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(B * CL);
+    cfg.blockDim = dim3(NT);
+    cfg.dynamicSmemBytes = bytes;
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CL;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(
+        &cfg, kernel, qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S, K, x, oe, e,
+        reduce_on, min_wf_len, max_dist_diff, kw, win, out,
+        static_cast<Cell*>(aux), aux_base, ho, cycles);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  } else if (B > 0) {
+    kernel<<<B, NT, bytes, static_cast<cudaStream_t>(stream)>>>(
+        qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S, K, x, oe, e, reduce_on,
+        min_wf_len, max_dist_diff, kw, win, out, static_cast<Cell*>(aux),
+        aux_base, ho, cycles);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // The int32 cells of one pair's workspace in `mode` (wfa_score_loop's 0-3,
-// 4 K3, 5 K4) at window K, and in *shared whether it goes to shared memory
-// with the slots: the layout the kernel and launch_loop use, against which
-// kernel_engine.workspace is tested.  -1 for an unknown mode.
+// 4 K3 with int32 cells, 5 K4, 6 K3 with int16 cells) at window K, and in
+// *shared whether it fits shared memory with the slots: the layout the
+// kernel and launch_loop use, against which kernel_engine.workspace is
+// tested.  -1 for an unknown mode.
 extern "C" int wfa_workspace(int K, int x, int oe, int e, int mode,
                              int* shared) {
   const int WM = (x > oe ? x : oe) + 1, WE = e + 1;
@@ -1260,13 +1461,49 @@ extern "C" int wfa_workspace(int K, int x, int oe, int e, int mode,
   switch (mode) {
     case 0: case 1: stage = stage_rows<false, kFull>(); break;
     case 2: case 3: stage = stage_rows<true, kFull>(); break;
-    case 4: stage = stage_rows<false, kPrefix>(); break;
+    case 4: case 6: stage = stage_rows<false, kPrefix>(); break;
     case 5: stage = stage_rows<false, kResume>(); break;
     default: return -1;
   }
-  *shared = shared_ints(K, WM, WE, stage, false) * (int64_t)sizeof(int) <=
-            kSharedBytes;
-  return static_cast<int>(workspace_ints(K, WM, WE, stage));
+  const int win_bytes = mode == 6 ? 2 : 4;
+  *shared = (mode == 4 || mode == 6
+                 ? shared_ints(kPrefixSharedWarps, K, WM, WE, stage, false,
+                               win_bytes) *
+                           (int64_t)sizeof(int) <= kSharedOptIn
+                 : shared_ints(kWarps, K, WM, WE, stage, false) *
+                           (int64_t)sizeof(int) <= kSharedBytes);
+  return static_cast<int>(workspace_ints(K, WM, WE, stage, win_bytes));
+}
+
+// K3's launch shapes built, (threads a block, blocks a pair;
+// kernel_engine.PREFIX_SHAPES): 1 + the index of (threads, cluster), or 0
+// for a shape not built
+constexpr int kPrefixShapes[][2] = {{256, 1}, {512, 1}, {1024, 1}, {1024, 2}};
+static int prefix_shape(int threads, int cluster) {
+  for (int i = 0; i < 4; ++i)
+    if (kPrefixShapes[i][0] == threads && kPrefixShapes[i][1] == cluster)
+      return i + 1;
+  return 0;
+}
+
+// K3's dynamic shared memory in bytes at window K for a block of
+// `threads` in clusters of `cluster` blocks a pair, with int16 cells or
+// not, its workspace in a device scratch or not: what wfa_prefix's launch
+// asks for, or -1 where it refuses the launch (a shape not built, a
+// cluster without the scratch, or more than a block may have).
+// kernel_engine.prefix_plan is held to it.
+extern "C" int wfa_prefix_shared(int K, int x, int oe, int e, int cell16,
+                                 int threads, int cluster, int scratch) {
+  const int WM = (x > oe ? x : oe) + 1, WE = e + 1;
+  const int64_t bytes =
+      shared_ints(threads * cluster / 32, K, WM, WE,
+                  stage_rows<false, kPrefix>(), scratch != 0,
+                  cell16 ? 2 : 4) *
+      (int64_t)sizeof(int);
+  if (!prefix_shape(threads, cluster) || bytes > kSharedOptIn ||
+      (cluster > 1 && !scratch))
+    return -1;
+  return static_cast<int>(bytes);
 }
 
 // out is int32[7, B]: final_s, done, overflow, term_cell, end_s, end_k,
@@ -1308,10 +1545,11 @@ extern "C" int wfa_score_loop(const uint8_t* qb, const uint8_t* tbuf,
       min_wf_len, max_dist_diff, K, win, out, aux, nullptr, none, stream);
 }
 
-// The TIMED instantiations of modes 0 (K1) and 2 (K1-long), for the phase
-// profile only: wfa_score_loop's arguments plus cycles int64[B, kPhases]
-// (extend, termination, reduce, flush, next, bands, steps), which the caller
-// zeroes (a pair that returns before its loop writes none).
+// The TIMED instantiations of modes 0 (K1), 2 (K1-long) and 3 (K1-kw), for
+// the phase profile only: wfa_score_loop's arguments plus cycles
+// int64[B, kPhases] (extend, termination, reduce, flush, next, bands, end
+// finder, zero tail, set-up, exports, steps), which the caller zeroes (a
+// pair that returns before its loop writes none).
 extern "C" int wfa_score_loop_phases(const uint8_t* qb, const uint8_t* tbuf,
                                      const int32_t* qlen,
                                      const int32_t* tlen,
@@ -1323,6 +1561,14 @@ extern "C" int wfa_score_loop_phases(const uint8_t* qb, const uint8_t* tbuf,
                                      int32_t* aux_base, long long* cycles,
                                      void* stream) {
   const Handoff none{};
+  if (mode == 3) {
+    if (kw <= 0 || kw > K || (K - kw) / 32 > 31 || Ltb >= (1 << 26))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_loop<true, true, kFull, int16_t, true, true>(
+        qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S, K, x, oe, e, reduce_on,
+        min_wf_len, max_dist_diff, kw, win, out, aux, aux_base, none, stream,
+        cycles);
+  }
   if (mode == 2)
     return launch_loop<true, true, kFull, int16_t, false, true>(
         qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S, K, x, oe, e, reduce_on,
@@ -1338,23 +1584,52 @@ extern "C" int wfa_score_loop_phases(const uint8_t* qb, const uint8_t* tbuf,
 
 // K3, phase 1 of the two-phase semi-global route: scores 0 .. S0 - 1 at
 // the full span Kf, aux_old[3, S0, B, Kf] (int16 cells when cell16), the
-// exports of Handoff at the narrow width K2.  win is the int32 scratch of
-// workspace_ints(Kf, WM, WE, 3) a pair, or null for shared memory.
+// exports of Handoff at the narrow width K2.  threads is the block width,
+// cluster the blocks a pair (kernel_engine.prefix_plan; a shape not built
+// is refused).  win is the int32
+// scratch of workspace_ints(Kf, WM, WE, 3, cell16 ? 2 : 4) a pair (the
+// windows hold the aux cell type), or null for shared memory.  cycles,
+// when not null, runs the TIMED instantiation (the phase profile's
+// int64[B, kPhases], zeroed by the caller).
 extern "C" int wfa_prefix(const uint8_t* qb, const uint8_t* tbuf,
                           const int32_t* qlen, const int32_t* tlen,
                           const int32_t* toff, int B, int Lq, int Ltb,
                           int S0, int Kf, int K2, int x, int oe, int e,
                           int reduce_on, int min_wf_len, int max_dist_diff,
-                          int cell16, int32_t* win, void* aux_old,
-                          int32_t* win_m, int32_t* win_i, int32_t* win_d,
-                          int32_t* ainit, int32_t* b_m, int32_t* b_ie,
-                          int32_t* meta1, void* stream) {
+                          int cell16, int threads, int cluster, int32_t* win,
+                          void* aux_old, int32_t* win_m, int32_t* win_i,
+                          int32_t* win_d, int32_t* ainit, int32_t* b_m,
+                          int32_t* b_ie, int32_t* meta1, long long* cycles,
+                          void* stream) {
   const Handoff ho{win_m, win_i, win_d, ainit, b_m, b_ie, meta1, S0, K2};
-  auto run = cell16 ? &launch_loop<false, false, kPrefix, int16_t>
-                    : &launch_loop<false, false, kPrefix, int32_t>;
+  const int w = prefix_shape(threads, cluster);
+  if (!w) return static_cast<int>(cudaErrorInvalidValue);
+  using Launch = decltype(&launch_loop<false, false, kPrefix, int16_t>);
+  // [cell16][shape], the shapes of kPrefixShapes
+#define WFA_K3(C)                                                     \
+  {&launch_loop<false, false, kPrefix, C, false, false, 256>,         \
+   &launch_loop<false, false, kPrefix, C, false, false, 512>,         \
+   &launch_loop<false, false, kPrefix, C, false, false, 1024>,        \
+   &launch_loop<false, false, kPrefix, C, false, false, 1024, 2>}
+  static const Launch table[2][4] = {WFA_K3(int32_t), WFA_K3(int16_t)};
+#undef WFA_K3
+  Launch run = table[cell16 != 0][w - 1];
+  if (cycles != nullptr) {
+    // the TIMED instantiations at the phase profile's two plans only
+    // (profiling.SEMI2_BATCHES: int16 cells in 256-thread blocks at Kf
+    // 2048, int32 cells in clusters of two 1024-thread blocks at Kf
+    // 20,096), so that no other build pays for them; another is refused
+    if (cell16 && threads == 256 && cluster == 1)
+      run = &launch_loop<false, false, kPrefix, int16_t, false, true, 256>;
+    else if (!cell16 && threads == 1024 && cluster == 2)
+      run = &launch_loop<false, false, kPrefix, int32_t, false, true, 1024,
+                         2>;
+    else
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return run(qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S0 + 1, Kf, x, oe, e,
              reduce_on, min_wf_len, max_dist_diff, Kf, win, nullptr, aux_old,
-             nullptr, ho, stream, nullptr);
+             nullptr, ho, stream, cycles);
 }
 
 // K4, phase 2: resumes at S0 from the Handoff exports (width K) and runs

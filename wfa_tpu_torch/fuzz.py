@@ -16,7 +16,11 @@ comparison).  Each case draws, from ``random.Random(seed)``:
   ``"semi2:<S0>"``;
 * k_win on either side of the score loop's shared-memory limit
   (``kernel_engine.workspace``: the largest window whose workspace fits
-  the block's shared memory, and the next one up, or 128);
+  the block's shared memory, and the next one up, or 128); for
+  ``"semi2"``, in one case of two, K3's full span on either side of a
+  threshold of its workspace (:func:`prefix_sides`: where it stops
+  fitting shared memory, where its cells widen to int32), through a first
+  pair whose target is cut or grown to it;
 * a batch of 4-16 pairs of 60-450 bases at 2-20% error, with an
   identical pair, a prefix pair and, in one case of three, raw bytes
   outside ACGT.
@@ -25,7 +29,8 @@ Then it holds, at tolerance 0:
 
 1. the card's outputs against the plain versions': ``align_full2``'s byte
    (or raw) streams, every key; for ``"semi2"`` the phase-1 exports
-   (``semi2.canonical_exports``) and the results of ``BatchAligner``;
+   (``semi2.canonical_exports``), K3's at every launch plan it takes, and
+   the results of ``BatchAligner``;
 2. every result the card serves against the oracle, decoded at once
    (score, CIGAR, coordinates, counts), and the served sets of card and
    plain alike;
@@ -52,7 +57,7 @@ import torch
 from .constants import AdaptiveReductionOption, Options, Penalties
 from .engine import (BatchAligner, EngineConfig, _pack_all, align_full2,
                      windows)
-from .kernel_engine import workspace
+from .kernel_engine import H100_SMS, prefix_plan, workspace
 from .oracle import Aligner as OracleAligner
 
 FIELDS = ("score", "q_begin", "q_end", "t_begin", "t_end", "align_len",
@@ -73,6 +78,30 @@ def limit_sides(cfg: EngineConfig, mode) -> tuple:
     if not workspace(dataclasses.replace(cfg, k_win=k), mode)[1]:
         return 128, 128
     return k, k + 128
+
+
+def prefix_sides(cfg: EngineConfig) -> tuple:
+    """Full spans on either side of each threshold of K3's workspace by
+    span at ``cfg``'s penalties: where its launch plan moves it from
+    shared memory to the scratch (int16 cells), and where its cells widen
+    to int32 (a target buffer past 4093 columns: spans 3584 and 4096)."""
+    k = 128
+    while not prefix_plan(dataclasses.replace(cfg, k_win=k + 128), 16, True,
+                          H100_SMS).scratch:
+        k += 128
+    return tuple(sorted({k, k + 128, 3584, 4096}))
+
+
+def _force_span(rng: random.Random, pairs: list, span: int) -> list:
+    """``pairs`` with the first pair's target cut or grown (random bases)
+    so that its two lengths sum to span - 1, which makes ``span`` the
+    batch's full span (``semi2.prefix_span``) when no other pair is
+    longer."""
+    q, t = pairs[0]
+    need = span - 1 - len(q)
+    t = (t + bytes(rng.choice(b"ACGT")
+                   for _ in range(max(0, need - len(t)))))[:need]
+    return [(q, t)] + pairs[1:]
 
 
 def _mutate(rng: random.Random, s: bytes, err: float) -> bytes:
@@ -139,6 +168,13 @@ def draw_case(rng: random.Random) -> dict:
     else:
         wm, _ = windows(pen)
         engine = f"semi2:{max(wm, rng.choice((16, 40, 64)))}"
+        # K3's full span on a side of one of its plan's thresholds, drawn
+        # from a generator of its own so that every seed's other cases
+        # stay as they were
+        sub = random.Random(sum(len(q) + 3 * len(t) for q, t in pairs))
+        if sub.random() < 0.5:
+            span = sub.choice(prefix_sides(base))
+            pairs = _force_span(sub, pairs, span)
         k_win = min(rng.choice((256,) + limit_sides(base, "resume")), span)
         s_cap = max(s_cap, int(engine.split(":")[1]) + 8)
     return {"penalties": dataclasses.astuple(pen), "global": ga,
@@ -166,6 +202,29 @@ def _result_diff(a, b):
     return None
 
 
+def _prefix_plans_diff(pairs, cfg: EngineConfig, pkw: dict, ref: dict,
+                       device: str) -> list:
+    """K3 at every launch plan it takes (each block shape, the workspace
+    in the scratch and, where it fits, in shared memory) against the plain
+    exports ``ref``: the first plan and tensor that differ, if any."""
+    from . import semi2 as ts
+    from .engine import inputs_from_packed, semi_cell16
+    from .kernel_engine import _prefix_launch, _sms, every_prefix_plan
+
+    packed = _pack_all(pairs, cfg.k_win, global_alignment=False)
+    qb, tbuf, qlen, tlen, toff, Lq, Ltb = inputs_from_packed(packed, device)
+    kcfg, cell16 = pkw["cfg"], semi_cell16(Ltb)
+    kw = dict(cfg=kcfg, Lq=Lq, Ltb=Ltb, S0=pkw["S0"], K2=pkw["K2"])
+    for plan in every_prefix_plan(kcfg, len(pairs), cell16,
+                                  _sms(qb.device)):
+        got = ts.canonical_exports(_prefix_launch(
+            qb, tbuf, qlen, tlen, toff, **kw, plan=plan))
+        for k in ref:
+            if not torch.equal(ref[k], got[k].cpu()):
+                return [(f"exports[{k}] at plan {tuple(plan)}", None)]
+    return []
+
+
 def check_case(case: dict, device: str) -> tuple:
     """(every mismatch of one case as (what, pair index or None), the
     pairs the card served)."""
@@ -191,6 +250,8 @@ def check_case(case: dict, device: str) -> tuple:
             seq.to(device), lens.to(device), **pkw))
         bad += [(f"exports[{k}]", None) for k in ref
                 if not torch.equal(ref[k], got[k].cpu())][:1]
+        if device != "cpu":
+            bad += _prefix_plans_diff(pairs, cfg, pkw, ref, device)
     else:
         kw = dict(cfg=cfg, B=len(pairs), Lq=Lq, Ltb=Ltb, packed=ok2,
                   engine=card.engine)

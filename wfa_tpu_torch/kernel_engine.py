@@ -23,6 +23,7 @@ CUDA tensors.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -33,43 +34,72 @@ from .semi2 import META1_COLS, prefix_export_plain
 
 
 # shared memory a launch gets without a function attribute (the kernel's
-# kSharedBytes)
+# kSharedBytes), and what K3 raises its limit to: what a Hopper block may
+# have (kSharedOptIn)
 SHARED_BYTES = 48 * 1024
-# ints of a block's shared memory ahead of the band slots (the kernel's
-# kRedInts block_min slots)
-RED_INTS = 32
+SHARED_OPTIN = 227 * 1024
+# shared memory an H100 SM holds, and what each resident block takes of it
+# beside its own
+SM_SHARED = 228 * 1024
+BLOCK_RESERVED = 1024
+# the block_min slots of a block's shared memory, ahead of the band slots
+# (the kernel's red_ints): eight for each warp of a pair, four warps but
+# in K3; K3's workspace placement counts the slots of a 512-thread block,
+# the widest that holds its workspace in shared memory (the kernel's
+# kPrefixSharedWarps)
+RED_INTS_A_WARP = 8
+WARPS = 4
+PREFIX_SHARED_WARPS = 16
 # staged aux rows of the score loop's C modes (0 global, 1 semi-global, 2
-# long-read, 3 KW) and of K3 / K4 (the kernel's stage_rows): the
-# long-read and KW modes stage the two newest rows of each plane, K3 its
-# aux row S0
-STAGE_ROWS = {0: 0, 1: 0, 2: 6, 3: 6, "prefix": 3, "resume": 0}
+# long-read, 3 KW) and of K3 (int32 cells, or "prefix16" int16) / K4 (the
+# kernel's stage_rows): the long-read and KW modes stage the two newest
+# rows of each plane, K3 its aux row S0
+STAGE_ROWS = {0: 0, 1: 0, 2: 6, 3: 6, "prefix": 3, "prefix16": 3,
+              "resume": 0}
 # the mode argument of the C entry wfa_workspace for each key of STAGE_ROWS
-C_MODES = {0: 0, 1: 1, 2: 2, 3: 3, "prefix": 4, "resume": 5}
+C_MODES = {0: 0, 1: 1, 2: 2, 3: 3, "prefix": 4, "resume": 5, "prefix16": 6}
+# K3's modes: its windows and staged row hold its aux cells
+PREFIX_MODES = ("prefix", "prefix16")
 
 
 def _round4(n: int) -> int:
     return (n + 3) // 4 * 4
 
 
+def slot_ints(cfg: EngineConfig, warps: int = WARPS) -> int:
+    """Shared ints of a block ahead of its workspace at ``warps`` warps a
+    pair: the reduction slots (``RED_INTS_A_WARP`` a warp) and the band
+    slots (3 WM + 6 WE), rounded up to a multiple of 4 (the kernel's
+    slot_ints)."""
+    wm, we = windows(cfg.penalties)
+    return _round4(RED_INTS_A_WARP * warps + 3 * wm + 6 * we)
+
+
 def workspace(cfg: EngineConfig, mode) -> tuple:
     """(ints, shared): the int32 cells of one pair's score-loop workspace
     in ``mode`` (a key of ``STAGE_ROWS``): WM rows of M and WE rows each
-    of I and D, ``cfg.k_win`` diagonals wide, the staged aux rows, three
-    ballot words for every 32 columns, rounded up to a multiple of 4; and
-    whether it goes to the block's shared memory: when it fits in
-    ``SHARED_BYTES`` after the reduction slots (``RED_INTS``) and band
-    slots (3 WM + 6 WE), rounded up to a multiple of 4.  Otherwise the
-    launch passes a device scratch of ``ints`` a pair.  The choice is by
-    shape only.  The kernel's C entry ``wfa_workspace`` gives the same
-    pair from the layout the kernel uses (``tests/test_torch_cuda.py``
-    holds the two together); a launch whose shared memory would pass the
-    limit is refused."""
+    of I and D, ``cfg.k_win`` diagonals wide, the staged aux rows (int32
+    cells; K3's int16 cells in "prefix16", filling whole 16-byte words),
+    three ballot words for every 32 columns, rounded up to a multiple of
+    4; and whether it fits the block's shared memory after the slots
+    (:func:`slot_ints`): ``SHARED_BYTES``, or K3's ``SHARED_OPTIN`` with
+    the slots of ``PREFIX_SHARED_WARPS``.  The
+    launch passes a device scratch of ``ints`` a pair where it does not
+    (K3: where its launch plan puts it, :func:`prefix_plan`).  The
+    kernel's C entry ``wfa_workspace`` gives the same pair from the layout
+    the kernel uses (``tests/test_torch_cuda.py`` holds the two together);
+    a launch whose shared memory would pass the limit is refused."""
     wm, we = windows(cfg.penalties)
     K = cfg.k_win
-    ints = _round4((wm + 2 * we + STAGE_ROWS[mode]) * K
-                   + 3 * ((K + 31) // 32))
-    slots = _round4(RED_INTS + 3 * wm + 6 * we)
-    return ints, 4 * (slots + ints) <= SHARED_BYTES
+    cells = (wm + 2 * we + STAGE_ROWS[mode]) * K
+    if mode == "prefix16":
+        cells = (cells * 2 + 15) // 16 * 4
+    ints = _round4(cells + 3 * ((K + 31) // 32))
+    if mode in PREFIX_MODES:
+        slots, limit = slot_ints(cfg, PREFIX_SHARED_WARPS), SHARED_OPTIN
+    else:
+        slots, limit = slot_ints(cfg), SHARED_BYTES
+    return ints, 4 * (slots + ints) <= limit
 
 
 def _scratch(cfg: EngineConfig, mode, B: int, dev):
@@ -205,6 +235,140 @@ def run_batch_kw(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig, Lq: int,
 run_batch_kw.launches = {"kw": 0}
 
 
+class PrefixPlan(NamedTuple):
+    """K3's launch at one shape: threads a block, the dynamic shared
+    memory bytes a block asks for, whether each pair's workspace goes to a
+    device scratch (else to that shared memory), its int32 cells, and the
+    blocks of a pair (a thread-block cluster; the scratch only)."""
+    threads: int
+    shared_bytes: int
+    scratch: bool
+    ints: int
+    cluster: int = 1
+
+
+# K3's launch shapes built (the kernel's prefix_shape): (threads a block,
+# blocks a pair, a thread-block cluster over the scratch)
+PREFIX_SHAPES = ((256, 1), (512, 1), (1024, 1), (1024, 2))
+# columns of span for each pair an SM up to which one 1024-thread block a
+# pair beats 256-thread blocks in the scratch (prefix_block_shape)
+PREFIX_WIDE_COLUMNS = 2048
+
+
+def prefix_block_shape(Kf: int, B: int, scratch: bool, sms: int) -> tuple:
+    """K3's block shape (threads a block, blocks a pair) for ``B`` pairs
+    at the full span ``Kf`` on a card of ``sms`` SMs, by where the
+    workspace lies and the pairs each SM gets.  Pairs that share an SM
+    fill it with 256-thread blocks; fewer need more threads a pair to keep
+    loads in flight on the wide steps: in shared memory 512 up to a pair
+    an SM; in the scratch a thread-block cluster of two 1024-thread blocks
+    where every pair's two fit the card at once, else one 1024-thread
+    block while an SM gets at most a pair for every
+    ``PREFIX_WIDE_COLUMNS`` columns of span (the wide steps' work grows
+    with it).  Timed in turns at Kf 2048, 4224 and 20,096 (PERF.md §6)."""
+    if not scratch:
+        return (512, 1) if B <= sms else (256, 1)
+    if 2 * B <= sms:
+        return (1024, 2)
+    if B * PREFIX_WIDE_COLUMNS <= sms * Kf:
+        return (1024, 1)
+    return (256, 1)
+
+
+# the SMs of the card the CPU tests plan for (an H100 SXM's)
+H100_SMS = 132
+
+
+def prefix_plan(cfg: EngineConfig, B: int, cell16: bool, sms: int,
+                threads=None, scratch=None, cluster=None) -> PrefixPlan:
+    """K3's launch plan for ``B`` pairs at the full span ``cfg.k_win`` on
+    a card of ``sms`` SMs: the workspace's place, the block shape
+    (:func:`prefix_block_shape`), unless given, and the shared memory they
+    ask for (the C entry ``wfa_prefix_shared`` computes the same).  The workspace
+    goes to shared memory where two blocks fit an SM (int16 cells up to Kf
+    3072 at 4/6/2: three blocks an SM at Kf 2048); one block alone an SM
+    lost to the scratch (PERF.md §6)."""
+    mode = "prefix16" if cell16 else "prefix"
+    ints, fits = workspace(cfg, mode)
+    if scratch is None:
+        per_block = (4 * (slot_ints(cfg, PREFIX_SHARED_WARPS) + ints)
+                     + BLOCK_RESERVED)
+        scratch = not fits or 2 * per_block > SM_SHARED
+    if threads is None:
+        threads, shape_cluster = prefix_block_shape(cfg.k_win, B, scratch,
+                                                    sms)
+        cluster = cluster or shape_cluster
+    cluster = cluster or 1
+    wm, we = windows(cfg.penalties)
+    warps = threads * cluster // 32
+    shared = (4 * (RED_INTS_A_WARP * warps + 3 * wm + 6 * we) if scratch
+              else 4 * (slot_ints(cfg, warps) + ints))
+    return PrefixPlan(threads, shared, scratch, ints, cluster)
+
+
+def every_prefix_plan(cfg: EngineConfig, B: int, cell16: bool,
+                      sms: int) -> list:
+    """Every launch plan K3 takes for ``B`` pairs at the full span
+    ``cfg.k_win``: each block shape of ``PREFIX_SHAPES`` with its
+    workspace in the device scratch and, for one block a pair where the
+    plan's shared memory fits a block, in shared memory."""
+    plans = []
+    for t, cl in PREFIX_SHAPES:
+        for scratch in (True, False) if cl == 1 else (True,):
+            plan = prefix_plan(cfg, B, cell16, sms, t, scratch, cl)
+            if scratch or plan.shared_bytes <= SHARED_OPTIN:
+                plans.append(plan)
+    return plans
+
+
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _prefix_launch(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig,
+                   Lq: int, Ltb: int, S0: int, K2: int, plan=None,
+                   cycles=None) -> dict:
+    """Check the inputs and launch ``wfa_prefix`` with ``plan`` (default
+    :func:`prefix_plan`'s for the card) on the current stream (its TIMED
+    instantiation when ``cycles`` is given); returns the exports.  Counts
+    no launch."""
+    from ._build import check_inputs, launch, stream_ptr
+
+    B, Kf = qb.shape[0], cfg.k_win
+    wm, we = windows(cfg.penalties)
+    if S0 < wm:
+        raise ValueError(f"run_prefix: S0 {S0} below the window depth {wm}")
+    i32, dev = torch.int32, qb.device
+    check_inputs("run_prefix", dev, qb=(qb, torch.uint8, (B, Lq)),
+                 tbuf=(tbuf, torch.uint8, (B, Ltb)), qlen=(qlen, i32, (B,)),
+                 tlen=(tlen, i32, (B,)), toff=(toff, i32, (B,)))
+    cell16 = semi_cell16(Ltb)
+    if plan is None:
+        plan = prefix_plan(cfg, B, cell16, _sms(dev))
+    ex = {"win_m": torch.empty((wm, B, K2), dtype=i32, device=dev),
+          "win_i": torch.empty((we, B, K2), dtype=i32, device=dev),
+          "win_d": torch.empty((we, B, K2), dtype=i32, device=dev),
+          "ainit": torch.empty((3, B, K2), dtype=i32, device=dev),
+          "b_m": torch.empty((3 * wm, B), dtype=i32, device=dev),
+          "b_ie": torch.empty((6 * we, B), dtype=i32, device=dev),
+          "meta1": torch.empty((B, len(META1_COLS)), dtype=i32, device=dev),
+          "aux_old": torch.empty((3, S0, B, Kf), device=dev,
+                                 dtype=torch.int16 if cell16 else i32)}
+    win = (torch.empty((B, plan.ints), dtype=i32, device=dev)
+           if plan.scratch else None)
+    p, ad = cfg.penalties, cfg.adaptive
+    launch("wfa_prefix", qb, tbuf, qlen, tlen, toff,
+           *(ctypes.c_int(v) for v in (
+               B, Lq, Ltb, S0, Kf, K2, p.mismatch, p.gap_open + p.gap_ext,
+               p.gap_ext, int(ad is not None), ad.min_wf_len if ad else 0,
+               ad.max_dist_diff if ad else 0, int(cell16), plan.threads,
+               plan.cluster)),
+           win, ex["aux_old"], *(ex[k] for k in (
+               "win_m", "win_i", "win_d", "ainit", "b_m", "b_ie", "meta1")),
+           cycles, stream_ptr(dev))
+    return ex
+
+
 def run_prefix(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig, Lq: int,
                Ltb: int, S0: int, K2: int) -> dict:
     """K3, phase 1 of the two-phase semi-global route: scores 0 .. S0 - 1
@@ -219,36 +383,8 @@ def run_prefix(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig, Lq: int,
     if qb.device.type == "cpu":
         return prefix_export_plain(qb, tbuf, qlen, tlen, toff, cfg=cfg,
                                    Lq=Lq, Ltb=Ltb, S0=S0, K2=K2)
-    from ._build import check_inputs, launch, stream_ptr
-
-    B, Kf = qb.shape[0], cfg.k_win
-    wm, we = windows(cfg.penalties)
-    if S0 < wm:
-        raise ValueError(f"run_prefix: S0 {S0} below the window depth {wm}")
-    i32, dev = torch.int32, qb.device
-    check_inputs("run_prefix", dev, qb=(qb, torch.uint8, (B, Lq)),
-                 tbuf=(tbuf, torch.uint8, (B, Ltb)), qlen=(qlen, i32, (B,)),
-                 tlen=(tlen, i32, (B,)), toff=(toff, i32, (B,)))
-    cell16 = semi_cell16(Ltb)
-    ex = {"win_m": torch.empty((wm, B, K2), dtype=i32, device=dev),
-          "win_i": torch.empty((we, B, K2), dtype=i32, device=dev),
-          "win_d": torch.empty((we, B, K2), dtype=i32, device=dev),
-          "ainit": torch.empty((3, B, K2), dtype=i32, device=dev),
-          "b_m": torch.empty((3 * wm, B), dtype=i32, device=dev),
-          "b_ie": torch.empty((6 * we, B), dtype=i32, device=dev),
-          "meta1": torch.empty((B, len(META1_COLS)), dtype=i32, device=dev),
-          "aux_old": torch.empty((3, S0, B, Kf), device=dev,
-                                 dtype=torch.int16 if cell16 else i32)}
-    win = _scratch(cfg, "prefix", B, dev)
-    p, ad = cfg.penalties, cfg.adaptive
-    launch("wfa_prefix", qb, tbuf, qlen, tlen, toff,
-           *(ctypes.c_int(v) for v in (
-               B, Lq, Ltb, S0, Kf, K2, p.mismatch, p.gap_open + p.gap_ext,
-               p.gap_ext, int(ad is not None), ad.min_wf_len if ad else 0,
-               ad.max_dist_diff if ad else 0, int(cell16))),
-           win, ex["aux_old"], *(ex[k] for k in (
-               "win_m", "win_i", "win_d", "ainit", "b_m", "b_ie", "meta1")),
-           stream_ptr(dev))
+    ex = _prefix_launch(qb, tbuf, qlen, tlen, toff, cfg=cfg, Lq=Lq, Ltb=Ltb,
+                        S0=S0, K2=K2)
     run_prefix.launches["prefix"] += 1
     return ex
 

@@ -3,7 +3,7 @@ score loop's phases.
 
     python -m wfa_tpu_torch.profiling [--length 50000] [--pairs 64]
                                       [--calls 3] [--semi]
-    python -m wfa_tpu_torch.profiling --phases [--ab DIR]
+    python -m wfa_tpu_torch.profiling --phases [--plans] [--ab DIR]
 
 Generates ``generate_pairs(pairs, length, 0.05, seed=42)`` (bench.py's
 data), runs one warm call of ``AlignmentPipeline.align_all`` (global, or
@@ -16,45 +16,67 @@ wall time) and the device time per kernel name.
 
 ``--phases`` prints ptxas's register, spill and shared-memory report of
 every kernel (when this process built the library), then runs the timed
-instantiation of the score loop (:func:`run_phases`) on the batches of
-``PHASE_BATCHES``: K1 on 2048 global pairs of l=1000 (k_win 128, s_cap
-640) and K1-long on 64 pairs of l=50000 (k_win 384, s_cap 27,648),
-``generate_pairs(n, l, 0.05, seed=42)``, 4/6/2, 10/50/1, the global and
-long paths' own first batches.  For each it prints the cycles thread 0
-of a pair's block spent in each phase of a score step (``PHASES``),
-summed over the batch, per step and as a share, with the card's name and
-power limit.  Each ``--ab DIR`` builds a second library from the
-``*.cu`` sources in DIR (a copy of another revision's ``csrc``, placed in
-the git-ignored build directory) and times, with each build in turns on
-the same batch (DIR's, this tree's, this tree's, DIR's; CUDA events, 3
-launches a turn after a warm one): K1, K1-long, K1-kw (2048 pairs of
-l=4000, KW = k_win 256, s_cap 2304), K1-semi (1024 semi-global pairs of
-l=200, k_win 512, s_cap 256), K3 and K4 (``AB_SEMI2``: 2048 semi-global
-pairs of l=1000 at 4/6/2, 256 at 4/6/1), after checking that the two
-builds give the same outputs; then the semi-global l=1000 routes
-(:func:`route_ab`): ``align_batch`` of the two-phase route and of K1-semi
-at the full span on 1024 pairs, host clock, and each route's kernels.
-Needs a CUDA card.
+instantiations of the score loop (:func:`run_phases`,
+:func:`run_prefix_phases`) on the batches of ``PHASE_BATCHES``: K1 on
+2048 global pairs of l=1000 (k_win 128, s_cap 640), K1-long on 64 pairs
+of l=50000 (k_win 384, s_cap 27,648) and K1-kw on 2048 pairs of l=4000
+(KW = k_win 256, s_cap 2304), and of ``SEMI2_BATCHES``: K3 on 2048
+semi-global pairs of l=1000 (Kf 2048) and on 64 of l=10000 (Kf 20,096),
+S0 64, K2 256; ``generate_pairs(n, l, 0.05, seed=42)``, 4/6/2, 10/50/1,
+each path's own first batch.  For each it prints the cycles thread 0 of
+a pair's block spent in each phase of a score step (``PHASES``), summed
+over the batch, per step and as a share, with the card's name and power
+limit.  ``--plans`` first times K3 at every launch plan it takes
+(:func:`prefix_plans`).  Each ``--ab DIR`` builds a second library from
+the ``*.cu`` sources in DIR (a copy of another revision's ``csrc``,
+placed in the git-ignored build directory) and times, with each build in
+turns on the same batch (DIR's, this tree's, this tree's, DIR's; CUDA
+events, 3 launches a turn after a warm one): K1, K1-long, K1-kw, K1-semi
+(1024 semi-global pairs of l=200, k_win 512, s_cap 256), K3 and K4
+(``AB_SEMI2``: 2048 semi-global pairs of l=1000 at 4/6/2, 256 at 4/6/1,
+64 of l=10000), after checking that the two builds give the same
+outputs; then the semi-global l=1000 routes (:func:`route_ab`):
+``align_batch`` of the two-phase route and of K1-semi at the full span
+on 1024 pairs, host clock, and each route's kernels.  Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import subprocess
 import time
 
-# the phase profile's batches, (pairs, l, k_win, s_cap, KW or None, mode):
-# the first batch of the global l=1000, long l=50000 and l=4000 paths
+# the phase profile's score-loop batches, (pairs, l, k_win, s_cap, KW or
+# None, mode): the first batch of the global l=1000, long l=50000 and
+# l=4000 paths
 PHASE_BATCHES = {"K1": (2048, 1000, 128, 640, None, 0),
-                 "K1-long": (64, 50000, 384, 27648, None, 2)}
-AB_BATCHES = {**PHASE_BATCHES, "K1-kw": (2048, 4000, 256, 2304, 256, 3),
+                 "K1-long": (64, 50000, 384, 27648, None, 2),
+                 "K1-kw": (2048, 4000, 256, 2304, 256, 3)}
+AB_BATCHES = {**PHASE_BATCHES,
               "K1-semi": (1024, 200, 512, 256, None, 1)}
-# K3 and K4 on the two-phase semi-global l=1000 path's first batch (S0 64,
-# k_win 256, s_cap 640), by name suffix: (penalties, pairs); 4/6/1 on
-# the 256 pairs of the smoke's K3 record at those penalties
-AB_SEMI2 = {"": ((4, 6, 2), 2048), " 4/6/1": ((4, 6, 1), 256)}
+# K3's batches, the two-phase semi-global paths' first (S0 64, K2 = k_win
+# 256; Kf 2048 at l=1000, 20,096 at l=10000): (penalties, pairs, l, s_cap)
+SEMI2_BATCHES = {"K3": ((4, 6, 2), 2048, 1000, 640),
+                 "K3-10k": ((4, 6, 2), 64, 10000, 5632)}
+# K3 and K4 of both builds in turns, by name suffix: those batches, and
+# 4/6/1 on the 256 pairs of the smoke's K3 record at those penalties
+AB_SEMI2 = {"": SEMI2_BATCHES["K3"], " 4/6/1": ((4, 6, 1), 256, 1000, 640),
+            " l=10000": SEMI2_BATCHES["K3-10k"]}
+# K3's launch plans in turns: those batches, 128 pairs of l=1000 (a pair
+# or fewer an SM at Kf 2048, as the l=1000 path's tier-1 retries), and
+# batches whose workspace lies in the scratch, from under a pair an SM to
+# eight, at l=2100 (Kf 4224) and l=10000 (Kf 20,096), where the plan's
+# block shape moves with the pairs an SM
+PLAN_BATCHES = {**AB_SEMI2, " 128 pairs": ((4, 6, 2), 128, 1000, 640),
+                **{f" l={length} {n} pairs": ((4, 6, 2), n, length, s_cap)
+                   for length, s_cap, sizes in (
+                       (2100, 1280, (133, 264, 528, 529, 1056)),
+                       (10000, 5632, (100, 132, 133, 200, 264, 528, 529,
+                                      792, 1056)))
+                   for n in sizes}}
 # the routes' A/B batch: K1-semi's aux at the full span is 16 GiB
 AB_ROUTE_PAIRS = 1024
 
@@ -87,64 +109,114 @@ def kernel_batch(n: int, length: int, k_win: int, s_cap: int, kw=None,
 # the phases of the timed instantiation's cycles columns: extend (with
 # dmin and the Ak cell), the termination test, the reduce (classify, the
 # mark scan, the zero pass with the flush's value range), the flush (its
-# plan and its writes), next() (the new cells, and the aux zeros outside
-# them), the new bands (the barrier and the ballot scans)
-PHASES = ("extend", "termination", "reduce", "flush", "next", "bands")
+# plan and its writes), next() (the new cells), the new bands (the barrier
+# and the ballot scans), the semi-global end finder, the zero tail of the
+# aux rows next() writes whole (outside its columns), the set-up before the
+# first step (zeroing, seeding), and the prefix's exports (the other
+# modes: the out rows)
+PHASES = ("extend", "termination", "reduce", "flush", "next", "bands",
+          "end finder", "zero tail", "setup", "exports")
 
 
 def run_phases(qb, tbuf, qlen, tlen, toff, *, cfg, Lq: int, Ltb: int,
-               long: bool = False):
-    """One launch of the timed score loop ``wfa_score_loop_phases`` (K1,
-    or K1-long with ``long``) on CUDA tensors: returns (out int32[7, B],
-    cycles int64[B, 7]), the cycles thread 0 of each pair's block spent
-    in each of ``PHASES``, then the steps it ran.  No path runs it, so no
-    launch count counts it."""
+               mode: int = 0):
+    """One launch of the timed score loop ``wfa_score_loop_phases`` in
+    ``mode`` (0 K1, 2 K1-long, 3 K1-kw at ``cfg.aux_kw``) on CUDA tensors:
+    returns (out int32[7, B], cycles int64[B, len(PHASES) + 1]), the
+    cycles thread 0 of each pair's block spent in each of ``PHASES``, then
+    the steps it ran.  No path runs it, so no launch count counts it."""
     import torch
 
     from ._build import launch, stream_ptr
     from .kernel_engine import loop_args
 
-    B, S, K = qb.shape[0], cfg.s_cap, cfg.k_win
+    B, S = qb.shape[0], cfg.s_cap
     dev = qb.device
     cycles = torch.zeros((B, len(PHASES) + 1), dtype=torch.int64, device=dev)
-    aux = torch.empty((3, S, B, K), device=dev,
-                      dtype=torch.int16 if long else torch.int32)
-    base = (torch.empty((B, S), dtype=torch.int32, device=dev) if long
-            else None)
-    args, out = loop_args(qb, tbuf, qlen, tlen, toff, cfg, Lq, Ltb,
-                          2 if long else 0, aux, base)
+    aux = torch.empty((3, S, B, cfg.aux_kw or cfg.k_win), device=dev,
+                      dtype=torch.int32 if mode == 0 else torch.int16)
+    base = (None if mode == 0 else torch.empty(
+        (B, S) if mode == 2 else (S, B), dtype=torch.int32, device=dev))
+    args, out = loop_args(qb, tbuf, qlen, tlen, toff, cfg, Lq, Ltb, mode,
+                          aux, base, kw=cfg.aux_kw or 0)
     launch("wfa_score_loop_phases", *args, cycles, stream_ptr(dev))
     return out, cycles
 
 
-def phase_split(name: str) -> dict:
-    """The timed score loop on ``PHASE_BATCHES[name]``: cycles per phase
-    (summed over the batch's blocks), per step, and shares; the steps; the
-    launch's milliseconds (CUDA events, stamps included)."""
+def run_prefix_phases(qb, tbuf, qlen, tlen, toff, *, cfg, Lq: int, Ltb: int,
+                      S0: int, K2: int, plan=None):
+    """One launch of K3's timed instantiation (``wfa_prefix`` with cycles)
+    at ``plan`` (default ``kernel_engine.prefix_plan``): returns (the
+    exports, cycles as :func:`run_phases`').  Counts no launch."""
     import torch
 
-    n, length, k_win, s_cap, _, mode = PHASE_BATCHES[name]
-    cfg, ins = kernel_batch(n, length, k_win, s_cap)
-    qb, tbuf, qlen, tlen, toff, Lq, Ltb = ins
-    kw = dict(cfg=cfg, Lq=Lq, Ltb=Ltb, long=mode == 2)
-    run_phases(qb, tbuf, qlen, tlen, toff, **kw)  # warm
+    from . import kernel_engine
+
+    cycles = torch.zeros((qb.shape[0], len(PHASES) + 1), dtype=torch.int64,
+                         device=qb.device)
+    ex = kernel_engine._prefix_launch(
+        qb, tbuf, qlen, tlen, toff, cfg=cfg, Lq=Lq, Ltb=Ltb, S0=S0, K2=K2,
+        plan=plan, cycles=cycles)
+    return ex, cycles
+
+
+def phase_split(name: str) -> dict:
+    """The timed score loop on ``PHASE_BATCHES[name]`` or, for K3,
+    ``SEMI2_BATCHES[name]``: cycles per phase (summed over the batch's
+    blocks), per step, and shares; the steps; the launch's milliseconds
+    (CUDA events, stamps included)."""
+    import torch
+
+    from .engine import semi_cell16
+    from .kernel_engine import _sms, prefix_plan
+
+    if name in SEMI2_BATCHES:
+        from . import Penalties
+        from .semi2 import M1_DONE
+
+        pen, n, length, s_cap = SEMI2_BATCHES[name]
+        _, args, pkw, cfg = _semi2_batch(Penalties(*pen), n, length,
+                                         s_cap=s_cap)
+
+        def run():
+            ex, cyc = run_prefix_phases(*args, **pkw)
+            return ex["meta1"][:, M1_DONE], cyc
+
+        k_win = pkw["K2"]
+        rec = {"row": name, "pairs": n, "length": length, "Kf":
+               pkw["cfg"].k_win, "S0": pkw["S0"], "k_win": k_win,
+               "cell16": semi_cell16(pkw["Ltb"]),
+               "plan": prefix_plan(pkw["cfg"], n, semi_cell16(pkw["Ltb"]),
+                                   _sms(args[0].device))._asdict()}
+    else:
+        n, length, k_win, s_cap, kw, mode = PHASE_BATCHES[name]
+        cfg, ins = kernel_batch(n, length, k_win, s_cap, kw)
+        args = ins[:5]
+        pkw = dict(cfg=cfg, Lq=ins[5], Ltb=ins[6], mode=mode)
+
+        def run():
+            out, cyc = run_phases(*args, **pkw)
+            return out[1], cyc
+
+        rec = {"row": name, "pairs": n, "length": length, "k_win": k_win,
+               "s_cap": s_cap, "kw": kw}
+    run()  # warm
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    out, cyc = run_phases(qb, tbuf, qlen, tlen, toff, **kw)
+    done, cyc = run()
     end.record()
     torch.cuda.synchronize()
     tot = cyc.sum(0).tolist()
     steps = tot[-1]
     total = sum(tot[:-1])
-    rec = {"row": name, "pairs": n, "length": length, "k_win": k_win,
-           "s_cap": s_cap, "ms": start.elapsed_time(end), "steps": steps,
-           "done": int((out[1] > 0).sum()),
-           "cycles_per_step": total / max(steps, 1),
-           "phases": {ph: {"cycles": c, "per_step": c / max(steps, 1),
-                           "share": c / max(total, 1)}
-                      for ph, c in zip(PHASES, tot)}}
-    del ins, out, cyc
+    rec.update({"ms": start.elapsed_time(end), "steps": steps,
+                "done": int((done > 0).sum()),
+                "cycles_per_step": total / max(steps, 1),
+                "phases": {ph: {"cycles": c, "per_step": c / max(steps, 1),
+                                "share": c / max(total, 1)}
+                           for ph, c in zip(PHASES, tot)}})
+    del args, done, cyc
     torch.cuda.empty_cache()
     return rec
 
@@ -158,15 +230,34 @@ def _built_from(lib):
     scratch: it gets one of this tree's size, no smaller than its own."""
     from . import _build, kernel_engine
 
-    saved = _build._lib, kernel_engine.workspace
+    saved = _build._lib, kernel_engine.workspace, kernel_engine.prefix_plan
     _build._lib = lib
     if not hasattr(lib, "wfa_workspace"):
         ws = saved[1]
         kernel_engine.workspace = lambda cfg, mode: (ws(cfg, mode)[0], False)
+    if not hasattr(lib, "wfa_prefix_shared"):
+        # its wfa_prefix predates the block shape and the cycles: one
+        # block of 128 threads, the workspace in shared memory only within
+        # 48 KB (its rule), those three arguments dropped
+        def plan(cfg, *_, **__):
+            ints = kernel_engine.workspace(cfg, "prefix")[0]  # int32 cells
+            slots = kernel_engine.slot_ints(cfg)
+            return kernel_engine.PrefixPlan(
+                128, 0, not hasattr(lib, "wfa_workspace")
+                or 4 * (slots + ints) > kernel_engine.SHARED_BYTES, ints)
+
+        kernel_engine.prefix_plan = plan
+        if not hasattr(lib, "_wfa_prefix_c"):
+            lib._wfa_prefix_c = lib.wfa_prefix
+            lib._wfa_prefix_c.argtypes = _build._SIGNATURES["wfa_prefix"][
+                :18] + [ctypes.c_void_p] * 10
+            lib.wfa_prefix = lambda *a: lib._wfa_prefix_c(*a[:18],
+                                                          *a[20:-2], a[-1])
     try:
         yield
     finally:
-        _build._lib, kernel_engine.workspace = saved
+        (_build._lib, kernel_engine.workspace,
+         kernel_engine.prefix_plan) = saved
 
 
 def _turns(fn, libs: dict, reps: int, host: bool = False) -> dict:
@@ -254,8 +345,9 @@ def ab_turns(parent_dir: str, reps: int = 3) -> dict:
                      "turns_ms": _turns(run, libs, reps)}
         del ins
         torch.cuda.empty_cache()
-    for tag, (pen, n) in AB_SEMI2.items():
-        for name, rec in ab_semi2(libs, Penalties(*pen), n, reps).items():
+    for tag, (pen, n, length, s_cap) in AB_SEMI2.items():
+        for name, rec in ab_semi2(libs, Penalties(*pen), n, length, s_cap,
+                                  reps).items():
             res[name + tag] = rec
     res["routes"] = route_ab(libs)
     return res
@@ -301,18 +393,19 @@ def _resume_args(pairs, args, ex):
                               "b_ie", "meta1"))), Ltb2
 
 
-def ab_semi2(libs: dict, pen, n: int, reps: int) -> dict:
+def ab_semi2(libs: dict, pen, n: int, length: int, s_cap: int,
+             reps: int) -> dict:
     """K3 and K4 of both builds on the two-phase route's first batch of
-    ``n`` semi-global l=1000 pairs at ``pen`` (Kf 2048, S0 64, k_win 256,
-    s_cap 640), in turns, after checking that both give the same exports
-    and phase-2 outputs (their don't-cares zeroed); K4 of both runs on
-    this tree's exports."""
+    ``n`` semi-global pairs of ``length`` at ``pen`` (Kf the full span,
+    S0 64, k_win 256), in turns, after checking that both give the same
+    exports and phase-2 outputs (their don't-cares zeroed); K4 of both
+    runs on this tree's exports."""
     import torch
 
     from . import semi2 as ts
     from .kernel_engine import run_prefix, run_resume
 
-    pairs, args, pkw, cfg = _semi2_batch(pen, n)
+    pairs, args, pkw, cfg = _semi2_batch(pen, n, length, s_cap=s_cap)
     got = []
     for who in ("parent", "this"):
         with _built_from(libs[who]):
@@ -336,7 +429,7 @@ def ab_semi2(libs: dict, pen, n: int, reps: int) -> dict:
     k4 = _turns(lambda: run_resume(*r_args, **rkw), libs, reps)
     del ex, a, b, got
     torch.cuda.empty_cache()
-    common = {"pairs": n, "length": 1000, "penalties": list(
+    common = {"pairs": n, "length": length, "penalties": list(
         (pen.mismatch, pen.gap_open, pen.gap_ext)), "Kf": pkw["cfg"].k_win,
         "S0": S0, "k_win": cfg.k_win, "s_cap": cfg.s_cap}
     return {"K3": {**common, "turns_ms": k3}, "K4": {**common, "turns_ms": k4}}
@@ -432,7 +525,7 @@ def ptxas_table(log: str) -> list:
     """ptxas's report (``-Xptxas -v``) of every kernel in an nvcc log: one
     line per entry function with its registers, stack, spills and static
     shared memory; score-loop instantiations by their template arguments
-    (GLOBAL, REBASE, PHASE, Cell, KWIN, TIMED) and row name."""
+    (GLOBAL, REBASE, PHASE, Cell, KWIN, TIMED, NT, CL) and row name."""
     import re
 
     rows, name = [], None
@@ -441,13 +534,15 @@ def ptxas_table(log: str) -> list:
         if m:
             name = m.group(1)
             t = re.search(r"score_loop_kernelILb(\d)ELb(\d)ELi(\d)E(\w)"
-                          r"Lb(\d)ELb(\d)E", name)
+                          r"Lb(\d)ELb(\d)E(?:Li(\d+)E)?(?:Li(\d+)E)?",
+                          name)
             if t:
-                g, r, ph, cell, kwin, timed = t.groups()
+                g, r, ph, cell, kwin, timed, nt, cl = t.groups()
                 key = (int(g), int(r), int(ph), cell, int(kwin))
                 name = (f"score_loop_kernel<{g}, {r}, {ph}, "
                         f"{'int32' if cell == 'i' else 'int16'}, {kwin}, "
-                        f"{timed}> ({_MODES.get(key, '?')}"
+                        f"{timed}, {nt or 128}, {cl or 1}> "
+                        f"({_MODES.get(key, '?')}"
                         f"{', timed' if timed == '1' else ''})")
             elif "backtrace_kernel" in name:
                 name = ("backtrace_kernel<int32>" if "IiE" in name
@@ -460,6 +555,71 @@ def ptxas_table(log: str) -> list:
     return [f"{n}: {u}; {st}" for n, st, u in rows]
 
 
+def prefix_plans(parent_dir=None, reps: int = 3) -> dict:
+    """K3 at every launch plan it takes
+    (``kernel_engine.every_prefix_plan``), and with ``parent_dir`` the
+    build of its sources at its own plan, on each batch of
+    ``PLAN_BATCHES``, in turns (the variants in order, then in reverse;
+    CUDA events, ``reps`` launches a turn after a warm one), after
+    checking that every
+    variant gives the exports of this tree's default plan (their
+    don't-cares zeroed).  Returns ms per launch by batch and variant."""
+    import torch
+
+    from . import Penalties, _build
+    from . import semi2 as ts
+    from .engine import semi_cell16
+    from .kernel_engine import (_prefix_launch, _sms, every_prefix_plan,
+                                prefix_plan)
+
+    this = _build.library()
+    parent = _build.build(parent_dir) if parent_dir else None
+    res = {}
+    for tag, (pen, n, length, s_cap) in PLAN_BATCHES.items():
+        _, args, pkw, _ = _semi2_batch(Penalties(*pen), n, length,
+                                       s_cap=s_cap)
+        cfg = pkw["cfg"]
+        cell16 = semi_cell16(pkw["Ltb"])
+        at = (cfg, n, cell16, _sms(args[0].device))
+        variants = [(this, plan) for plan in every_prefix_plan(*at)]
+        if parent is not None:
+            variants.insert(0, (parent, None))
+
+        def run(lib, plan):
+            with _built_from(lib):
+                return _prefix_launch(*args, **pkw, plan=plan)
+
+        want = ts.canonical_exports(run(this, None))
+        for lib, plan in variants:
+            got = ts.canonical_exports(run(lib, plan))
+            bad = [k for k in want if not torch.equal(want[k], got[k])]
+            del got
+            if bad:
+                raise SystemExit(f"K3{tag} at {plan}: exports {bad} differ")
+        del want
+        name = lambda plan: ("parent" if plan is None
+                             else str((*plan[:3], plan.cluster)))
+        turns = {name(plan): [] for _, plan in variants}
+        for lib, plan in variants + variants[::-1]:
+            run(lib, plan)  # warm
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                run(lib, plan)
+            end.record()
+            torch.cuda.synchronize()
+            turns[name(plan)].append(start.elapsed_time(end) / reps)
+        res["K3" + tag] = {"pairs": n, "length": length, "Kf": cfg.k_win,
+                           "penalties": list(pen),
+                           "default": name(prefix_plan(*at)),
+                           "turns_ms": turns}
+        del args
+        torch.cuda.empty_cache()
+    return res
+
+
 def phases_main(args) -> None:
     from . import _build
 
@@ -469,7 +629,10 @@ def phases_main(args) -> None:
     print(f"build: nvcc {_build.build_seconds} s")
     for line in ptxas_table(_build.build_log):
         print(f"  ptxas: {line}")
-    for name in PHASE_BATCHES:
+    if args.plans:
+        rec = prefix_plans(args.ab[0] if args.ab else None)
+        print(f"K3 plans on {card}: " + json.dumps(rec), flush=True)
+    for name in (*PHASE_BATCHES, *SEMI2_BATCHES):
         rec = phase_split(name)
         print(f"phases {name} on {card}: " + json.dumps(rec), flush=True)
     for d in args.ab:
@@ -496,6 +659,9 @@ def main() -> None:
                     help="semi-global alignment (the CLI's -g)")
     ap.add_argument("--phases", action="store_true",
                     help="the score loop's per-phase cycle split")
+    ap.add_argument("--plans", action="store_true",
+                    help="with --phases: time K3 at each launch plan "
+                         "(and the first --ab DIR's K3) in turns")
     ap.add_argument("--ab", metavar="DIR", action="append", default=[],
                     help="with --phases: time the build of DIR's sources "
                          "against this tree's, in turns")
