@@ -24,7 +24,8 @@ spaced results of each against the port's exact oracle:
   each path's shape (Kf 2048 and 20,096); K3 also at Penalties(4,
   6, 1), the penalties only the TPU's whole-K prefix kernel takes: a
   two-phase run of 256 pairs of l=1000 against the oracle, and K3, K4 and
-  K2 checked on the batch that run gave them;
+  K2 checked on the batch that run gave them; K4 keeps a record at each
+  of the three (l=1000, l=10000, 4/6/1);
   then one A/B of the two-phase route against K1-semi at the full span on
   1024 pairs of l=1000, in turns;
 * global reads just past int16 offsets: 4096 pairs of l=4000, e=0.05,
@@ -38,9 +39,10 @@ spaced results of each against the port's exact oracle:
   both checked on those same 64 pairs, the path's one batch (the plain
   K1-long takes ~100 s a call, ~6 ms for each of ~14,600 scores); all 64
   results checked against the oracle;
-* then the per-phase cycle split of a score step of K1, K1-long, K1-kw
-  and K3 (Kf 2048 and 20,096) on their paths' first batches (the timed
-  instantiations of ``wfa_tpu_torch.profiling --phases``), one line each.
+* then the per-phase cycle split of a score step of K1, K1-long, K1-kw,
+  K3 (Kf 2048 and 20,096) and K4 (after each) on their paths' first
+  batches (the timed instantiations of ``wfa_tpu_torch.profiling
+  --phases``), one line each.
 
 The semi-global l=1000 path checks 256 results, the l=10000 and the long
 paths all 64, the others 512; the oracle runs in a pool of one process
@@ -286,13 +288,13 @@ def phase_build() -> None:
 
 
 def phase_steps(card: str) -> None:
-    """The score loop's per-phase cycle split of K1, K1-long, K1-kw and K3
-    on their paths' first batches (``profiling.phase_split``: the timed
-    instantiations, which no path runs), one JSON line each."""
-    from wfa_tpu_torch.profiling import (PHASE_BATCHES, SEMI2_BATCHES,
-                                         phase_split)
+    """The score loop's per-phase cycle split of K1, K1-long, K1-kw, K3
+    and K4 on their paths' first batches (``profiling.phase_split``: the
+    timed instantiations, which no path runs), one JSON line each."""
+    from wfa_tpu_torch.profiling import (PHASE_BATCHES, RESUME_BATCHES,
+                                         SEMI2_BATCHES, phase_split)
 
-    for name in (*PHASE_BATCHES, *SEMI2_BATCHES):
+    for name in (*PHASE_BATCHES, *SEMI2_BATCHES, *RESUME_BATCHES):
         print(f"phases {name} on {card}: {json.dumps(phase_split(name))}",
               flush=True)
 
@@ -856,9 +858,9 @@ def phase_bwa(reps: int, recs, card: str):
     the TPU's whole-K EXPORT kernel, pallas_engine.py:1259) on 256 pairs
     of l=1000 against the oracle, its launch counts read around the timed
     call; then K3, K4 and K2 against their plain versions on the batch
-    that run gave them, so that K3's record (its check, time, bound and
-    launches) holds the one launch plan the run took.  Returns K3's
-    record."""
+    that run gave them, so that K3's and K4's records (their checks,
+    times, bounds and launches) hold the one launch plan the run took.
+    Returns the two records."""
     import torch
     from wfa_tpu_torch import (AdaptiveReductionOption, OracleAligner,
                                Options, Penalties)
@@ -876,12 +878,14 @@ def phase_bwa(reps: int, recs, card: str):
         torch.cuda.synchronize()
         launches = read_counters()
     k3_launches = launches["score_loop_prefix"]["prefix"]
+    k4_launches = launches["score_loop_resume"]["resume"]
     served = [i for i, r in enumerate(res) if r is not None]
     print(f"4/6/1 l=1000 two-phase: {len(served)} of {len(pairs)} pairs "
           f"served at tier-0 caps on {card}; launches {launches}; batches "
           f"{[(key, len(p)) for key, p in seen.items()]}")
-    if len(served) < len(pairs) // 2 or k3_launches <= 0:
-        fail("4/6/1 two-phase run served too few pairs or launched no K3")
+    if len(served) < len(pairs) // 2 or k3_launches <= 0 or k4_launches <= 0:
+        fail("4/6/1 two-phase run served too few pairs or launched no K3 "
+             "or no K4")
     oracle_check("4/6/1 l=1000 two-phase", pairs, res, served,
                  OracleAligner(pen, Options(False), ad))
     new = []
@@ -891,7 +895,8 @@ def phase_bwa(reps: int, recs, card: str):
     rec3.update(name="score_loop_prefix_4_6_1",
                 replaces="wfa_tpu/pallas_engine.py:1259",
                 launches=k3_launches)
-    return rec3
+    rec4.update(name="score_loop_resume_4_6_1", launches=k4_launches)
+    return rec3, rec4
 
 
 def phase_ab(card: str) -> None:
@@ -900,11 +905,11 @@ def phase_ab(card: str) -> None:
     l=1000, s_cap 640 both (``profiling.route_ab``): align_batch wall
     times and each route's kernel times, two turns each after a warm call,
     the pairs each serves, their results equal where both serve."""
-    from wfa_tpu_torch import _build
+    import wfa_tpu_torch
     from wfa_tpu_torch.profiling import route_ab
 
     print(f"A/B l=1000 semi routes on {card}: "
-          f"{json.dumps(route_ab({'this': _build.library()}))}")
+          f"{json.dumps(route_ab({'this': wfa_tpu_torch}))}")
 
 
 def blocked_modules() -> set:
@@ -960,15 +965,17 @@ def main() -> None:
     launches, seen = phase_main(N_SEMI_LONG, 10000, False, BATCH,
                                 N_SEMI_LONG, card, SEMI_CHECKS, need2,
                                 SEMI2_CHECKS)
-    # K3 at Kf 20,096 keeps a record of its own: its time, bound and
-    # launches at the l=10000 path's shape
+    # K3 at Kf 20,096 and K4 after it keep records of their own: their
+    # time, bound and launches at the l=10000 path's shape
     long_recs = []
     check_own_batches(seen, 10000, 3, long_recs, (rec3, rec4))
     merge(semi2_recs, long_recs)
-    k3_long = long_recs[0]
+    k3_long, k4_long = long_recs[:2]
     k3_long.update(name="score_loop_prefix_l10000",
                    launches=launches["score_loop_prefix"]["prefix"])
-    rec_bwa = phase_bwa(3, semi2_recs, card)
+    k4_long.update(name="score_loop_resume_l10000",
+                   launches=launches["score_loop_resume"]["resume"])
+    rec_bwa, k4_bwa = phase_bwa(3, semi2_recs, card)
     phase_ab(card)
     # reads just past int16 offsets: the path, then K1-kw and K2 over its
     # sbase words on the batches it ran; the int32 K1 must not run there
@@ -999,8 +1006,8 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     k3, k4, k2d = semi2_recs
-    recs = [rec1, rec3, rec7, rec5, k3, k3_long, rec_bwa, k4, rec2, rec4,
-            rec8, rec6, k2d]
+    recs = [rec1, rec3, rec7, rec5, k3, k3_long, rec_bwa, k4, k4_long,
+            k4_bwa, rec2, rec4, rec8, rec6, k2d]
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in recs]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

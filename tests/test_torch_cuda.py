@@ -18,7 +18,9 @@ route at its tier-0 and tier-1 caps, at l=5000, at penalties the TPU's
 chunked prefix kernel refuses, and with a target row that holds only a
 suffix; the score loop's workspace in shared memory and in the device
 scratch on either side of the limit, and its size and place against the
-kernel's own layout; mismatch or gap extension 1; an
+kernel's own layout; the warp shape of K1-kw and K4 on either side of
+each threshold of its launch plan, at every plan on a batch whose pairs
+leave one block at different steps; mismatch or gap extension 1; an
 extension that ends at the last byte of the batch's rows).
 Integer outputs: exact equality.
 """
@@ -137,21 +139,31 @@ def test_kernels_match_plain(card, case):
 def test_workspace_sides_match_plain(card, mode, side):
     """K1, K1-long and K1-kw with their workspace in shared memory and in
     the device scratch, at the two windows on either side of the limit
-    (768 and 896 for K1 at 4/6/2, 512 and 640 for the staged modes)."""
+    (768 and 896 for K1 at 4/6/2, 512 and 640 for K1-long; for K1-kw's
+    warp shape with 16-bit cells, one pair a block here, 5504 and 5632, KW
+    the narrowest its row base allows)."""
     from wfa_tpu_torch import engine as te
     from wfa_tpu_torch.fuzz import limit_sides
-    from wfa_tpu_torch.kernel_engine import (run_batch, run_batch_kw,
-                                             run_batch_long, workspace)
+    from wfa_tpu_torch.kernel_engine import (_kw_launch, _sms, kw_mode,
+                                             run_batch, run_batch_long,
+                                             warp_plan, workspace)
 
     cfg = te.EngineConfig(penalties=Penalties(4, 6, 2), adaptive=ADAPTIVE,
                           s_cap=512)
-    cmode = {"global": 0, "long": 2, "kw": 3}[mode]
+    cmode = {"global": 0, "long": 2, "kw": "kw16"}[mode]
     k_win = limit_sides(cfg, cmode)[side == "scratch"]
+    kw = max(256, -(-(k_win - 31 * 32) // 128) * 128)
     cfg = dataclasses.replace(cfg, k_win=k_win,
-                              aux_kw=256 if mode == "kw" else None)
+                              aux_kw=kw if mode == "kw" else None)
     assert workspace(cfg, cmode)[1] == (side == "shared")
     pairs = _pairs(16, 300, 0.1, 23)
     ins = te.inputs_from_packed(te._pack_all(pairs, k_win), card)
+    if mode == "kw":
+        # one pair a block, the workspace where this side puts it (the
+        # plan keeps 16 pairs' in the scratch)
+        assert kw_mode(ins[6]) == "kw16"
+        plan = warp_plan(cfg, cmode, len(pairs), _sms(card), 1,
+                         side == "scratch")
     kw = dict(cfg=cfg, Lq=ins[5], Ltb=ins[6])
     if mode == "global":
         ref = te.run_batch_plain(*ins[:5], **kw)
@@ -164,7 +176,7 @@ def test_workspace_sides_match_plain(card, mode, side):
         got = run_batch_long(*ins[:5], **kw)
     else:
         ref = te.canonical_kw(te.run_batch_kw_plain(*ins[:5], **kw))
-        got = te.canonical_kw(run_batch_kw(*ins[:5], **kw))
+        got = te.canonical_kw(_kw_launch(*ins[:5], **kw, plan=plan))
     ok = ref[1] & ~ref[2]
     assert int(ok.sum()) >= len(pairs) - 2
     for a, b in zip(ref[:4], got[:4]):
@@ -188,8 +200,10 @@ def test_workspace_matches_the_kernel(card):
     from wfa_tpu_torch import _build
     from wfa_tpu_torch import engine as te
     from wfa_tpu_torch.kernel_engine import (C_MODES, PREFIX_SHAPES,
-                                             SHARED_OPTIN, loop_args,
-                                             prefix_plan, workspace)
+                                             SHARED_OPTIN, WARP_MODES,
+                                             WARP_PAIRS, loop_args,
+                                             prefix_plan, warp_plan,
+                                             workspace)
 
     lib = _build.library()
     shared = ctypes.c_int(-1)
@@ -203,11 +217,34 @@ def test_workspace_matches_the_kernel(card):
                     cmode, ctypes.byref(shared))
                 assert workspace(cfg, mode) == (ints, bool(shared.value)), (
                     pen, k, mode)
-    assert lib.wfa_workspace(128, 4, 8, 2, 7, ctypes.byref(shared)) == -1
+    assert lib.wfa_workspace(128, 4, 8, 2, 9, ctypes.byref(shared)) == -1
+    # the warp shape's launch plan (K1-kw, K4): its shared memory at every
+    # pairs a block and place, and the launches the kernel refuses (-1):
+    # more than a block may have, pairs outside [1, 16], another mode
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for pen in (Penalties(4, 6, 2), Penalties(4, 6, 1), Penalties(9, 13, 5)):
+        for k in (128, 256, 512, 1024, 2688, 2816):
+            cfg = te.EngineConfig(penalties=pen, k_win=k)
+            args = (k, pen.mismatch, pen.gap_open + pen.gap_ext, pen.gap_ext)
+            for mode in WARP_MODES:
+                for pairs in range(1, WARP_PAIRS + 1):
+                    for scratch in (True, False):
+                        plan = warp_plan(cfg, mode, 64, sms, pairs, scratch)
+                        want = (plan.shared_bytes if plan.shared_bytes
+                                <= SHARED_OPTIN else -1)
+                        assert lib.wfa_warp_shared(
+                            *args, C_MODES[mode], pairs, scratch) == want
+                for B in (1, 64, 133, 1320, 1321, 2048):
+                    plan = warp_plan(cfg, mode, B, sms)
+                    assert plan.shared_bytes == lib.wfa_warp_shared(
+                        *args, C_MODES[mode], plan.pairs, plan.scratch)
+                for pairs in (0, WARP_PAIRS + 1):
+                    assert lib.wfa_warp_shared(*args, C_MODES[mode], pairs,
+                                               1) == -1
+            assert lib.wfa_warp_shared(*args, 0, 1, 1) == -1
     # K3's launch plan: its shared memory at every width and place, and
     # the launches the kernel refuses (-1): a place that does not fit, a
     # width not built
-    sms = torch.cuda.get_device_properties(card).multi_processor_count
     for pen in (Penalties(4, 6, 2), Penalties(4, 6, 1), Penalties(9, 13, 5)):
         for k in (512, 2048, 3072, 3200, 6272, 6400, 20096):
             cfg = te.EngineConfig(penalties=pen, k_win=k)
@@ -240,8 +277,8 @@ def test_workspace_matches_the_kernel(card):
                                 card)
     aux = torch.empty((3, 64, 4, 2048), dtype=torch.int32, device=card)
     args = list(loop_args(*ins[:5], cfg, ins[5], ins[6], 0, aux, None)[0])
-    assert args[18] is not None
-    args[18] = None  # the scratch
+    assert args[19] is not None
+    args[19] = None  # the scratch
     with pytest.raises(_build.KernelError):
         _build.launch("wfa_score_loop", *args, _build.stream_ptr(card))
     torch.cuda.synchronize()
@@ -344,14 +381,40 @@ def test_long_kernels_match_plain(card, case):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
-# (adaptive, KW, k_win, s_cap, length, error, pairs, seed); "escape" never
-# trims the band, which outgrows its 128 columns in every pair
+# (adaptive, KW, k_win, s_cap, length, error, pairs, seed), pairs (m, a)
+# meaning int(m x the card's SMs) + a; "escape" never trims the band,
+# which outgrows its 128 columns in every pair; "l9000"'s target buffer
+# passes the 8189 columns of 16-bit cells, so it runs int32 ones;
+# "k_win_258" a window that is no multiple of 8 (the flush a cell a lane
+# across the row).  The
+# "pairs_*", "shared_*" and "scratch_*" cases sit on either side of a
+# threshold of the warp shape's launch plan (kernel_engine.warp_plan: as
+# many pairs a block as each SM gets; the workspace in the scratch up to 8
+# pairs an SM, past it in shared memory while an SM holds them there:
+# with 16-bit cells all 16 at k_win 256, 10 at 512), KW_PLANS their plans
 KW_CASES = {
     "l4000": (ADAPTIVE, 256, 256, 2304, 4000, 0.05, 16, 19),
     "window_shift": (ADAPTIVE, 256, 512, 512, 400, 0.10, 24, 19),
     "escape": (AdaptiveReductionOption(10, 10 ** 6, 1), 128, 256, 512, 300,
                0.10, 8, 5),
+    "l9000": (ADAPTIVE, 256, 256, 5120, 9000, 0.05, 8, 19),
+    "k_win_258": (ADAPTIVE, 256, 258, 512, 400, 0.05, 16, 19),
+    "pairs_1": (ADAPTIVE, 256, 256, 512, 400, 0.05, (1, 0), 19),
+    "pairs_2": (ADAPTIVE, 256, 256, 512, 400, 0.05, (1, 1), 19),
+    "scratch_8": (ADAPTIVE, 256, 256, 512, 400, 0.05, (8, 0), 19),
+    "shared_9": (ADAPTIVE, 256, 256, 512, 400, 0.05, (8, 1), 19),
+    "k512_shared_10": (ADAPTIVE, 512, 512, 512, 400, 0.05, (10, 0), 19),
+    "k512_scratch_11": (ADAPTIVE, 512, 512, 512, 400, 0.05, (10, 1), 19),
 }
+# (pairs a block, the workspace in the scratch) of the plan's threshold
+# cases
+KW_PLANS = {"l9000": (1, True), "pairs_1": (1, True), "pairs_2": (2, True),
+            "scratch_8": (8, True), "shared_9": (9, False),
+            "k512_shared_10": (10, False), "k512_scratch_11": (11, True)}
+
+
+def _count(n, sms):
+    return n if isinstance(n, int) else int(n[0] * sms) + n[1]
 
 
 @pytest.mark.parametrize("case", list(KW_CASES))
@@ -362,14 +425,20 @@ def test_kw_kernels_match_plain(card, case):
     from wfa_tpu_torch import engine as te
     from wfa_tpu_torch.device_backtrace import (device_backtrace,
                                                 device_backtrace_plain)
-    from wfa_tpu_torch.kernel_engine import run_batch_kw
+    from wfa_tpu_torch.kernel_engine import (_sms, kw_mode, run_batch_kw,
+                                             warp_plan)
 
     ad, kw, k_win, s_cap, length, err, n, seed = KW_CASES[case]
+    n = _count(n, _sms(card))
     cfg = te.EngineConfig(penalties=Penalties(4, 6, 2), adaptive=ad,
                           k_win=k_win, s_cap=s_cap, aux_kw=kw)
     pairs = generate_pairs(n, length, err, seed=seed)
     qb, tbuf, qlen, tlen, toff, Lq, Ltb = te.inputs_from_packed(
         te._pack_all(pairs, k_win), card)
+    assert kw_mode(Ltb) == (3 if case == "l9000" else "kw16")
+    if case in KW_PLANS:
+        plan = warp_plan(cfg, kw_mode(Ltb), n, _sms(card))
+        assert (plan.pairs, plan.scratch) == KW_PLANS[case]
     args = (qb, tbuf, qlen, tlen, toff)
     ref = te.canonical_kw(te.run_batch_kw_plain(*args, cfg=cfg, Lq=Lq,
                                                 Ltb=Ltb))
@@ -540,7 +609,27 @@ SEMI2_CASES = {
                     (((2, 1), 1900, 0.05),)),
     "span_shared": (Penalties(4, 6, 2), 64, 256, 1024, ((8, 1500, 0.05),)),
     "span_scratch": (Penalties(4, 6, 2), 64, 256, 1024, ((8, 1500, 0.05),)),
+    "narrow_258": (Penalties(4, 6, 2), 64, 258, 640, ((32, 1000, 0.05),)),
+    "resume_warp_4": (Penalties(4, 6, 1), 64, 256, 640,
+                      (((4, 0), 1000, 0.05),)),
+    "resume_warp_5": (Penalties(4, 6, 1), 64, 256, 640,
+                      (((4, 1), 1000, 0.05),)),
+    "resume_shared_14": (Penalties(4, 6, 2), 112, 512, 640,
+                         (((14, 0), 1000, 0.05),)),
+    "resume_scratch_15": (Penalties(4, 6, 2), 112, 512, 640,
+                          (((14, 1), 1000, 0.05),)),
 }
+# K4's plan (pairs a block; the workspace in the scratch) on either side
+# of its thresholds ("narrow_258": a window that is no multiple of 4,
+# whose exports and aux rows the warp shape takes a cell a lane; 4 and 5
+# pairs a block at 4/6/1, whose band is the widest)
+# (kernel_engine.warp_plan: at k_win 512 with int16 windows its workspace
+# in shared memory up to 14 pairs an SM)
+WARP = {"tier0_l1000": (1, False), "tier1_l1000": (1, False),
+        "narrow_258": (1, False),
+        "tier0_l10000": (1, False), "penalties_4_6_1": (1, False),
+        "resume_warp_4": (4, False), "resume_warp_5": (5, False),
+        "resume_shared_14": (14, False), "resume_scratch_15": (15, True)}
 SPANS = {"span_shared": 3072, "span_scratch": 3200, "scratch_1024_1": 4096,
          "scratch_256": 4096}
 # ((threads, blocks a pair), the workspace in the scratch) of the plan's
@@ -563,7 +652,9 @@ def test_semi2_kernels_match_plain(card, case):
     from wfa_tpu_torch import semi2 as ts
     from wfa_tpu_torch.device_backtrace import (device_backtrace,
                                                 device_backtrace_plain)
-    from wfa_tpu_torch.kernel_engine import prefix_plan, run_prefix, run_resume
+    from wfa_tpu_torch.kernel_engine import (prefix_plan, resume_mode,
+                                             run_prefix, run_resume,
+                                             warp_plan)
 
     pen, S0, k_win, s_cap, parts = SEMI2_CASES[case]
     sms = torch.cuda.get_device_properties(card).multi_processor_count
@@ -599,6 +690,9 @@ def test_semi2_kernels_match_plain(card, case):
         k_win = max(hi, ak) - min(lo, ak) + 1
     cfg = te.EngineConfig(penalties=pen, global_alignment=False,
                           adaptive=ADAPTIVE, k_win=k_win, s_cap=s_cap)
+    if case in WARP:
+        wplan = warp_plan(cfg, resume_mode(Ltb), len(pairs), sms)
+        assert (wplan.pairs, wplan.scratch) == WARP[case]
     pkw = dict(cfg=dataclasses.replace(cfg, k_win=Kf), Lq=Lq, Ltb=Ltb,
                S0=S0, K2=k_win)
     ref = ts.canonical_exports(ts.prefix_export_plain(*args, **pkw))
@@ -696,3 +790,77 @@ def test_prefix_plans_match_plain(card, length, shape, place):
     for key in ref:
         assert ref[key].dtype == got[key].dtype, key
         assert torch.equal(ref[key], got[key]), key
+
+
+def _interleave(*groups):
+    return [p for row in zip(*groups) for p in row]
+
+
+@pytest.mark.parametrize("kernel", ["kw", "kw32", "resume"])
+def test_warp_pairs_leave_one_block_at_different_steps(card, kernel):
+    """K1-kw and K4 at every launch plan (every_warp_plan: 1-16 pairs a
+    block, shared memory and the scratch) against their
+    plain versions, on a batch whose pairs leave each block at different
+    steps: for K1-kw escaping pairs beside served ones (16-bit cells, and
+    "kw32" int32 ones, its batch holding one pair of 8,400 bases); for
+    K4 pairs done in phase 1, pairs overflowed at entry (wider than the
+    narrow window at S0), and pairs finishing early and late, interleaved
+    so that every block holds each kind."""
+    from wfa_tpu_torch import engine as te
+    from wfa_tpu_torch import semi2 as ts
+    from wfa_tpu_torch.kernel_engine import (_kw_launch, _resume_launch,
+                                             _sms, every_warp_plan, kw_mode,
+                                             resume_mode)
+
+    sms = _sms(card)
+    if kernel.startswith("kw"):
+        cfg = te.EngineConfig(penalties=Penalties(4, 6, 2),
+                              adaptive=AdaptiveReductionOption(10, 10 ** 6,
+                                                               1),
+                              k_win=256, s_cap=512, aux_kw=128)
+        pairs = _interleave(generate_pairs(16, 300, 0.10, seed=5),
+                            generate_pairs(16, 60, 0.02, seed=6))
+        if kernel == "kw32":
+            long = (pairs[1][1] * 200)[:8400]
+            pairs[1] = (long, long)
+        ins = te.inputs_from_packed(te._pack_all(pairs, 256), card)
+        assert kw_mode(ins[6]) == (3 if kernel == "kw32" else "kw16")
+        kw = dict(cfg=cfg, Lq=ins[5], Ltb=ins[6])
+        ref = te.canonical_kw(te.run_batch_kw_plain(*ins[:5], **kw))
+        ok = ref[1] & ~ref[2]
+        assert bool(ok.any()) and bool(ref[2].any())
+        for plan in every_warp_plan(cfg, kw_mode(ins[6]), len(pairs), sms):
+            got = te.canonical_kw(_kw_launch(*ins[:5], **kw, plan=plan))
+            for a, b in zip(ref, got):
+                assert a.dtype == b.dtype and torch.equal(a, b), plan
+        return
+    pen = Penalties(4, 6, 2)
+    pairs = _interleave(generate_pairs(8, 800, 0.002, seed=21),
+                        generate_pairs(8, 1000, 0.25, seed=22),
+                        generate_pairs(8, 300, 0.05, seed=23),
+                        generate_pairs(8, 1000, 0.05, seed=24))
+    packed = te._pack_all(pairs, 128, global_alignment=False)
+    qb, tbuf, qlen, tlen, toff, Lq, Ltb = te.inputs_from_packed(packed, card)
+    Kf = ts.prefix_span(packed[2], packed[3])
+    cfg = te.EngineConfig(penalties=pen, global_alignment=False,
+                          adaptive=ADAPTIVE, k_win=128, s_cap=640)
+    ex = ts.prefix_export_plain(
+        qb, tbuf, qlen, tlen, toff, cfg=dataclasses.replace(cfg, k_win=Kf),
+        Lq=Lq, Ltb=Ltb, S0=64, K2=128)
+    m1 = ex["meta1"]
+    assert bool((m1[:, ts.M1_DONE] > 0).any())
+    assert bool((m1[:, ts.M1_OVF] > 0).any())
+    t2raw, _, toff2, Ltb2 = ts.replace_targets([t for _, t in pairs],
+                                               m1[:, ts.M1_K02].cpu().numpy())
+    keys = ("win_m", "win_i", "win_d", "ainit", "b_m", "b_ie", "meta1")
+    r_args = (qb, torch.from_numpy(t2raw).to(card), qlen, tlen,
+              torch.from_numpy(toff2).to(card), *(ex[k] for k in keys))
+    rkw = dict(cfg=cfg, Lq=Lq, Ltb2=Ltb2, Ltb_full=Ltb, S0=64)
+    ref = ts.canonical_resume(te.run_batch_resume_plain(*r_args, **rkw), 64)
+    ran = ref[1] & ~ref[2] & (ref[0] >= 64)
+    assert int(ref[0][ran].min()) < int(ref[0][ran].max())
+    for plan in every_warp_plan(cfg, resume_mode(Ltb), len(pairs), sms):
+        got = ts.canonical_resume(_resume_launch(*r_args, **rkw, plan=plan),
+                                  64)
+        for a, b in zip(ref[:5] + ref[5], got[:5] + got[5]):
+            assert a.dtype == b.dtype and torch.equal(a, b), plan

@@ -403,27 +403,120 @@ PREFIX_EXPECTED = {(2048, 2048, True): ((256, 1), False),
                    (20096, 64, False): ((1024, 2), True)}
 
 
+def test_warp_launch_plan():
+    """The launch plan of K1-kw and K4 (kernel_engine.warp_plan) in every
+    mode (K1-kw's int32 and 16-bit cells, K4's int32 and int16 windows) at
+    k_win 256 and 512, 4/6/2 and 4/6/1, on an H100's 132 SMs: as many
+    pairs a block as each SM gets, up to 16,
+    the workspace in shared memory where an SM holds that many pairs'
+    workspaces there, each block with its reserve, and (K1-kw) each SM
+    gets more than KW_SCRATCH_PAIRS, else in the scratch, on either side
+    of each threshold; the shared bytes, which never pass 232,448 and
+    agree with workspace(); the plans at the paths' shapes; and
+    every_warp_plan's plans."""
+    import dataclasses
+
+    from wfa_tpu_torch.kernel_engine import (BLOCK_RESERVED, H100_SMS,
+                                             KW_MODES, KW_SCRATCH_PAIRS,
+                                             SHARED_OPTIN, SM_SHARED,
+                                             WARP_MODES, WARP_PAIRS,
+                                             WARP_SHAPES, every_warp_plan,
+                                             warp_plan, warp_slot_ints,
+                                             workspace)
+
+    assert SHARED_OPTIN == 232448 and WARP_PAIRS == 16
+    base = te.EngineConfig(penalties=Penalties(4, 6, 2), k_win=256)
+    for pen, slots in ((Penalties(4, 6, 2), 48), (Penalties(4, 6, 1), 36)):
+        for k in (256, 512):
+            cfg = dataclasses.replace(base, penalties=pen, k_win=k)
+            assert warp_slot_ints(cfg) == slots
+            for mode in WARP_MODES:
+                ints, fits = workspace(cfg, mode)
+                per_pair = 4 * (slots + ints)
+                assert fits and per_pair <= SHARED_OPTIN
+                for B in (1, 64, 132, 133, 264, 265, 528, 529, 1320, 1321,
+                          1848, 1849, 2048, 2112, 2113, 8192):
+                    plan = warp_plan(cfg, mode, B, H100_SMS)
+                    per_sm = min(WARP_PAIRS, -(-B // H100_SMS))
+                    assert plan.pairs == per_sm and plan.ints == ints
+                    block = plan.pairs * per_pair
+                    held = (plan.pairs * (SM_SHARED // (block
+                                                        + BLOCK_RESERVED))
+                            if block <= SHARED_OPTIN else 0)
+                    assert plan.scratch == (held < per_sm or (
+                        mode in KW_MODES and per_sm <= KW_SCRATCH_PAIRS))
+                    assert plan.shared_bytes == 4 * plan.pairs * (
+                        slots + (0 if plan.scratch else ints))
+                    assert plan.shared_bytes <= SHARED_OPTIN
+                # at 792 pairs the plan's own 6 pairs a block join
+                plans = every_warp_plan(cfg, mode, 792, H100_SMS)
+                shapes = sorted({*WARP_SHAPES, 6})
+                assert [p.pairs for p in plans if p.scratch] == shapes
+                assert [p.pairs for p in plans if not p.scratch] == [
+                    n for n in shapes if n * per_pair <= SHARED_OPTIN]
+    for (pen, mode, k, B), want in WARP_EXPECTED.items():
+        plan = warp_plan(dataclasses.replace(base, penalties=Penalties(*pen),
+                                             k_win=k), mode, B, H100_SMS)
+        assert (plan.pairs, plan.scratch) == want, (pen, mode, k, B)
+
+
+# the plan of K1-kw and K4 at the paths' shapes and either side of each
+# threshold: (penalties, mode, k_win, pairs) -> (pairs a block, the
+# workspace in the scratch).  K1-kw: the l=4000 path's
+# 2048 pairs (k_win 256, 16-bit cells: shared memory at 16 pairs an SM),
+# 256 at the tier-1 window; in the scratch up to 8 pairs an SM, past it in
+# shared memory while an SM holds them there (16-bit cells: 10 at k_win
+# 512; int32 ones: 10 at 256).  K4: int16 windows at k_win 256 (l=1000,
+# 2048 pairs; the smoke's 256 pairs at 4/6/1) hold 16 pairs an SM in
+# shared memory, int16 at 512 (tier 1) and int32 at 256 (l=10000, 64
+# pairs) 14
+WARP_EXPECTED = {((4, 6, 2), "kw16", 256, 2048): (16, False),
+                 ((4, 6, 2), "kw16", 512, 256): (2, True),
+                 ((4, 6, 2), "kw16", 256, 132): (1, True),
+                 ((4, 6, 2), "kw16", 256, 133): (2, True),
+                 ((4, 6, 2), "kw16", 256, 1056): (8, True),
+                 ((4, 6, 2), "kw16", 256, 1057): (9, False),
+                 ((4, 6, 2), "kw16", 512, 1320): (10, False),
+                 ((4, 6, 2), "kw16", 512, 1321): (11, True),
+                 ((4, 6, 2), 3, 256, 1320): (10, False),
+                 ((4, 6, 2), 3, 256, 1321): (11, True),
+                 ((4, 6, 2), "resume16", 256, 2048): (16, False),
+                 ((4, 6, 2), "resume16", 256, 256): (2, False),
+                 ((4, 6, 2), "resume", 256, 64): (1, False),
+                 ((4, 6, 1), "resume16", 256, 256): (2, False),
+                 ((4, 6, 1), "resume16", 256, 528): (4, False),
+                 ((4, 6, 1), "resume16", 256, 529): (5, False),
+                 ((4, 6, 1), "resume16", 256, 2048): (16, False),
+                 ((4, 6, 2), "resume16", 512, 1848): (14, False),
+                 ((4, 6, 2), "resume16", 512, 1849): (15, True),
+                 ((4, 6, 2), "resume", 256, 1849): (15, True)}
+
+
 def test_workspace_placement_and_size():
     """The score loop's workspace: its int32 count (the windows, the
-    staged rows, three ballot words per 32 columns, rounded up to 4;
-    csrc/score_loop.cu workspace_ints) and its place, shared memory when
-    it fits in 48 KB after the reduction and band slots, by shape alone;
-    the batch memory model counts it."""
+    staged rows, three ballot words per 32 columns but in the warp shape
+    of K1-kw and K4, rounded up to 4; csrc/score_loop.cu workspace_ints)
+    and whether it fits shared memory, by shape alone: in 48 KB after the
+    reduction and band slots (K1, K1-long), or in the warp shape one
+    pair's band slots and workspace in the 227 KB a block opts in to; the
+    batch memory model counts it."""
     import dataclasses
 
     from wfa_tpu_torch.device_backtrace import iter_capacity
     from wfa_tpu_torch.kernel_engine import (RED_INTS_A_WARP, SHARED_BYTES,
-                                             STAGE_ROWS, WARPS, workspace)
+                                             SHARED_OPTIN, STAGE_ROWS, WARPS,
+                                             warp_slot_ints, workspace)
     from wfa_tpu_torch.pipeline import batch_bytes_per_pair
 
     cfg = te.EngineConfig(penalties=Penalties(4, 6, 2), k_win=128, s_cap=640)
     at = lambda k: dataclasses.replace(cfg, k_win=k)  # noqa: E731
     # K1 at the main path's window: 9 + 3 + 3 rows of 128 columns
     assert workspace(cfg, 0) == (15 * 128 + 12, True)
-    # K1-long at 384 and K1-kw at 256: two staged rows of each plane
+    # K1-long at 384 and K1-kw at 256: two staged rows of each plane (the
+    # warp shape K1-kw without ballot words)
     assert STAGE_ROWS[2] == STAGE_ROWS[3] == 6
     assert workspace(at(384), 2) == (21 * 384 + 36, True)
-    assert workspace(at(256), 3) == (21 * 256 + 24, True)
+    assert workspace(at(256), 3) == (21 * 256, True)
     # K3 at the full span of l=1000 fits the 227 KB it opts in to (at
     # l=10000 it goes to the scratch), K4's narrow window goes to shared
     # memory
@@ -433,18 +526,35 @@ def test_workspace_placement_and_size():
     assert workspace(at(2048), "prefix16") == (9 * 2048 + 192, True)
     assert workspace(at(100), "prefix16") == (
         (18 * 100 * 2 + 15) // 16 * 4 + 12, True)
-    assert workspace(at(256), "resume") == (15 * 256 + 24, True)
+    # K1-kw's 16-bit window and staged cells, no ballot words
+    assert workspace(at(256), "kw16") == (21 * 256 // 2, True)
+    # K4's int32 and int16 windows, no ballot words
+    assert workspace(at(256), "resume") == (15 * 256, True)
+    assert workspace(at(256), "resume16") == (15 * 256 // 2, True)
+    assert workspace(at(100), "resume16") == ((15 * 100 * 2 + 15) // 16 * 4,
+                                              True)
     # an odd width rounds up to 4 ints
     assert workspace(at(100), 0) == (15 * 100 + 12, True)
     assert workspace(at(101), 0) == (15 * 101 + 12 + 1, True)
+    assert workspace(at(101), 3) == (21 * 101 + 3, True)
     # the limit, with the slots: reduction, then 3 WM + 6 WE, rounded to 4
     slots = (RED_INTS_A_WARP * WARPS + 3 * 9 + 6 * 3 + 3) // 4 * 4
-    for mode, (inside, outside) in ((0, (768, 896)), (2, (512, 640)),
-                                    (3, (512, 640))):
+    for mode, (inside, outside) in ((0, (768, 896)), (2, (512, 640))):
         for k, shared in ((inside, True), (outside, False)):
             ints, sh = workspace(at(k), mode)
             assert sh is shared
             assert (4 * (slots + ints) <= SHARED_BYTES) is shared
+    # the warp shape: one pair's band slots (3 WM + 6 WE, rounded to 4)
+    # and workspace within the 227 KB
+    assert warp_slot_ints(cfg) == 48
+    for mode, (inside, outside) in ((3, (2688, 2816)),
+                                    ("kw16", (5504, 5632)),
+                                    ("resume", (3840, 3968)),
+                                    ("resume16", (7680, 7808))):
+        for k, shared in ((inside, True), (outside, False)):
+            ints, sh = workspace(at(k), mode)
+            assert sh is shared
+            assert (4 * (48 + ints) <= SHARED_OPTIN) is shared
     # wide penalties deepen the windows
     wide = dataclasses.replace(cfg, penalties=Penalties(9, 13, 5))
     assert workspace(dataclasses.replace(wide, k_win=384), 0) == (

@@ -38,10 +38,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S, K, x, oe, e, reduce_on,
-    # min_wf_len, max_dist_diff, mode, kw, win, out, aux, aux_base, stream
-    "wfa_score_loop": [_P] * 5 + [_I] * 13 + [_P] * 5,
+    # min_wf_len, max_dist_diff, mode, kw, pairs, win, out, aux, aux_base,
+    # stream
+    "wfa_score_loop": [_P] * 5 + [_I] * 14 + [_P] * 5,
     # wfa_score_loop's, then cycles before the stream
-    "wfa_score_loop_phases": [_P] * 5 + [_I] * 13 + [_P] * 6,
+    "wfa_score_loop_phases": [_P] * 5 + [_I] * 14 + [_P] * 6,
     # qb, tbuf, qlen, tlen, toff, B, Lq, Ltb, S0, Kf, K2, x, oe, e,
     # reduce_on, min_wf_len, max_dist_diff, cell16, threads, cluster, win,
     # aux_old, win_m, win_i, win_d, ainit, b_m, b_ie, meta1, cycles, stream
@@ -50,12 +51,15 @@ _SIGNATURES = {
     # memory
     "wfa_prefix_shared": [_I] * 8,
     # qb, tbuf2, qlen, tlen, toff2, B, Lq, Ltb2, S, S0, K, x, oe, e,
-    # reduce_on, min_wf_len, max_dist_diff, cell16, win, out, aux2, win_m,
-    # win_i, win_d, ainit, b_m, b_ie, meta1, stream
-    "wfa_resume": [_P] * 5 + [_I] * 13 + [_P] * 11,
-    # K, x, oe, e, mode (wfa_score_loop's 0-3, 4 K3, 5 K4, 6 K3 int16),
-    # *shared
+    # reduce_on, min_wf_len, max_dist_diff, cell16, pairs, win, out, aux2,
+    # win_m, win_i, win_d, ainit, b_m, b_ie, meta1, cycles, stream
+    "wfa_resume": [_P] * 5 + [_I] * 14 + [_P] * 12,
+    # K, x, oe, e, mode (wfa_score_loop's 0-3 and 8, 4 K3, 5 K4, 6 K3
+    # int16, 7 K4 int16), *shared
     "wfa_workspace": [_I] * 5 + [ctypes.POINTER(_I)],
+    # K, x, oe, e, mode (3, 8 K1-kw, 5, 7 K4), pairs, scratch: the dynamic
+    # shared memory of a K1-kw or K4 launch
+    "wfa_warp_shared": [_I] * 7,
     # aux, aux_c16, aux_base, sbase, aux_old, old_c16, s_split, Kf,
     # k0_old, start_cell, k0, start_s, start_k, qlen, tlen, active0, B, S,
     # K, x, oe, e, it_cap, token_shift, split, semi, tok0, buf, tail, iters,

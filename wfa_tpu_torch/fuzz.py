@@ -23,14 +23,18 @@ comparison).  Each case draws, from ``random.Random(seed)``:
   pair whose target is cut or grown to it;
 * a batch of 4-16 pairs of 60-450 bases at 2-20% error, with an
   identical pair, a prefix pair and, in one case of three, raw bytes
-  outside ACGT.
+  outside ACGT; in one case of four the batch repeats to a size on
+  either side of a pairs-a-block threshold of the warp shape's launch
+  plan (:data:`BATCH_SIDES`, one or two SMs' worth of pairs).
 
 Then it holds, at tolerance 0:
 
 1. the card's outputs against the plain versions': ``align_full2``'s byte
    (or raw) streams, every key; for ``"semi2"`` the phase-1 exports
    (``semi2.canonical_exports``), K3's at every launch plan it takes, and
-   the results of ``BatchAligner``;
+   the results of ``BatchAligner``; K1-kw's outputs (``"auto:kw"``) and
+   K4's (``"semi2"``, on the card's exports) at every launch plan of the
+   warp shape (``kernel_engine.every_warp_plan``);
 2. every result the card serves against the oracle, decoded at once
    (score, CIGAR, coordinates, counts), and the served sets of card and
    plain alike;
@@ -58,6 +62,10 @@ from .constants import AdaptiveReductionOption, Options, Penalties
 from .engine import (BatchAligner, EngineConfig, _pack_all, align_full2,
                      windows)
 from .kernel_engine import H100_SMS, prefix_plan, workspace
+
+# batch sizes on either side of the warp shape's pairs-a-block thresholds
+# (kernel_engine.warp_plan: as many pairs a block as each SM gets)
+BATCH_SIDES = (H100_SMS, H100_SMS + 1, 2 * H100_SMS, 2 * H100_SMS + 1)
 from .oracle import Aligner as OracleAligner
 
 FIELDS = ("score", "q_begin", "q_end", "t_begin", "t_end", "align_len",
@@ -144,6 +152,13 @@ def draw_case(rng: random.Random) -> dict:
     pairs = draw_pairs(rng, rng.randint(4, 16), length,
                        rng.choice((0.02, 0.05, 0.1, 0.2)),
                        rng.random() < 0.33)
+    # a batch size on a side of a warp-shape threshold, drawn from a
+    # generator of its own so that every seed's other cases stay as they
+    # were
+    sub = random.Random(sum(len(q) + 5 * len(t) for q, t in pairs))
+    if sub.random() < 0.25:
+        n = sub.choice(BATCH_SIDES)
+        pairs = (pairs * -(-n // len(pairs)))[:n]
     longest = max(max(len(q), len(t)) for q, t in pairs)
     spread = max(abs(len(q) - len(t)) for q, t in pairs)
     worst = pen.mismatch * longest + pen.gap_open + pen.gap_ext * (spread + 1)
@@ -153,7 +168,8 @@ def draw_case(rng: random.Random) -> dict:
     span = -(-(2 * longest + 2) // 128) * 128
     if ga:
         engine = rng.choice(("auto", "long", "kw"))
-        mode = {"auto": 0, "long": 2, "kw": 3}[engine]
+        # (the K1-kw of these short reads runs 16-bit cells)
+        mode = {"auto": 0, "long": 2, "kw": "kw16"}[engine]
         k_win = rng.choice((128,) + limit_sides(base, mode))
         # the windows must hold the terminal diagonal
         while k_win < 2 * spread + 8:
@@ -225,6 +241,53 @@ def _prefix_plans_diff(pairs, cfg: EngineConfig, pkw: dict, ref: dict,
     return []
 
 
+def _warp_plans_diff(card: BatchAligner, pairs, device: str,
+                     ex=None) -> list:
+    """K1-kw (``card``'s engine ``"auto:kw"``) or K4 (``"semi2"``, on the
+    card's phase-1 exports ``ex``) at every launch plan of the warp shape
+    against its plain version on the same inputs: the first plan and
+    output that differ, if any."""
+    from . import semi2 as ts
+    from .engine import (canonical_kw, inputs_from_packed, run_batch_kw_plain,
+                         run_batch_resume_plain)
+    from .kernel_engine import (_kw_launch, _resume_launch, _sms,
+                                every_warp_plan, kw_mode, resume_mode)
+
+    cfg = card.cfg
+    packed = _pack_all(pairs, cfg.k_win,
+                       global_alignment=cfg.global_alignment)
+    qb, tbuf, qlen, tlen, toff, Lq, Ltb = inputs_from_packed(packed, device)
+    sms = _sms(qb.device)
+    if ex is None:
+        kw = dict(cfg=cfg, Lq=Lq, Ltb=Ltb)
+        ref = canonical_kw(run_batch_kw_plain(qb, tbuf, qlen, tlen, toff,
+                                              **kw))
+        for plan in every_warp_plan(cfg, kw_mode(Ltb), len(pairs), sms):
+            got = canonical_kw(_kw_launch(qb, tbuf, qlen, tlen, toff, **kw,
+                                          plan=plan))
+            for i, (a, b) in enumerate(zip(ref, got)):
+                if not torch.equal(a, b):
+                    return [(f"K1-kw output {i} at plan {tuple(plan)}",
+                             None)]
+        return []
+    S0 = card.s_switch
+    t2raw, _, toff2, Ltb2 = ts.replace_targets(
+        [t for _, t in pairs], ex["meta1"][:, ts.M1_K02].cpu().numpy())
+    r_args = (qb, torch.from_numpy(t2raw).to(qb.device), qlen, tlen,
+              torch.from_numpy(toff2).to(qb.device),
+              *(ex[k] for k in ("win_m", "win_i", "win_d", "ainit", "b_m",
+                                "b_ie", "meta1")))
+    rkw = dict(cfg=cfg, Lq=Lq, Ltb2=Ltb2, Ltb_full=Ltb, S0=S0)
+    ref = ts.canonical_resume(run_batch_resume_plain(*r_args, **rkw), S0)
+    for plan in every_warp_plan(cfg, resume_mode(Ltb), len(pairs), sms):
+        got = ts.canonical_resume(_resume_launch(*r_args, **rkw, plan=plan),
+                                  S0)
+        for i, (a, b) in enumerate(zip(ref[:5] + ref[5], got[:5] + got[5])):
+            if not torch.equal(a, b):
+                return [(f"K4 output {i} at plan {tuple(plan)}", None)]
+    return []
+
+
 def check_case(case: dict, device: str) -> tuple:
     """(every mismatch of one case as (what, pair index or None), the
     pairs the card served)."""
@@ -252,6 +315,7 @@ def check_case(case: dict, device: str) -> tuple:
                 if not torch.equal(ref[k], got[k].cpu())][:1]
         if device != "cpu":
             bad += _prefix_plans_diff(pairs, cfg, pkw, ref, device)
+            bad += _warp_plans_diff(card, pairs, device, got)
     else:
         kw = dict(cfg=cfg, B=len(pairs), Lq=Lq, Ltb=Ltb, packed=ok2,
                   engine=card.engine)
@@ -262,11 +326,14 @@ def check_case(case: dict, device: str) -> tuple:
         else:
             bad += [(f"align_full2[{k}]", None) for k in ref
                     if not torch.equal(ref[k], got[k].cpu())][:1]
+        if device != "cpu" and cfg.aux_kw is not None:
+            bad += _warp_plans_diff(card, pairs, device)
     # 2. served sets alike, served results equal the oracle
     res = card.align_batch(pairs, fallback=False)
     res_plain = plain.align_batch(pairs, fallback=False)
     oracle = OracleAligner(cfg.penalties, Options(cfg.global_alignment),
                            cfg.adaptive)
+    truth = {}  # the oracle's result by pair (a repeated batch repeats)
     for i, (a, b) in enumerate(zip(res, res_plain)):
         if (a is None) != (b is None):
             bad.append(("served", i))
@@ -275,7 +342,9 @@ def check_case(case: dict, device: str) -> tuple:
             if what:
                 bad.append((f"card vs plain: result.{what}", i))
             else:
-                what = _result_diff(a, oracle.align(*pairs[i]))
+                if pairs[i] not in truth:
+                    truth[pairs[i]] = oracle.align(*pairs[i])
+                what = _result_diff(a, truth[pairs[i]])
                 if what:
                     bad.append((f"vs the oracle: result.{what}", i))
     # 3. full token streams give the same results as edit-only ones

@@ -9,13 +9,16 @@ value-rebased int16 aux mode; plain version
 :func:`wfa_tpu_torch.engine.run_batch_long_plain`), and of
 ``pallas_engine._kernel`` with ``aux_kw`` (:func:`run_batch_kw`, K1-kw:
 K1-long's staging with a KW-column row window and ``sbase`` words; plain
-version :func:`wfa_tpu_torch.engine.run_batch_kw_plain`).  The two
+version :func:`wfa_tpu_torch.engine.run_batch_kw_plain`; it runs the
+warp shape, one warp a pair and several pairs a block, launched by
+:func:`warp_plan`).  The two
 phases of the two-phase semi-global route are the same kernel's prefix and
 resume modes: K3 (:func:`run_prefix`, the port of ``wfa_tpu.pallas_prefix
 ._kernel`` and of ``pallas_engine._kernel`` in EXPORT mode; plain version
 :func:`wfa_tpu_torch.semi2.prefix_export_plain`) and K4
 (:func:`run_resume`, ``pallas_engine._kernel`` with RESUME; plain version
-:func:`wfa_tpu_torch.engine.run_batch_resume_plain`).  Each wrapper runs
+:func:`wfa_tpu_torch.engine.run_batch_resume_plain`; the warp shape too,
+by :func:`warp_plan`).  Each wrapper runs
 its plain version for CPU tensors and launches its kernel, or raises, for
 CUDA tensors.
 """
@@ -44,22 +47,56 @@ SM_SHARED = 228 * 1024
 BLOCK_RESERVED = 1024
 # the block_min slots of a block's shared memory, ahead of the band slots
 # (the kernel's red_ints): eight for each warp of a pair, four warps but
-# in K3; K3's workspace placement counts the slots of a 512-thread block,
-# the widest that holds its workspace in shared memory (the kernel's
-# kPrefixSharedWarps)
+# in K3 and the warp shape (none there); K3's workspace placement counts
+# the slots of a 512-thread block, the widest that holds its workspace in
+# shared memory (the kernel's kPrefixSharedWarps)
 RED_INTS_A_WARP = 8
 WARPS = 4
 PREFIX_SHARED_WARPS = 16
 # staged aux rows of the score loop's C modes (0 global, 1 semi-global, 2
-# long-read, 3 KW) and of K3 (int32 cells, or "prefix16" int16) / K4 (the
-# kernel's stage_rows): the long-read and KW modes stage the two newest
-# rows of each plane, K3 its aux row S0
-STAGE_ROWS = {0: 0, 1: 0, 2: 6, 3: 6, "prefix": 3, "prefix16": 3,
-              "resume": 0}
+# long-read, 3 KW, "kw16" KW with 16-bit cells) and of K3 (int32 cells, or
+# "prefix16" int16) / K4 ("resume16": int16) (the kernel's stage_rows):
+# the long-read and KW modes stage the two newest rows of each plane, K3
+# its aux row S0
+STAGE_ROWS = {0: 0, 1: 0, 2: 6, 3: 6, "kw16": 6, "prefix": 3, "prefix16": 3,
+              "resume": 0, "resume16": 0}
 # the mode argument of the C entry wfa_workspace for each key of STAGE_ROWS
-C_MODES = {0: 0, 1: 1, 2: 2, 3: 3, "prefix": 4, "resume": 5, "prefix16": 6}
+# (wfa_score_loop takes 0-3 and 8)
+C_MODES = {0: 0, 1: 1, 2: 2, 3: 3, "prefix": 4, "resume": 5, "prefix16": 6,
+           "resume16": 7, "kw16": 8}
 # K3's modes: its windows and staged row hold its aux cells
 PREFIX_MODES = ("prefix", "prefix16")
+# the modes whose window (and staged) cells are 16-bit
+CELL16_MODES = ("prefix16", "resume16", "kw16")
+# the warp shape's modes, K1-kw and K4 (one warp a pair, several pairs a
+# block, no ballot words; K4's windows hold its aux cells), the most pairs
+# a block (the kernel's kWarpPairs), and the pairs a block every plan of
+# every_warp_plan tries
+KW_MODES = (3, "kw16")
+RESUME_MODES = ("resume", "resume16")
+WARP_MODES = KW_MODES + RESUME_MODES
+WARP_PAIRS = 16
+WARP_SHAPES = (1, 2, 4, 8, 16)
+# K1-kw keeps its workspace in the scratch (cached near the SM) while each
+# SM gets at most this many pairs, in shared memory past it where it fits
+# (PERF.md §6)
+KW_SCRATCH_PAIRS = 8
+# K1-kw's 16-bit cells hold every offset of a target buffer of this many
+# columns or fewer (the kernel's kMaxLtb16)
+KW_CELL16_LTB = 8189
+
+
+def kw_mode(Ltb: int):
+    """K1-kw's workspace mode: 16-bit window and staged cells ("kw16")
+    where every offset of a target buffer of ``Ltb`` columns fits them
+    ((Ltb + 2) << 3 | 7 below 2**16), else int32 (3)."""
+    return "kw16" if Ltb <= KW_CELL16_LTB else 3
+
+
+def resume_mode(Ltb_full: int) -> str:
+    """K4's workspace mode in the warp shape: int16 window cells where its
+    aux cells are."""
+    return "resume16" if semi_cell16(Ltb_full) else "resume"
 
 
 def _round4(n: int) -> int:
@@ -75,27 +112,41 @@ def slot_ints(cfg: EngineConfig, warps: int = WARPS) -> int:
     return _round4(RED_INTS_A_WARP * warps + 3 * wm + 6 * we)
 
 
+def warp_slot_ints(cfg: EngineConfig) -> int:
+    """The warp shape's shared ints for each pair ahead of its workspace:
+    its band slots (3 WM + 6 WE), rounded up to a multiple of 4 (the
+    kernel's warp_slot_ints)."""
+    wm, we = windows(cfg.penalties)
+    return _round4(3 * wm + 6 * we)
+
+
 def workspace(cfg: EngineConfig, mode) -> tuple:
     """(ints, shared): the int32 cells of one pair's score-loop workspace
     in ``mode`` (a key of ``STAGE_ROWS``): WM rows of M and WE rows each
     of I and D, ``cfg.k_win`` diagonals wide, the staged aux rows (int32
-    cells; K3's int16 cells in "prefix16", filling whole 16-byte words),
-    three ballot words for every 32 columns, rounded up to a multiple of
-    4; and whether it fits the block's shared memory after the slots
+    cells; 16-bit ones in ``CELL16_MODES``, filling whole 16-byte words),
+    three ballot words for every 32 columns (none in the warp shape,
+    ``WARP_MODES``), rounded up to a multiple of 4; and
+    whether it fits the block's shared memory after the slots
     (:func:`slot_ints`): ``SHARED_BYTES``, or K3's ``SHARED_OPTIN`` with
-    the slots of ``PREFIX_SHARED_WARPS``.  The
-    launch passes a device scratch of ``ints`` a pair where it does not
-    (K3: where its launch plan puts it, :func:`prefix_plan`).  The
-    kernel's C entry ``wfa_workspace`` gives the same pair from the layout
-    the kernel uses (``tests/test_torch_cuda.py`` holds the two together);
-    a launch whose shared memory would pass the limit is refused."""
+    the slots of ``PREFIX_SHARED_WARPS``, or in the warp shape one pair's
+    slots and workspace in ``SHARED_OPTIN``.  The launch passes a device
+    scratch of ``ints`` a pair where it does not (K3 and the warp shape:
+    where the launch plan puts it, :func:`prefix_plan`,
+    :func:`warp_plan`).  The kernel's C entry ``wfa_workspace`` gives the
+    same pair from the layout the kernel uses
+    (``tests/test_torch_cuda.py`` holds the two together); a launch whose
+    shared memory would pass the limit is refused."""
     wm, we = windows(cfg.penalties)
     K = cfg.k_win
     cells = (wm + 2 * we + STAGE_ROWS[mode]) * K
-    if mode == "prefix16":
+    if mode in CELL16_MODES:
         cells = (cells * 2 + 15) // 16 * 4
-    ints = _round4(cells + 3 * ((K + 31) // 32))
-    if mode in PREFIX_MODES:
+    warp = mode in WARP_MODES
+    ints = _round4(cells + (0 if warp else 3 * ((K + 31) // 32)))
+    if warp:
+        slots, limit = warp_slot_ints(cfg), SHARED_OPTIN
+    elif mode in PREFIX_MODES:
         slots, limit = slot_ints(cfg, PREFIX_SHARED_WARPS), SHARED_OPTIN
     else:
         slots, limit = slot_ints(cfg), SHARED_BYTES
@@ -111,12 +162,66 @@ def _scratch(cfg: EngineConfig, mode, B: int, dev):
     return torch.empty((B, ints), dtype=torch.int32, device=dev)
 
 
+class WarpPlan(NamedTuple):
+    """The launch of K1-kw or K4 at one shape: pairs (warps) a block; the
+    dynamic shared memory bytes a block asks for, whether each pair's
+    workspace goes to a device scratch (else to that shared memory), and
+    its int32 cells."""
+    pairs: int
+    shared_bytes: int
+    scratch: bool
+    ints: int
+
+
+def warp_plan(cfg: EngineConfig, mode, B: int, sms: int, pairs=None,
+              scratch=None) -> WarpPlan:
+    """The launch plan of K1-kw or K4 in ``mode`` (a key of
+    ``WARP_MODES``) for ``B`` pairs at window ``cfg.k_win`` on a card of
+    ``sms`` SMs, unless ``pairs`` and ``scratch`` are given: as many pairs
+    a block as each SM gets, up to ``WARP_PAIRS``, whose registers the
+    kernel keeps; the workspace in shared memory where an SM holds that
+    many pairs' workspaces there (with each block's reserve) and, for
+    K1-kw, each SM gets more than ``KW_SCRATCH_PAIRS``; else in the
+    scratch.  Timed in turns at l=1000 and l=4000 (PERF.md §6).  The C
+    entry ``wfa_warp_shared`` computes the same shared bytes."""
+    per_sm = min(WARP_PAIRS, -(-B // sms))
+    if pairs is None:
+        pairs = per_sm
+    ints, _ = workspace(cfg, mode)
+    per_pair = 4 * (warp_slot_ints(cfg) + ints)
+    if scratch is None:
+        block = pairs * per_pair
+        held = (pairs * (SM_SHARED // (block + BLOCK_RESERVED))
+                if block <= SHARED_OPTIN else 0)
+        scratch = held < per_sm or (mode in KW_MODES
+                                    and per_sm <= KW_SCRATCH_PAIRS)
+    shared = 4 * pairs * (warp_slot_ints(cfg) + (0 if scratch else ints))
+    return WarpPlan(pairs, shared, scratch, ints)
+
+
+def every_warp_plan(cfg: EngineConfig, mode, B: int, sms: int) -> list:
+    """Every launch plan K1-kw or K4 takes for ``B`` pairs in ``mode``:
+    each of ``WARP_SHAPES`` pairs a block and the plan's own with the
+    workspace in the device scratch and, where a block holds them, in
+    shared memory."""
+    plans = []
+    own = warp_plan(cfg, mode, B, sms).pairs
+    for n in sorted(set(WARP_SHAPES) | {own}):
+        for scratch in (True, False):
+            plan = warp_plan(cfg, mode, B, sms, n, scratch)
+            if scratch or plan.shared_bytes <= SHARED_OPTIN:
+                plans.append(plan)
+    return plans
+
+
 def loop_args(qb, tbuf, qlen, tlen, toff, cfg: EngineConfig, Lq: int,
-              Ltb: int, mode: int, aux, aux_base, kw: int = 0):
+              Ltb: int, mode: int, aux, aux_base, kw: int = 0, plan=None):
     """Check the inputs of ``wfa_score_loop`` in ``mode`` (0 global, 1
     semi-global, 2 long-read, 3 KW with ``kw`` columns and ``aux_base``
-    the sbase words); returns (its arguments up to the stream, the out
-    rows int32[7, B] they write)."""
+    the sbase words, launched at ``plan``, default :func:`warp_plan`'s,
+    with 16-bit cells where :func:`kw_mode` takes them, C mode 8);
+    returns (its arguments up to the stream, the out rows int32[7, B]
+    they write)."""
     from ._build import check_inputs
 
     B = qb.shape[0]
@@ -127,25 +232,33 @@ def loop_args(qb, tbuf, qlen, tlen, toff, cfg: EngineConfig, Lq: int,
                  tbuf=(tbuf, torch.uint8, (B, Ltb)), qlen=(qlen, i32, (B,)),
                  tlen=(tlen, i32, (B,)), toff=(toff, i32, (B,)))
     out = torch.empty((7, B), dtype=i32, device=dev)
+    if mode == 3:
+        key = kw_mode(Ltb)
+        mode = C_MODES[key]
+        plan = plan or warp_plan(cfg, key, B, _sms(dev))
+        pairs, win = plan.pairs, (torch.empty(
+            (B, plan.ints), dtype=i32, device=dev) if plan.scratch else None)
+    else:
+        pairs, win = 0, _scratch(cfg, mode, B, dev)
     ad = cfg.adaptive
     return (qb, tbuf, qlen, tlen, toff,
             *(ctypes.c_int(v) for v in (
                 B, Lq, Ltb, cfg.s_cap, cfg.k_win, p.mismatch,
                 p.gap_open + p.gap_ext, p.gap_ext, int(ad is not None),
                 ad.min_wf_len if ad else 0, ad.max_dist_diff if ad else 0,
-                mode, kw)),
-            _scratch(cfg, mode, B, dev), out, aux, aux_base), out
+                mode, kw, pairs)),
+            win, out, aux, aux_base), out
 
 
 def _launch(qb, tbuf, qlen, tlen, toff, cfg: EngineConfig, Lq: int,
-            Ltb: int, mode: int, aux, aux_base, kw: int = 0):
+            Ltb: int, mode: int, aux, aux_base, kw: int = 0, plan=None):
     """Check the inputs and launch ``wfa_score_loop`` in ``mode``
     (:func:`loop_args`) on the current stream; returns the out rows
     int32[7, B]."""
     from ._build import launch, stream_ptr
 
     args, out = loop_args(qb, tbuf, qlen, tlen, toff, cfg, Lq, Ltb, mode,
-                          aux, aux_base, kw)
+                          aux, aux_base, kw, plan)
     launch("wfa_score_loop", *args, stream_ptr(qb.device))
     return out
 
@@ -221,13 +334,22 @@ def run_batch_kw(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig, Lq: int,
     if qb.device.type == "cpu":
         return run_batch_kw_plain(qb, tbuf, qlen, tlen, toff, cfg=cfg, Lq=Lq,
                                   Ltb=Ltb)
+    res = _kw_launch(qb, tbuf, qlen, tlen, toff, cfg=cfg, Lq=Lq, Ltb=Ltb)
+    run_batch_kw.launches["kw"] += 1
+    return res
+
+
+def _kw_launch(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig, Lq: int,
+               Ltb: int, plan=None):
+    """Launch K1-kw at ``plan`` (default :func:`warp_plan`'s for the card)
+    on the current stream; returns :func:`run_batch_kw`'s tuple.  Counts
+    no launch."""
     KW = check_aux_kw(cfg, Ltb)
     B, S = qb.shape[0], cfg.s_cap
     aux = torch.empty((3, S, B, KW), dtype=torch.int16, device=qb.device)
     sbase = torch.empty((S, B), dtype=torch.int32, device=qb.device)
     out = _launch(qb, tbuf, qlen, tlen, toff, cfg, Lq, Ltb, 3, aux, sbase,
-                  kw=KW)
-    run_batch_kw.launches["kw"] += 1
+                  kw=KW, plan=plan)
     return out[0], out[1] > 0, out[2] > 0, out[3], aux, sbase
 
 
@@ -408,9 +530,22 @@ def run_resume(qb, tbuf2, qlen, tlen, toff2, win_m, win_i, win_d, ainit,
     take :func:`run_batch_resume_plain`."""
     args = (qb, tbuf2, qlen, tlen, toff2, win_m, win_i, win_d, ainit, b_m,
             b_ie, meta1)
+    kw = dict(cfg=cfg, Lq=Lq, Ltb2=Ltb2, Ltb_full=Ltb_full, S0=S0)
     if qb.device.type == "cpu":
-        return run_batch_resume_plain(*args, cfg=cfg, Lq=Lq, Ltb2=Ltb2,
-                                      Ltb_full=Ltb_full, S0=S0)
+        return run_batch_resume_plain(*args, **kw)
+    res = _resume_launch(*args, **kw)
+    run_resume.launches["resume"] += 1
+    return res
+
+
+def _resume_launch(qb, tbuf2, qlen, tlen, toff2, win_m, win_i, win_d, ainit,
+                   b_m, b_ie, meta1, *, cfg: EngineConfig, Lq: int,
+                   Ltb2: int, Ltb_full: int, S0: int, plan=None,
+                   cycles=None):
+    """Check the inputs and launch ``wfa_resume`` at ``plan`` (default
+    :func:`warp_plan`'s for the card) on the current stream (its TIMED
+    instantiation when ``cycles`` is given); returns :func:`run_resume`'s
+    tuple.  Counts no launch."""
     from ._build import check_inputs, launch, stream_ptr
 
     B, S, K = qb.shape[0], cfg.s_cap, cfg.k_win
@@ -428,19 +563,21 @@ def run_resume(qb, tbuf2, qlen, tlen, toff2, win_m, win_i, win_d, ainit,
                  b_ie=(b_ie, i32, (6 * we, B)),
                  meta1=(meta1, i32, (B, len(META1_COLS))))
     cell16 = semi_cell16(Ltb_full)
+    if plan is None:
+        plan = warp_plan(cfg, resume_mode(Ltb_full), B, _sms(dev))
     aux2 = torch.empty((3, S - S0, B, K), device=dev,
                        dtype=torch.int16 if cell16 else i32)
-    win = _scratch(cfg, "resume", B, dev)
+    win = (torch.empty((B, plan.ints), dtype=i32, device=dev)
+           if plan.scratch else None)
     out = torch.empty((7, B), dtype=i32, device=dev)
     p, ad = cfg.penalties, cfg.adaptive
     launch("wfa_resume", qb, tbuf2, qlen, tlen, toff2,
            *(ctypes.c_int(v) for v in (
                B, Lq, Ltb2, S, S0, K, p.mismatch, p.gap_open + p.gap_ext,
                p.gap_ext, int(ad is not None), ad.min_wf_len if ad else 0,
-               ad.max_dist_diff if ad else 0, int(cell16))),
+               ad.max_dist_diff if ad else 0, int(cell16), plan.pairs)),
            win, out, aux2, win_m, win_i, win_d, ainit, b_m, b_ie, meta1,
-           stream_ptr(dev))
-    run_resume.launches["resume"] += 1
+           cycles, stream_ptr(dev))
     return (out[0], out[1] > 0, out[2] > 0, out[3], aux2,
             (out[4], out[5], out[6]))
 
