@@ -10,7 +10,13 @@ to 0 just before its timed call and read just after, and checks evenly
 spaced results of each against the port's exact oracle:
 
 * global: 32768 pairs of l=1000, e=0.05, gap-affine 4/6/2, wf-adaptive
-  10/50/1, kernels checked on 2048-pair batches;
+  10/50/1, kernels checked on 2048-pair batches; then ``align_iter``
+  over the same pairs in chunks of 4096, held to the timed call token
+  stream for token stream; then bench.py's l=1000 rows at e=0.10 and
+  0.20 (4096 pairs each, one call on a fresh pipeline: the tier ladder
+  and its probe), their pairs served per tier printed, 128 results of
+  each checked against the oracle, and K1 and K2 checked on the first
+  batch each call gave each (k_win, s_cap) it ran (tiers 0 and 1);
 * semi-global l=200: 1024 pairs, e=0.05, 4/6/2, 10/50/1, on K1's
   semi-global mode at the full span (512 diagonals), K1-semi and K2
   checked on those pairs; K1-semi is also checked on 256 pairs of l=1000
@@ -46,7 +52,9 @@ spaced results of each against the port's exact oracle:
 
 The semi-global l=1000 path checks 256 results, the l=10000 and the long
 paths all 64, the others 512; the oracle runs in a pool of one process
-per CPU core.
+per CPU core.  Each main path also prints the most batches its timed
+call had in flight at once (the pipeline's submit and drain workers) and
+the most modelled device bytes they reserved against the byte gate.
 
 K1, K1-kw and K1-long are checked at each (k_win, s_cap) the paths run:
 tier 0's first cap and the cap the score memory fits after the warm call.
@@ -85,6 +93,11 @@ N_LONG_CHECK = N_LONG  # the oracle takes ~2.2 s a pair at l=50000
 KW_LENGTH = 4000
 N_KW = 2 * BATCH  # two batches: the warm call's second fits the score cap
 N_BWA = 256  # K3 at Penalties(4, 6, 1)
+ITER_CHUNK = 4096  # align_iter's chunk on the global l=1000 pairs
+# bench.py's global l=1000 rows at higher error rates: tiers 1-2, the probe
+ERROR_RATES = (0.10, 0.20)
+N_ERR = 4096
+N_ERR_CHECK = 128
 # K1/K2 checks, (pairs, l, k_win, s_cap): the first of each mode is the
 # one the kernels' record reports
 GLOBAL_CHECKS = ((BATCH, 1000, 128, 640), (BATCH, 1000, 128, 512))
@@ -242,7 +255,7 @@ class record_batches:
         self.seen, self._orig = {}, BatchAligner.submit_batch
         seen, orig = self.seen, self._orig
 
-        def submit(eng, pairs):
+        def submit(eng, pairs, prepacked=None):
             pairs = list(pairs)
             c = eng.cfg
             if eng.engine == "semi2":
@@ -251,8 +264,8 @@ class record_batches:
                        eng.s_switch, c.k_win, c.s_cap)
             else:
                 key = (eng.engine, c.k_win, c.s_cap)
-            seen.setdefault(key, pairs)
-            return orig(eng, pairs)
+            seen.setdefault(key, pairs)  # from the submit workers
+            return orig(eng, pairs, prepacked)
 
         BatchAligner.submit_batch = submit
         return self.seen
@@ -357,13 +370,20 @@ def phase_k1(cfg, ins, reps: int = 10):
         if not torch.equal(a, b):
             fail(f"{name} {field} differs on {int((a != b).sum())} pairs")
     ok = ref[1] & ~ref[2]
-    rows = torch.arange(cfg.s_cap, device=qb.device)[None, :, None, None]
-    mask = (rows <= ref[0][None, None, :, None]) & ok[None, None, :, None]
-    diff = torch.where(mask, (ref[4] - got[4]).abs(), 0)
-    err = int(diff.max())
+    # the aux rows 0..final_s of done pairs, 64 rows at a time (at the
+    # e=0.20 path's tier-1 caps each aux is 17 GB)
+    last, okm = ref[0][None, None, :, None], ok[None, None, :, None]
+    err = bad = 0
+    for s0 in range(0, cfg.s_cap, 64):
+        rows = torch.arange(s0, min(s0 + 64, cfg.s_cap),
+                            device=qb.device)[None, :, None, None]
+        diff = torch.where((rows <= last) & okm,
+                           (ref[4][:, s0:s0 + 64] - got[4][:, s0:s0 + 64])
+                           .abs(), 0)
+        err, bad = max(err, int(diff.max())), bad + int((diff != 0).sum())
     if err:
-        fail(f"{name} aux differs in {int((diff != 0).sum())} cells")
-    del ref, diff, mask
+        fail(f"{name} aux differs in {bad} cells")
+    del ref, diff
     plain_ms = cuda_ms(lambda: run_batch_plain(*args, **kw), 1)
     ms = cuda_ms(lambda: run_batch(*args, **kw), reps)
     n = qb.shape[0]
@@ -613,14 +633,19 @@ def phase_k2(cfg, ins, k1_out, reps: int = 10, long: bool = False,
 
 
 def phase_main(n: int, length: int, global_alignment: bool, batch: int,
-               n_check: int, card: str, checks, need, semi2_checks=()):
+               n_check: int, card: str, checks, need, semi2_checks=(),
+               iter_chunk: int = 0):
     """One main path: a warm call, then the timed call with the launch
     counts set to 0 just before it.  Fails if a kernel of ``need``
     ((counter, mode) pairs) was launched no time; defers a failure for
     caps that ``checks`` ((pairs, l, k_win, s_cap) of K1 and K1-long) or
-    ``semi2_checks`` ((l, Kf, S0, k_win, s_cap)) lack.  Returns the timed
-    call's launch counts and the first batch each engine was given in
-    either call (``record_batches``)."""
+    ``semi2_checks`` ((l, Kf, S0, k_win, s_cap)) lack.  Prints the most
+    batches the timed call had in flight at once and the most modelled
+    bytes they reserved against the gate.  With ``iter_chunk``, then
+    runs ``align_iter`` over the pairs in chunks of that many
+    (``phase_iter``).  Returns the timed call's launch counts and the
+    first batch each engine was given in either call
+    (``record_batches``)."""
     import torch
     from wfa_tpu_torch import (AdaptiveReductionOption, OracleAligner,
                                Options, Penalties)
@@ -661,6 +686,9 @@ def phase_main(n: int, length: int, global_alignment: bool, batch: int,
     print(f"{tag}: launches {launches}; pairs served per tier "
           f"{pipe.served}; engines {engines}, (k_win, s_cap) {sorted(caps)}, "
           f"two-phase (l, Kf, S0, k_win, s_cap) {sorted(runs)}")
+    print(f"{tag}: at most {pipe.peak['batches']} batches in flight, "
+          f"{pipe.peak['bytes'] / 2**30:.3f} GiB reserved of the gate's "
+          f"{pipe.peak['gate'] / 2**30:.1f} GiB")
     # the pipeline's device-fault retry must not have run: no fault, and
     # no pair left to the host oracle, in the warm call or the timed one
     if any(errors or oracle for errors, oracle in faults):
@@ -679,9 +707,89 @@ def phase_main(n: int, length: int, global_alignment: bool, batch: int,
                         f"Kf, S0, k_win, s_cap) {sorted(unchecked)}")
     if len(results) != n or any(r is None or r.error for r in results):
         fail(f"{tag} returned missing or failed results")
+    if iter_chunk:
+        phase_iter(pipe, pairs, results, iter_chunk, tag)
+    pipe.close()  # no worker threads across the oracle pool's fork
     idx = list(range(0, n, max(1, n // n_check)))[:n_check]
     oracle_check(tag, pairs, results, idx, OracleAligner(pen, opts, ad))
     return launches, seen
+
+
+def token_stream(res):
+    """The token array a device result was made from (before its lazy
+    decode)."""
+    toks = res._raw_tokens
+    return toks[0] if isinstance(toks, tuple) else toks
+
+
+def phase_iter(pipe, pairs, results, chunk: int, tag: str) -> None:
+    """``align_iter`` over ``pairs`` in chunks of ``chunk`` against the
+    timed ``align_all``'s ``results``: every pair from the device, with
+    the same score, final score and token stream."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    streamed = list(pipe.align_iter(iter(pairs), chunk=chunk))
+    secs = time.perf_counter() - t0
+    if pipe._device_errors or len(streamed) != len(results):
+        fail(f"{tag} align_iter: {len(streamed)} results, "
+             f"{pipe._device_errors} device faults")
+    for i, (a, b) in enumerate(zip(results, streamed)):
+        if (getattr(b, "final_s", None) is None
+                or (a.score, a.final_s) != (b.score, b.final_s)
+                or not np.array_equal(token_stream(a), token_stream(b))):
+            fail(f"{tag} align_iter differs from align_all at pair {i}")
+    print(f"{tag}: align_iter in chunks of {chunk} equals align_all, token "
+          f"stream for token stream, on all {len(pairs)} pairs "
+          f"({secs:.3f} s)")
+
+
+def phase_errors(card: str, recs) -> None:
+    """bench.py's global l=1000 rows at e=0.10 and 0.20 (bench.py:143-144),
+    which retry up the tier ladder and probe it: each on a fresh pipeline
+    (batch 2048), one call, the pairs served per tier printed and a
+    sample held to the oracle; then K1 and K2 against their plain versions
+    on the first batch the call gave each (k_win, s_cap), their
+    max_abs_err folded into ``recs`` (the global K1 and K2 records).  A
+    device fault fails the phase; pairs the ladder sends to the oracle do
+    not."""
+    import torch
+    from wfa_tpu_torch import (AdaptiveReductionOption, OracleAligner,
+                               Options, Penalties)
+    from wfa_tpu_torch.datagen import generate_pairs
+    from wfa_tpu_torch.pipeline import AlignmentPipeline, PipelineConfig
+
+    pen, ad = Penalties(4, 6, 2), AdaptiveReductionOption(10, 50, 1)
+    for err in ERROR_RATES:
+        tag = f"global l=1000 e={err:.2f}"
+        pairs = generate_pairs(N_ERR, 1000, err, seed=42)
+        pipe = AlignmentPipeline(PipelineConfig(pen, Options(True), ad,
+                                                batch_size=BATCH,
+                                                device=DEVICE))
+        with record_batches() as seen:
+            t0 = time.perf_counter()
+            results = pipe.align_all(pairs)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        pipe.close()
+        print(f"{tag}: align_all {N_ERR} pairs in {secs:.3f} s = "
+              f"{N_ERR / secs:.1f} aln/s (first call) on {card}; pairs "
+              f"served per tier {pipe.served}; engines "
+              f"{sorted(pipe._engines)}; at most {pipe.peak['batches']} "
+              f"batches in flight, {pipe.peak['bytes'] / 2**30:.3f} GiB "
+              f"reserved of {pipe.peak['gate'] / 2**30:.1f} GiB")
+        if pipe._device_errors:
+            fail(f"{tag}: {pipe._device_errors} device faults")
+        if len(results) != N_ERR or any(r is None or r.error
+                                        for r in results):
+            fail(f"{tag} returned missing or failed results")
+        idx = list(range(0, N_ERR, N_ERR // N_ERR_CHECK))[:N_ERR_CHECK]
+        oracle_check(tag, pairs, results, idx,
+                     OracleAligner(pen, Options(True), ad))
+        for (engine, k_win, s_cap), batch in seen.items():
+            if engine != "auto":
+                fail(f"{tag} ran engine {engine!r}")
+            check_batch(batch, pen, True, k_win, s_cap, 3, recs)
 
 
 def phase_semi2(pairs, pen, S0: int, k_win: int, s_cap: int, reps: int,
@@ -825,9 +933,7 @@ def check_own_batches(seen, length: int, reps: int, recs, k1_recs,
     first at each engine key), and K1-semi and K2 on the batches of its
     full-span last tier, at ``pen`` (default 4/6/2); the first batch's
     times stay in ``recs`` (K3, K4, K2) unless it is already filled."""
-    import torch
-    from wfa_tpu_torch import AdaptiveReductionOption, Penalties
-    from wfa_tpu_torch.engine import EngineConfig, _pack_all, inputs_from_packed
+    from wfa_tpu_torch import Penalties
 
     pen = pen or Penalties(4, 6, 2)
     for key, pairs in seen.items():
@@ -842,15 +948,27 @@ def check_own_batches(seen, length: int, reps: int, recs, k1_recs,
                 merge(recs, new)
             continue
         _, k_win, s_cap = key
-        cfg = EngineConfig(penalties=pen, global_alignment=False,
-                           adaptive=AdaptiveReductionOption(10, 50, 1),
-                           k_win=k_win, s_cap=s_cap)
-        ins = inputs_from_packed(
-            _pack_all(pairs, k_win, global_alignment=False), DEVICE)
-        rec1, out = phase_k1(cfg, ins, reps)
-        merge(k1_recs, (rec1, phase_k2(cfg, ins, out)))
-        del out, ins
-        torch.cuda.empty_cache()
+        check_batch(pairs, pen, False, k_win, s_cap, reps, k1_recs)
+
+
+def check_batch(pairs, pen, global_alignment: bool, k_win: int, s_cap: int,
+                reps: int, recs) -> None:
+    """K1 (K1-semi) and K2 against their plain versions on a batch a path
+    gave them, at its caps; their max_abs_err folded into ``recs``."""
+    import torch
+    from wfa_tpu_torch import AdaptiveReductionOption
+    from wfa_tpu_torch.engine import EngineConfig, _pack_all, inputs_from_packed
+
+    torch.cuda.empty_cache()
+    cfg = EngineConfig(penalties=pen, global_alignment=global_alignment,
+                       adaptive=AdaptiveReductionOption(10, 50, 1),
+                       k_win=k_win, s_cap=s_cap)
+    ins = inputs_from_packed(
+        _pack_all(pairs, k_win, global_alignment=global_alignment), DEVICE)
+    rec1, out = phase_k1(cfg, ins, reps)
+    merge(recs, (rec1, phase_k2(cfg, ins, out, reps=reps)))
+    del out, ins
+    torch.cuda.empty_cache()
 
 
 def phase_bwa(reps: int, recs, card: str):
@@ -942,9 +1060,11 @@ def main() -> None:
     rec1, rec2 = check_kernels(GLOBAL_CHECKS, True, reps=10)
     launches, _ = phase_main(N_MAIN, 1000, True, BATCH, N_CHECK, card,
                              GLOBAL_CHECKS, need=(("score_loop", "global"),
-                                                  ("backtrace", "global")))
+                                                  ("backtrace", "global")),
+                             iter_chunk=ITER_CHUNK)
     rec1["launches"] = launches["score_loop"]["global"]
     rec2["launches"] = launches["backtrace"]["global"]
+    phase_errors(card, (rec1, rec2))
     # semi-global at spans up to 512: K1-semi and K2 (also at the A/B's
     # full-span shape), then the l=200 path
     rec3, rec4 = check_kernels(SEMI_CHECKS, False, reps=3)

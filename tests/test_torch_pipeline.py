@@ -5,8 +5,11 @@ must equal ``wfa_tpu.oracle`` on score, CIGAR, q/t begin/end, align_len,
 matches, gaps and gap_regions, whichever tier served the pair, in global
 and semi-global mode."""
 
+import contextlib
 import inspect
 import random
+import sys
+import threading
 
 import pytest
 import torch
@@ -214,17 +217,25 @@ def test_default_device_is_the_card():
         AlignmentPipeline(PipelineConfig()).align_all([(b"ACGT", b"ACGA")])
 
 
-def _faulty_submit(monkeypatch, errors):
-    """Make ``BatchAligner.submit_batch`` raise the exceptions of
-    ``errors`` on its first calls, then submit as before; returns the list
-    of calls it saw."""
+def _faulty_submit(monkeypatch, faults):
+    """Make ``BatchAligner.submit_batch`` raise each exception of
+    ``faults`` ((pair, exception) items) once, on the first submit of a
+    batch that holds that pair, and submit as before otherwise (the
+    pipeline's submit workers call it in no fixed order); returns the
+    list of calls it saw."""
     orig = BatchAligner.submit_batch
     calls = []
+    pending = list(faults)
+    lock = threading.Lock()
 
     def submit(eng, pairs):
-        calls.append(len(pairs))
-        if len(calls) <= len(errors):
-            raise errors[len(calls) - 1]
+        with lock:
+            calls.append(len(pairs))
+            hit = next((f for f in pending if f[0] in pairs), None)
+            if hit is not None:
+                pending.remove(hit)
+        if hit is not None:
+            raise hit[1]
         return orig(eng, pairs)
 
     monkeypatch.setattr(BatchAligner, "submit_batch", submit)
@@ -244,9 +255,10 @@ def test_device_fault_retries_then_falls_to_the_oracle(monkeypatch, capsys,
     pipe = AlignmentPipeline(PipelineConfig(Penalties(4, 6, 2), Options(True),
                                             ADAPTIVE, batch_size=8,
                                             device="cpu"))
-    calls = _faulty_submit(monkeypatch, [RuntimeError("CUDA error: an "
-                                                      "illegal memory access")]
-                           * faults)
+    # chunk 0 holds pairs 0-7 and chunk 1 pairs 8-11
+    calls = _faulty_submit(monkeypatch, [
+        (pairs[i], RuntimeError("CUDA error: an illegal memory access"))
+        for i in (0, 8)[:faults]])
     res = pipe.align_all(pairs)
     _assert_oracle(pairs, res, Penalties(4, 6, 2), ADAPTIVE)
     err = capsys.readouterr().err
@@ -270,9 +282,10 @@ def test_host_errors_are_not_device_faults(monkeypatch):
     """A ValueError (or TypeError) is a bug on the host: it propagates."""
     pipe = AlignmentPipeline(PipelineConfig(Penalties(4, 6, 2), Options(True),
                                             ADAPTIVE, device="cpu"))
-    _faulty_submit(monkeypatch, [ValueError("bad shape")])
+    pairs = random_pairs(random.Random(6), 4, 40)
+    _faulty_submit(monkeypatch, [(pairs[0], ValueError("bad shape"))])
     with pytest.raises(ValueError, match="bad shape"):
-        pipe.align_all(random_pairs(random.Random(6), 4, 40))
+        pipe.align_all(pairs)
 
 
 def test_finish_fault_retries_the_chunk(monkeypatch):
@@ -353,3 +366,394 @@ def test_launch_error_kinds(monkeypatch, code, fault):
     assert isinstance(info.value, _build.KernelError) is not fault
     monkeypatch.setattr(_build, "_lib", _RefusingLibrary(0))
     _build.launch("wfa_score_loop", 1, None)
+
+
+def _counting_submit(monkeypatch, gate=None):
+    """Count ``BatchAligner.submit_batch`` calls (the batch sizes, from any
+    thread); with ``gate`` (a threading.Event) each call first waits for
+    it."""
+    orig = BatchAligner.submit_batch
+    calls = []
+
+    def submit(eng, pairs):
+        calls.append(len(pairs))
+        if gate is not None:
+            assert gate.wait(30)
+        return orig(eng, pairs)
+
+    monkeypatch.setattr(BatchAligner, "submit_batch", submit)
+    return calls
+
+
+def test_pipeline_probe_skips_doomed_tier(monkeypatch):
+    """The counterpart of tests/test_semi2.py's probe test: 96 pairs of
+    l=150 at e=0.45 in batches of 16 take at most 10 submits, and the
+    results equal the oracle."""
+    p = Penalties(4, 6, 2)
+    pairs = generate_pairs(96, 150, 0.45, seed=3)
+    pipe = AlignmentPipeline(PipelineConfig(p, Options(True), ADAPTIVE,
+                                            batch_size=16, device="cpu"))
+    calls = _counting_submit(monkeypatch)
+    _assert_oracle(pairs, pipe.align_all(pairs), p, ADAPTIVE)
+    assert len(calls) <= 10, calls
+
+
+def test_probe_skips_the_rest_of_a_doomed_tier(monkeypatch):
+    """When at least 90% of a tier's first chunk overflows, its chunks not
+    yet handed to the workers go straight to the next tier.  One batch in
+    flight at a time (WFA_MAX_INFLIGHT=1) makes the third chunk wait for
+    the probe: of six chunks whose every pair overflows tier 0 (s_cap 128)
+    at most three run there."""
+    monkeypatch.setenv("WFA_MAX_INFLIGHT", "1")
+    p = Penalties(4, 6, 2)
+    pairs = generate_pairs(24, 150, 0.45, seed=3)
+    pipe = AlignmentPipeline(PipelineConfig(p, Options(True), ADAPTIVE,
+                                            batch_size=4, s_cap_base=64,
+                                            device="cpu"))
+    assert pipe._tier_caps(170, 170, 0)[1] == 128
+    tier0 = []
+    orig = BatchAligner.submit_batch
+
+    def submit(eng, batch):
+        if eng.cfg.s_cap == 128:
+            tier0.append(len(batch))
+        return orig(eng, batch)
+
+    monkeypatch.setattr(BatchAligner, "submit_batch", submit)
+    _assert_oracle(pairs, pipe.align_all(pairs), p, ADAPTIVE)
+    assert pipe.served[0] == 0
+    assert 2 <= len(tier0) <= 3, tier0
+    assert pipe.peak["batches"] == 1
+
+
+def test_count_cap(monkeypatch):
+    """No more than WFA_MAX_INFLIGHT batches are in flight at once: with
+    the submits held, the pipeline admits exactly that many and waits."""
+    monkeypatch.setenv("WFA_MAX_INFLIGHT", "2")
+    p = Penalties(4, 6, 2)
+    pairs = generate_pairs(24, 100, 0.05, seed=12)
+    pipe = AlignmentPipeline(PipelineConfig(p, Options(True), ADAPTIVE,
+                                            batch_size=4, device="cpu"))
+    go = threading.Event()
+    calls = _counting_submit(monkeypatch, go)
+    out = {}
+    runner = threading.Thread(
+        target=lambda: out.setdefault("res", pipe.align_all(pairs)))
+    runner.start()
+    try:
+        for _ in range(300):
+            if pipe._batches == 2:
+                break
+            threading.Event().wait(0.01)
+        threading.Event().wait(0.3)
+        assert pipe._batches == 2 and len(calls) == 2
+    finally:
+        go.set()
+        runner.join(60)
+    assert not runner.is_alive()
+    _assert_oracle(pairs, out["res"], p, ADAPTIVE)
+    assert len(calls) == 6 and pipe.peak["batches"] == 2
+    assert pipe._batches == 0 and pipe._mem_used == 0
+
+
+def test_byte_gate():
+    """The gate holds the bytes reserved at once to twice mem_budget: a
+    reservation that would pass it waits for a release; one larger than
+    the whole gate is still admitted, alone."""
+    pipe = AlignmentPipeline(PipelineConfig(mem_budget=100, device="cpu"))
+    pipe.peak = {"batches": 0, "bytes": 0}
+    admitted = threading.Event()
+
+    def second(nbytes):
+        admitted.clear()
+        t = threading.Thread(target=lambda: (pipe._mem_acquire(nbytes),
+                                             admitted.set()))
+        t.start()
+        return t
+
+    pipe._mem_acquire(150)
+    t = second(100)  # 250 > 200: waits
+    assert not admitted.wait(0.3)
+    pipe._mem_release(150)
+    assert admitted.wait(10)
+    t.join(10)
+    assert pipe._mem_used == 100
+    pipe._mem_release(100)
+    pipe._mem_acquire(500)  # past the gate, but the only reservation
+    t = second(1)
+    assert not admitted.wait(0.3)
+    pipe._mem_release(500)
+    assert admitted.wait(10)
+    t.join(10)
+    pipe._mem_release(1)
+    assert pipe._mem_used == 0 and pipe.peak["bytes"] == 500
+
+
+def test_byte_gate_in_align_all():
+    """A call whose gate admits two of its batches' models at once: the
+    reservations never pass the gate, and the results equal the oracle."""
+    p = Penalties(4, 6, 2)
+    pairs = generate_pairs(24, 100, 0.05, seed=13)
+    probe = AlignmentPipeline(PipelineConfig(p, Options(True), ADAPTIVE,
+                                             batch_size=4, device="cpu"))
+    per_batch = probe._tier_caps(128, 128, 0)[5]
+    pipe = AlignmentPipeline(PipelineConfig(p, Options(True), ADAPTIVE,
+                                            batch_size=4,
+                                            mem_budget=per_batch + 1,
+                                            device="cpu"))
+    assert pipe._tier_caps(128, 128, 0)[5] == per_batch
+    _assert_oracle(pairs, pipe.align_all(pairs), p, ADAPTIVE)
+    assert pipe.served[0] == len(pairs)
+    assert per_batch <= pipe.peak["bytes"] <= pipe.peak["gate"]
+    assert pipe._mem_used == 0
+
+
+def test_errors_release_every_reservation(monkeypatch):
+    """A host error in one batch's submit leaves align_all only after
+    every batch of the call has drained: no byte reservation or slot is
+    left held, and the pipeline aligns the next call."""
+    p = Penalties(4, 6, 2)
+    pairs = generate_pairs(16, 80, 0.05, seed=14)
+    pipe = AlignmentPipeline(PipelineConfig(p, Options(True), ADAPTIVE,
+                                            batch_size=4, device="cpu"))
+    _faulty_submit(monkeypatch, [(pairs[5], ValueError("bad shape"))])
+    with pytest.raises(ValueError, match="bad shape"):
+        pipe.align_all(pairs)
+    assert pipe._mem_used == 0 and pipe._batches == 0
+    _assert_oracle(pairs, pipe.align_all(pairs), p, ADAPTIVE)
+    pipe.close()
+
+
+def test_align_iter_matches_align_all():
+    """align_iter yields align_all's results in input order, across the
+    boundaries of its chunks."""
+    p = Penalties(4, 6, 2)
+    pairs = random_pairs(random.Random(31), 11, 70)
+    pipe = AlignmentPipeline(PipelineConfig(p, Options(True), ADAPTIVE,
+                                            batch_size=4, device="cpu"))
+    whole = pipe.align_all(pairs)
+    streamed = list(pipe.align_iter(iter(pairs), chunk=5))
+    assert len(streamed) == len(pairs)
+    for a, b in zip(whole, streamed):
+        assert a.cigar(False) == b.cigar(False)
+        assert all(getattr(a, f) == getattr(b, f) for f in FIELDS)
+    _assert_oracle(pairs, streamed, p, ADAPTIVE)
+
+
+def test_use_device_false_is_the_oracle():
+    """use_device=False serves every pair by the oracle and touches no
+    device: the card default holds even where there is none."""
+    p = Penalties(4, 6, 2)
+    pairs = random_pairs(random.Random(32), 6, 60) + [(b"", b"ACGT")]
+    pipe = AlignmentPipeline(PipelineConfig(p, Options(True), ADAPTIVE,
+                                            use_device=False))
+    assert PipelineConfig().use_device
+    res = pipe.align_all(pairs)
+    assert isinstance(res[-1].error, EmptySeqError)
+    _assert_oracle(pairs[:-1], res[:-1], p, ADAPTIVE)
+    assert pipe.served["oracle"] == len(pairs) - 1
+    assert not pipe._engines
+
+
+@pytest.mark.parametrize("layout", ["mtb", "raw"])
+def test_fetch_guess_too_small_or_too_large(layout):
+    """The speculative fetch's guessed extents change what is copied, not
+    the results: a guess far too small (the rest fetched by finish_small)
+    and one far too large give the cold start's results.  The raw layout
+    (token streams past 2**16 slots) guesses rows of its loop buffer."""
+    p = Penalties(4, 6, 2)
+    pairs = generate_pairs(4, 60, 0.05, seed=15)
+    if layout == "raw":  # the smallest score cap past 2**16 slots
+        eng = BatchAligner(p, Options(True), ADAPTIVE, k_win=32,
+                           s_cap=65528, device="cpu")
+        key = "buf"
+    else:
+        eng = BatchAligner(p, Options(True), ADAPTIVE, k_win=128,
+                           s_cap=256, device="cpu")
+        key = "mtb"
+    cold = eng.submit_batch(pairs)
+    assert (key in cold.host) == (layout == "mtb")  # cold: meta bytes only
+    ref = eng.finish_batch(cold)
+    _assert_oracle(pairs, ref, p, ADAPTIVE)
+    learned = eng._tok_guess[key]
+    assert learned
+    for guess, rest in ((1, True), (1 << 20, False)):
+        eng._tok_guess = {"mtb": guess, "lg": guess, "buf": guess}
+        h = eng.finish_small(eng.submit_batch(pairs))
+        assert (f"{key}_rest" in h.host) == rest
+        assert eng._tok_guess[key] == learned  # re-learned from the meta
+        res = eng.finish_tokens(h)
+        assert h.out is None  # the device outputs are released
+        for a, b in zip(ref, res):
+            assert a.cigar(False) == b.cigar(False) and a.score == b.score
+    eng.wait_exec(cold)  # nothing to wait for on the CPU
+
+
+def test_fetch_event_goes_to_the_aligners_card(monkeypatch):
+    """On a card other than the thread's current one (a worker thread
+    starts on device 0), a batch's event is recorded on the current
+    stream of the aligner's own card, the stream its launches went to,
+    and the copy stream waits on it; a submit runs with that card as the
+    current device.  Torch's CUDA calls are stood in for, so this runs on
+    the CPU."""
+    class Event:
+        def record(self, stream=None):  # None: the current device's
+            self.stream = stream
+
+    class CopyStream:
+        def __init__(self):
+            self.waited = []
+
+        def wait_event(self, ev):
+            self.waited.append(ev)
+
+    entered = []
+
+    @contextlib.contextmanager
+    def device(d):
+        entered.append(d)
+        yield
+
+    card = torch.device("cuda", 1)
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: ("stream", device))
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "device", device)
+    eng = BatchAligner(Penalties(4, 6, 2), Options(True), ADAPTIVE,
+                       device="cpu")
+    eng.device, eng._copy = card, CopyStream()
+    monkeypatch.setattr(eng, "_host", lambda a: a)
+    monkeypatch.setattr(eng, "_copied", lambda: None)
+    h = eng._queue_fetch([(b"ACGT", b"ACGT")] * 2,
+                         {"meta": torch.zeros(2, 8, dtype=torch.int32)}, False)
+    assert h.ran.stream == ("stream", card)
+    assert eng._copy.waited == [h.ran]
+    monkeypatch.setattr(eng, "_submit", lambda pairs, prepacked: list(entered))
+    assert eng.submit_batch([(b"ACGT", b"ACGT")]) == [card]
+
+
+def test_builds_once_under_concurrent_first_calls(monkeypatch):
+    """Eight threads calling _build.library() or native.load() at once
+    build once and all get the one library: no thread sees a missing
+    library (native.load's None would send its pack down the numpy
+    path)."""
+    from wfa_tpu_torch import _build, native
+
+    sentinel = object()
+    builds = []
+
+    def slow_build(src_dir):
+        builds.append(src_dir)
+        threading.Event().wait(0.2)
+        return sentinel
+
+    real = native._build
+
+    def slow_native():
+        builds.append("native")
+        threading.Event().wait(0.2)
+        return real()
+
+    monkeypatch.setattr(_build, "build", slow_build)
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(native, "_build", slow_native)
+    monkeypatch.setattr(native, "lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    for fn, want in ((_build.library, lambda: sentinel),
+                     (native.load, lambda: native.lib)):
+        builds.clear()
+        start = threading.Barrier(8)
+        got = []
+
+        def call():
+            start.wait(10)
+            got.append(fn())
+
+        threads = [threading.Thread(target=call) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(30)
+        assert not any(t.is_alive() for t in threads)
+        assert len(builds) == 1 and len(got) == 8
+        assert all(g is want() for g in got)
+    assert native.lib is not None  # the packer builds here
+
+
+def test_launch_counts_under_threads():
+    """The launch counters take concurrent adds without losing one."""
+    from wfa_tpu_torch._build import count
+
+    counts = {"global": 0}
+
+    def add():
+        for _ in range(2000):
+            count(counts, "global")
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=add) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+    finally:
+        sys.setswitchinterval(old)
+    assert counts["global"] == 32000
+
+
+@pytest.mark.parametrize("ga", [True, False], ids=["global", "semi2"])
+def test_threaded_pipeline_matches_jax_pipeline(ga):
+    """The threaded align_all gives wfa_tpu.pipeline.AlignmentPipeline's
+    results value for value on the same pairs, over several batches:
+    global on engine "auto", semi-global (spans past 512) on "semi2:64"."""
+    from wfa_tpu.pipeline import AlignmentPipeline as JaxPipeline
+    from wfa_tpu.pipeline import PipelineConfig as JaxConfig
+
+    p = Penalties(4, 6, 2)
+    pairs = (generate_pairs(16, 100, 0.05, seed=9) if ga
+             else generate_pairs(8, 270, 0.05, seed=9))
+    args = (p, Options(ga), ADAPTIVE)
+    ref = JaxPipeline(JaxConfig(*args, batch_size=4, n_devices=1)).align_all(
+        pairs)
+    pipe = AlignmentPipeline(PipelineConfig(*args, batch_size=4,
+                                            device="cpu"))
+    got = pipe.align_all(pairs)
+    assert {e for _, _, e in pipe._engines} == {"auto" if ga else "semi2:64"}
+    assert pipe.served[0] == len(pairs) and pipe.peak["batches"] >= 1
+    for r, g in zip(ref, got):
+        assert r.cigar(False) == g.cigar(False)
+        assert all(getattr(r, f) == getattr(g, f) for f in FIELDS)
+
+
+@pytest.mark.parametrize("ga", [True, False], ids=["global", "semi2"])
+def test_pack_batch_and_prepacked_submit(ga):
+    """pack_batch gives wfa_tpu.engine.BatchAligner.pack_batch's arrays,
+    and a submit of a batch packed beforehand (``prepacked``) gives the
+    results of one that packs itself."""
+    import numpy as np
+    from wfa_tpu.engine import BatchAligner as JaxAligner
+
+    from wfa_tpu_torch.engine import _pack_all
+
+    p = Penalties(4, 6, 2)
+    pairs = generate_pairs(6, 270, 0.05, seed=16)
+    engine = "auto" if ga else "semi2:64"
+    eng = BatchAligner(p, Options(ga), ADAPTIVE, k_win=256, s_cap=640,
+                       engine=engine, device="cpu")
+    ref = JaxAligner(p, Options(ga), ADAPTIVE, k_win=256, s_cap=640,
+                     engine=engine)
+    for a, b in zip(eng.pack_batch(pairs), ref.pack_batch(pairs)):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+    prepacked = _pack_all(pairs, 256, need_raw=not ga, global_alignment=ga)
+    own = eng.align_batch(pairs, fallback=False)
+    pre = eng.finish_batch(eng.submit_batch(pairs, prepacked),
+                           fallback=False)
+    assert sum(r is not None for r in own) >= 5
+    for a, b in zip(own, pre):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert (a.score, a.cigar(False)) == (b.score, b.cigar(False))

@@ -251,7 +251,7 @@ def test_semi_ladder_matches_jax():
         for length in (200, 320, 1000, 6000):
             full_span = -(-(2 * length + 1) // 128) * 128
             for tier in range(4):
-                k, s, _, engine = ours._tier_caps(length, length, tier)
+                k, s, _, engine = ours._tier_caps(length, length, tier)[:4]
                 jk, _, _, _, jengine = ref._tier_caps(length, length,
                                                       tier)[:5]
                 assert k == jk, (length, tier)

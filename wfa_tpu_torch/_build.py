@@ -13,6 +13,8 @@ pipeline's device-fault retry never hands it to the oracle; a fault of
 the device at run time (an allocation, an earlier kernel's bad address)
 raises RuntimeError, as PyTorch's own CUDA errors do.
 Nothing here runs at import time: the CPU tests import every module.
+The pipeline's submit workers call :func:`library` and :func:`count`
+from several threads at once, so both hold a lock.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -82,6 +85,8 @@ class KernelError(Exception):
 
 
 _lib = None
+_lib_lock = threading.Lock()
+_count_lock = threading.Lock()
 build_seconds = None  # wall time of the nvcc run (None: loaded cached)
 build_log = ""  # nvcc's output (ptxas register / spill report)
 
@@ -97,11 +102,19 @@ def _nvcc() -> str:
 
 
 def library() -> ctypes.CDLL:
-    """The kernel library, built on the first call."""
+    """The kernel library, built on the first call (once, whichever
+    thread calls first; the others wait for that build)."""
     global _lib
-    if _lib is None:
-        _lib = build(SRC_DIR)
-    return _lib
+    with _lib_lock:
+        if _lib is None:
+            _lib = build(SRC_DIR)
+        return _lib
+
+
+def count(launches: dict, mode: str) -> None:
+    """Add one to a wrapper's launch count ``launches[mode]``."""
+    with _count_lock:
+        launches[mode] += 1
 
 
 def build(src_dir: Path) -> ctypes.CDLL:

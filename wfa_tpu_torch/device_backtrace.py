@@ -27,6 +27,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ._build import count
 from .constants import (
     T_DEL_EXT,
     T_DEL_OPEN,
@@ -351,7 +352,7 @@ def device_backtrace(
            stream_ptr(dev))
     mode = ("long" if rebased else "kw" if kw else "semi2" if dual
             else "global" if global_alignment else "semi")
-    device_backtrace.launches[mode] += 1
+    count(device_backtrace.launches, mode)
     if return_iters:
         return tok0, buf, tail, iters
     return tok0, buf, tail

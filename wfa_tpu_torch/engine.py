@@ -27,6 +27,7 @@ tests compare the two packages value for value.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from typing import List, Optional, Sequence, Tuple
@@ -1139,41 +1140,64 @@ def align_full2(seq, lens, *, cfg: EngineConfig, B: int, Lq: int, Ltb: int,
     return out
 
 
+def _meta_from_bytes(head: np.ndarray, B: int) -> np.ndarray:
+    """meta int32[B, 4] from the little-endian meta bytes that lead an
+    ``"mtb"`` stream."""
+    nm = len(META_COLS)
+    mb = head.shape[0] // (nm * B)
+    mraw = head.reshape(B, nm, mb).astype(np.int64)
+    return sum(mraw[:, :, i] << (8 * i) for i in range(mb)).astype(np.int32)
+
+
+def _split_tokens(meta: np.ndarray, b: np.ndarray, longs: np.ndarray):
+    """Per-pair token arrays from the byte stream ``b`` and the long
+    stream ``longs`` (each at least as long as the pairs' totals in
+    ``meta``): byte = code << 5 | run, and each placeholder byte (224)
+    takes the long stream's next token."""
+    ends = np.cumsum(meta[:, M_TRIM].astype(np.int64))
+    ends_l = np.cumsum(meta[:, M_LONG].astype(np.int64))
+    b = b[:int(ends[-1])]
+    longs = longs[:int(ends_l[-1])]
+    shift = 12 if longs.dtype == np.int16 else 28
+    toks = (((b >> 5).astype(np.int32) << shift) | (b & 31)).astype(
+        longs.dtype)
+    toks[b == 224] = longs
+    el = ends.tolist()
+    return [toks[a:z] for a, z in zip([0] + el[:-1], el)]
+
+
 def decode_outputs(pairs, mtb: np.ndarray, lg: np.ndarray):
     """Split a fetched ``{"mtb", "lg"}`` pair of streams into (meta
     int32[B, 4], per-pair token arrays), as
     ``wfa_tpu.engine.BatchAligner.finish_small/finish_tokens`` do."""
-    B = len(pairs)
-    nm = len(META_COLS)
     hd = mtb.shape[0] - lg.shape[0]
-    mb = hd // (nm * B)
-    mraw = mtb[:hd].reshape(B, nm, mb).astype(np.int64)
-    meta = sum(mraw[:, :, i] << (8 * i) for i in range(mb)).astype(np.int32)
-    ends = np.cumsum(meta[:, M_TRIM].astype(np.int64))
-    ends_l = np.cumsum(meta[:, M_LONG].astype(np.int64))
-    b = mtb[hd:hd + int(ends[-1])]
-    longs = lg[:int(ends_l[-1])]
-    # byte = code << 5 | run; placeholder bytes (224) take the long
-    # stream's tokens in order
-    shift = 12 if lg.dtype == np.int16 else 28
-    toks = (((b >> 5).astype(np.int32) << shift) | (b & 31)).astype(lg.dtype)
-    toks[b == 224] = longs
-    el = ends.tolist()
-    return meta, [toks[a:z] for a, z in zip([0] + el[:-1], el)]
+    meta = _meta_from_bytes(mtb[:hd], len(pairs))
+    return meta, _split_tokens(meta, mtb[hd:], lg)
 
 
 def assemble_raw(pairs, out) -> tuple:
     """(meta int32[B, 4], per-pair token rows) of a fetched raw output
-    ``{"meta", "tok0", "buf", "tail"}``: each row is tok0, buf[0], buf[1],
-    ..., tail with zeros for empty slots, as
+    ``{"meta", "tok0", "buf", "tail"}`` (numpy arrays; ``buf`` may stop
+    after the rows the chase used): each row is tok0, buf[0], buf[1], ...,
+    tail with zeros for empty slots, as
     ``wfa_tpu.engine.BatchAligner._finish`` joins it (engine.py:2114-2125).
     """
-    tok0, buf, tail = (out[k].cpu().numpy() for k in ("tok0", "buf", "tail"))
+    tok0, buf, tail = out["tok0"], out["buf"], out["tail"]
     B = tok0.shape[0]
     toks = np.concatenate(
         [tok0[:, None], np.transpose(buf, (1, 0, 2)).reshape(B, -1), tail],
         axis=1)
-    return out["meta"].cpu().numpy().astype(np.int32), list(toks[:len(pairs)])
+    return out["meta"].astype(np.int32), list(toks[:len(pairs)])
+
+
+def _coarse(n: int, lo: int = 512) -> int:
+    """Round a guessed fetch extent up to a grid of at least 1/8 of its
+    magnitude (``wfa_tpu.engine._coarse``), so that the pinned buffers
+    of the speculative fetch come in few sizes."""
+    g = lo
+    while g * 8 < n:
+        g *= 2
+    return ((n + g - 1) // g) * g
 
 
 class DeviceResult(AlignmentResult):
@@ -1186,6 +1210,33 @@ class DeviceResult(AlignmentResult):
     global end in semi-global mode.  A score cap must lie above it."""
 
     __slots__ = ("final_s",)
+
+
+@dataclasses.dataclass(eq=False)
+class Submitted:
+    """A submitted batch (:meth:`BatchAligner.submit_batch`): its pairs,
+    its outputs on the device (``out``, released by
+    :meth:`BatchAligner.finish_tokens`), whether its token stream is
+    edit-only, and its fetch: ``host``, the host copies queued so far by
+    output name ("mtb" the meta bytes and the guessed token extent, "lg"
+    the long stream's guess, "buf" the raw layout's, "*_rest" what
+    :meth:`BatchAligner.finish_small` found the guess missed; pinned
+    buffers on the card, the tensors themselves on the CPU), ``ran``, the
+    event after the batch's last launch, ``copied``, the event after its
+    last queued copy (both None on the CPU), and the meta that
+    ``finish_small`` read."""
+    pairs: list
+    out: dict
+    edit: bool
+    host: dict = dataclasses.field(default_factory=dict)
+    ran: Optional[torch.cuda.Event] = None
+    copied: Optional[torch.cuda.Event] = None
+    meta: Optional[np.ndarray] = None
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes the batch's outputs hold until its finish."""
+        return sum(a.numel() * a.element_size() for a in self.out.values())
 
 
 class BatchAligner:
@@ -1204,6 +1255,18 @@ class BatchAligner:
     (:mod:`wfa_tpu_torch.semi2`: K3 at the full span to score S0, then K4
     in a ``k_win``-wide window, then K2 over both aux tensors).  The card
     is the default device; ``device="cpu"`` runs the plain versions.
+
+    The fetch is split as ``wfa_tpu.engine.BatchAligner``'s: a submit
+    queues the copies of the small outputs and of the token streams at a
+    guessed extent (the last batches' used extent and 1/8 more) right
+    after its launches; :meth:`finish_small` reads the meta and queues
+    what the guess missed; :meth:`finish_tokens` builds the results.  On
+    the card a submit runs with this aligner's card as the thread's
+    current device, the launches on that device's current stream and the
+    copies on a copy stream of this aligner that waits for them, into
+    pinned buffers; so a submit does not wait for the launches (but the
+    two-phase route's mid-point fetch of ``meta1``), and several threads
+    may submit and finish batches of one aligner at once.
     """
 
     def __init__(self, penalties: Penalties = Penalties(),
@@ -1233,9 +1296,14 @@ class BatchAligner:
                                 aux_kw=kw)
         self.engine = engine
         self.device = resolve_device(device)
+        self._copy = (torch.cuda.Stream(self.device)
+                      if self.device.type == "cuda" else None)
         self._oracle = OracleAligner(penalties, options, adaptive)
         # full spans phase 1 ran at ("semi2")
         self.spans = set()
+        # speculative fetch extents by output ("mtb" token bytes, "lg"
+        # long tokens, "buf" raw rows); None until a batch calibrates them
+        self._tok_guess = {"mtb": None, "lg": None, "buf": None}
 
     def align_batch(self, pairs: Sequence[Tuple[bytes, bytes]],
                     fallback: bool = True) -> List[Optional[AlignmentResult]]:
@@ -1250,10 +1318,41 @@ class BatchAligner:
                     "supported")
         return self.finish_batch(self.submit_batch(pairs), fallback)
 
-    def submit_batch(self, pairs: Sequence[Tuple[bytes, bytes]]):
-        """Pack, upload and launch a batch; returns a handle for
-        :meth:`finish_batch`.  The launches are asynchronous."""
-        pairs = list(pairs)
+    def pack_batch(self, pairs: Sequence[Tuple[bytes, bytes]]):
+        """Pad a batch and pre-place each target at column -k0: (qb, tbuf,
+        qlen, tlen, toff, Lq, Ltb), as ``wfa_tpu.engine.BatchAligner
+        .pack_batch``."""
+        return self._pack_all(pairs)[:7]
+
+    def _pack_all(self, pairs, need_raw: bool = True):
+        """:func:`_pack_all` at this aligner's window and mode."""
+        return _pack_all(pairs, self.cfg.k_win, need_raw=need_raw,
+                         global_alignment=self.cfg.global_alignment)
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """``a`` on the device (a copy from pageable host memory)."""
+        return torch.from_numpy(a).to(self.device)
+
+    def _on_device(self):
+        """Context that makes this aligner's card the thread's current
+        device (nothing on the CPU): a worker thread starts on device 0,
+        and the launches, the events and the copies must go to this one."""
+        if self.device.type != "cuda":
+            return contextlib.nullcontext()
+        return torch.cuda.device(self.device)
+
+    def submit_batch(self, pairs: Sequence[Tuple[bytes, bytes]],
+                     prepacked=None) -> Submitted:
+        """Pack, upload and launch a batch, and queue its fetch; returns
+        the handle for :meth:`finish_batch`.  ``prepacked`` (the tuple
+        :func:`_pack_all` gives for the same pairs at this aligner's window
+        and mode) skips the pack, so that one thread may pack while
+        another submits."""
+        with self._on_device():
+            return self._submit(list(pairs), prepacked)
+
+    def _submit(self, pairs, prepacked) -> Submitted:
+        """:meth:`submit_batch` on this aligner's device."""
         ga = self.cfg.global_alignment
         if self.engine in ("long", "kw") and not ga:
             # as pallas_longread.supports and pallas_run_batch's aux_kw
@@ -1261,23 +1360,21 @@ class BatchAligner:
             raise ValueError(f"engine={self.engine!r} runs global alignment "
                              "only")
         if self.engine == "semi2":
-            return self._submit_semi2(pairs)
-        qb, tbuf, qlen, tlen, toff, Lq, Ltb, qp, tp = _pack_all(
-            pairs, self.cfg.k_win, need_raw=False,
-            global_alignment=self.cfg.global_alignment)
+            return self._submit_semi2(pairs, prepacked)
+        qb, tbuf, qlen, tlen, toff, Lq, Ltb, qp, tp = (
+            prepacked if prepacked is not None
+            else self._pack_all(pairs, need_raw=False))
         packed = tp is not None
         seq = np.concatenate([qp if packed else qb, tp if packed else tbuf],
                              axis=1)
         lens = np.stack([qlen, tlen, toff], axis=1).astype(np.int32)
-        dev = self.device
         edit = edit_only(self.cfg)  # fixed here; the decode follows it
-        out = align_full2(torch.from_numpy(seq).to(dev),
-                          torch.from_numpy(lens).to(dev), cfg=self.cfg,
-                          B=len(pairs), Lq=Lq, Ltb=Ltb, packed=packed,
-                          edit=edit, engine=self.engine)
-        return pairs, out, edit
+        out = align_full2(self._upload(seq), self._upload(lens),
+                          cfg=self.cfg, B=len(pairs), Lq=Lq, Ltb=Ltb,
+                          packed=packed, edit=edit, engine=self.engine)
+        return self._queue_fetch(pairs, out, edit)
 
-    def _submit_semi2(self, pairs):
+    def _submit_semi2(self, pairs, prepacked=None) -> Submitted:
         """The two-phase semi-global submit (wfa_tpu/engine.py:1774-1892):
         pack -> K3 at the full span -> fetch meta1 (the one mid-point
         sync) -> re-place each target for its window -> upload -> K4 ->
@@ -1287,52 +1384,167 @@ class BatchAligner:
                             replace_targets)
 
         # the raw query rows go with a re-placed target that is not ACGT
-        qb, tbuf, qlen, tlen, toff, Lq, Ltb, qp, tp = _pack_all(
-            pairs, self.cfg.k_win, global_alignment=False)
+        qb, tbuf, qlen, tlen, toff, Lq, Ltb, qp, tp = (
+            prepacked if prepacked is not None else self._pack_all(pairs))
         packed = tp is not None
         seq = np.concatenate([qp if packed else qb, tp if packed else tbuf],
                              axis=1)
         lens = np.stack([qlen, tlen, toff], axis=1).astype(np.int32)
-        dev = self.device
         S0 = self.s_switch
         Kf = prefix_span(qlen, tlen)
         self.spans.add(Kf)
         pcfg = dataclasses.replace(self.cfg, k_win=Kf)
         exports = prefix_export(
-            torch.from_numpy(seq).to(dev), torch.from_numpy(lens).to(dev),
-            cfg=pcfg, Lq=Lq, Ltb=Ltb, S0=S0, K2=self.cfg.k_win,
-            packed=packed)
+            self._upload(seq), self._upload(lens), cfg=pcfg, Lq=Lq, Ltb=Ltb,
+            S0=S0, K2=self.cfg.k_win, packed=packed)
         k02 = exports["meta1"][:, M1_K02].cpu().numpy()
         t2raw, t2p, toff2, Ltb2 = replace_targets([t for _, t in pairs], k02)
         packed2 = packed and t2p is not None
         seq2 = np.concatenate([qp, t2p] if packed2 else [qb, t2raw], axis=1)
         lens2 = np.stack([qlen, tlen, toff2], axis=1).astype(np.int32)
         out = phase2(
-            torch.from_numpy(seq2).to(dev), torch.from_numpy(lens2).to(dev),
+            self._upload(seq2), self._upload(lens2),
             *(exports[k] for k in ("win_m", "win_i", "win_d", "ainit", "b_m",
                                    "b_ie", "meta1", "aux_old")),
             cfg=self.cfg, Lq=Lq, Ltb_full=Ltb, Ltb2=Ltb2, S0=S0,
             packed=packed2)
-        return pairs, out, False
+        return self._queue_fetch(pairs, out, False)
 
-    def finish_batch(self, handle, fallback: bool = True
-                     ) -> List[Optional[AlignmentResult]]:
-        """Fetch a submitted batch and build its results (op decoding is
+    # -- the split fetch (wfa_tpu/engine.py:1698-1772, 1899-2064) ----------
+
+    def _on_copy(self):
+        """Context that makes the copy stream current (nothing on the
+        CPU)."""
+        if self._copy is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._copy)
+
+    def _host(self, a: torch.Tensor) -> torch.Tensor:
+        """Queue the copy of device tensor ``a`` into a pinned buffer on
+        the copy stream (within :meth:`_on_copy`) and return the buffer;
+        ``a`` itself on the CPU.  ``record_stream`` keeps the allocator
+        from reusing ``a`` before the copy has run."""
+        if self._copy is None:
+            return a
+        h = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+        h.copy_(a, non_blocking=True)
+        a.record_stream(self._copy)
+        return h
+
+    def _copied(self) -> Optional[torch.cuda.Event]:
+        """An event after the copies queued so far (None on the CPU)."""
+        if self._copy is None:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(self._copy)
+        return ev
+
+    def _queue_fetch(self, pairs, out: dict, edit: bool) -> Submitted:
+        """Queue the host copies of a launched batch's outputs: the small
+        ones whole, and the token streams at the guessed extent ("mtb": the
+        meta bytes and, cold, 64 token bytes a pair; "lg" and the raw
+        "buf" once a batch has calibrated them)."""
+        h = Submitted(pairs, out, edit)
+        if self._copy is not None:
+            h.ran = torch.cuda.Event()
+            # on the stream the launches went to (``_build.stream_ptr``)
+            h.ran.record(torch.cuda.current_stream(self.device))
+            self._copy.wait_event(h.ran)
+        streams = ("mtb", "lg", "buf")
+        with self._on_copy():
+            h.host = {k: self._host(a) for k, a in out.items()
+                      if k not in streams}
+            guess = self._tok_guess
+            if "mtb" in out:
+                hd = out["mtb"].shape[0] - out["lg"].shape[0]
+                gb = guess["mtb"] or _coarse(64 * len(pairs))
+                h.host["mtb"] = self._host(out["mtb"][:hd + gb])
+                if guess["lg"]:
+                    h.host["lg"] = self._host(out["lg"][:guess["lg"]])
+            elif guess["buf"]:
+                h.host["buf"] = self._host(out["buf"][:guess["buf"]])
+            h.copied = self._copied()
+        return h
+
+    @staticmethod
+    def wait_exec(h: Submitted) -> None:
+        """Block until the batch's last launch has run on the device (no
+        wait on the CPU, where the launches ran in the submit)."""
+        if h.ran is not None:
+            h.ran.synchronize()
+
+    def finish_small(self, h: Submitted) -> Submitted:
+        """Wait for the queued copies, read the meta, update the guessed
+        extents (the used extent and 1/8 more) and queue the copies of
+        whatever the guess missed; returns the handle for
+        :meth:`finish_tokens`."""
+        if h.copied is not None:
+            h.copied.synchronize()
+        out, host = h.out, h.host
+        with self._on_copy():
+            if "mtb" in out:
+                hd = out["mtb"].shape[0] - out["lg"].shape[0]
+                head = host["mtb"].numpy()
+                h.meta = _meta_from_bytes(head[:hd], len(h.pairs))
+                tot_b = int(h.meta[:, M_TRIM].sum(dtype=np.int64))
+                tot_l = int(h.meta[:, M_LONG].sum(dtype=np.int64))
+                self._tok_guess["mtb"] = _coarse(max(tot_b, 1) * 9 // 8)
+                self._tok_guess["lg"] = _coarse(max(tot_l, 1) * 9 // 8)
+                have_b = head.shape[0] - hd
+                if have_b < tot_b:
+                    host["mtb_rest"] = self._host(
+                        out["mtb"][hd + have_b:hd + tot_b])
+                have_l = host["lg"].shape[0] if "lg" in host else 0
+                if have_l < tot_l:
+                    host["lg_rest"] = self._host(out["lg"][have_l:tot_l])
+            else:
+                # raw layout: the trim column is the chase's iteration
+                # count, the same for every pair; buf's rows past it are 0
+                h.meta = host["meta"].numpy().astype(np.int32)
+                rows = int(h.meta[:, M_TRIM].max())
+                self._tok_guess["buf"] = _coarse(max(rows, 1) * 9 // 8, 32)
+                have = host["buf"].shape[0] if "buf" in host else 0
+                if have < rows:
+                    host["buf_rest"] = self._host(out["buf"][have:rows])
+            h.copied = self._copied()
+        return h
+
+    def finish_tokens(self, h: Submitted, fallback: bool = True
+                      ) -> List[Optional[AlignmentResult]]:
+        """Wait for the remainder copies, splice the token streams, release
+        the batch's device outputs and build its results (op decoding is
         lazy, on first access)."""
-        pairs, out, edit = handle
-        if "meta" in out:  # raw full streams (never edit-only)
-            meta, toks = assemble_raw(pairs, out)
-            edit = False
+        if h.copied is not None:
+            h.copied.synchronize()
+        host = {k: a.numpy() for k, a in h.host.items()}
+        meta, edit = h.meta, h.edit
+        if "mtb" in h.out:
+            hd = h.out["mtb"].shape[0] - h.out["lg"].shape[0]
+            b = host["mtb"][hd:]
+            if "mtb_rest" in host:
+                b = np.concatenate([b, host["mtb_rest"]])
+            longs = [host[k] for k in ("lg", "lg_rest") if k in host]
+            longs = (np.concatenate(longs) if longs else np.zeros(
+                0, np.int16 if h.out["lg"].dtype == torch.int16
+                else np.int32))
+            toks = _split_tokens(meta, b, longs)
         else:
-            meta, toks = decode_outputs(pairs, out["mtb"].cpu().numpy(),
-                                        out["lg"].cpu().numpy())
+            rows = int(meta[:, M_TRIM].max())
+            parts = [host[k] for k in ("buf", "buf_rest") if k in host]
+            buf = (np.concatenate(parts)[:rows] if parts
+                   else np.zeros((0,) + tuple(h.out["buf"].shape[1:]),
+                                 host["tok0"].dtype))
+            _, toks = assemble_raw(h.pairs, {**host, "buf": buf})
+            edit = False  # raw full streams
         scores = meta[:, M_SCORE].tolist()
-        final = (out["final_s"].cpu().tolist() if "final_s" in out
-                 else scores)
+        final = host["final_s"].tolist() if "final_s" in host else scores
+        # drop the device outputs now (their copies have landed): retry
+        # tiers allocate large batches that must not wait for the GC
+        h.out = h.host = None
         results: List[Optional[AlignmentResult]] = []
         oracle = self._oracle
         ga = self.cfg.global_alignment
-        for (q, t), score, fs, ovf, tk in zip(pairs, scores, final,
+        for (q, t), score, fs, ovf, tk in zip(h.pairs, scores, final,
                                               meta[:, M_OVF].tolist(), toks):
             if ovf:
                 results.append(oracle.align(q, t) if fallback else None)
@@ -1342,3 +1554,9 @@ class BatchAligner:
                 res.final_s = fs
                 results.append(res)
         return results
+
+    def finish_batch(self, h: Submitted, fallback: bool = True
+                     ) -> List[Optional[AlignmentResult]]:
+        """Fetch a submitted batch and build its results:
+        ``finish_tokens(finish_small(h))``."""
+        return self.finish_tokens(self.finish_small(h), fallback)

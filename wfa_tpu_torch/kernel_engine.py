@@ -30,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from ._build import count
 from .engine import (EngineConfig, check_aux_kw, run_batch_kw_plain,
                      run_batch_long_plain, run_batch_plain,
                      run_batch_resume_plain, semi_cell16, windows)
@@ -281,7 +282,7 @@ def run_batch(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig, Lq: int,
                       device=qb.device)
     out = _launch(qb, tbuf, qlen, tlen, toff, cfg, Lq, Ltb,
                   0 if cfg.global_alignment else 1, aux, None)
-    run_batch.launches["global" if cfg.global_alignment else "semi"] += 1
+    count(run_batch.launches, "global" if cfg.global_alignment else "semi")
     return (out[0], out[1] > 0, out[2] > 0, out[3], aux,
             (out[4], out[5], out[6]))
 
@@ -311,7 +312,7 @@ def run_batch_long(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig,
                       device=qb.device)
     aux_base = torch.empty((B, S), dtype=torch.int32, device=qb.device)
     out = _launch(qb, tbuf, qlen, tlen, toff, cfg, Lq, Ltb, 2, aux, aux_base)
-    run_batch_long.launches["long"] += 1
+    count(run_batch_long.launches, "long")
     return out[0], out[1] > 0, out[2] > 0, out[3], aux, aux_base
 
 
@@ -335,7 +336,7 @@ def run_batch_kw(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig, Lq: int,
         return run_batch_kw_plain(qb, tbuf, qlen, tlen, toff, cfg=cfg, Lq=Lq,
                                   Ltb=Ltb)
     res = _kw_launch(qb, tbuf, qlen, tlen, toff, cfg=cfg, Lq=Lq, Ltb=Ltb)
-    run_batch_kw.launches["kw"] += 1
+    count(run_batch_kw.launches, "kw")
     return res
 
 
@@ -507,7 +508,7 @@ def run_prefix(qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig, Lq: int,
                                    Lq=Lq, Ltb=Ltb, S0=S0, K2=K2)
     ex = _prefix_launch(qb, tbuf, qlen, tlen, toff, cfg=cfg, Lq=Lq, Ltb=Ltb,
                         S0=S0, K2=K2)
-    run_prefix.launches["prefix"] += 1
+    count(run_prefix.launches, "prefix")
     return ex
 
 
@@ -534,7 +535,7 @@ def run_resume(qb, tbuf2, qlen, tlen, toff2, win_m, win_i, win_d, ainit,
     if qb.device.type == "cpu":
         return run_batch_resume_plain(*args, **kw)
     res = _resume_launch(*args, **kw)
-    run_resume.launches["resume"] += 1
+    count(run_resume.launches, "resume")
     return res
 
 

@@ -5,7 +5,9 @@
 the source, so an edited source rebuilds).  Every consumer falls back to
 the pure-numpy path when the toolchain or the build is unavailable
 (:func:`load` returns None then), so the native layer is a pure
-accelerator of a host path, never a requirement.
+accelerator of a host path, never a requirement.  :func:`load` builds
+under a lock: a thread that calls it while another builds waits for that
+build instead of seeing None.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 
 import numpy as np
 
@@ -23,6 +26,7 @@ _BUILD = os.path.join(_DIR, "build")
 
 lib = None
 _tried = False
+_lock = threading.Lock()
 
 
 def _build() -> str | None:
@@ -55,9 +59,15 @@ def _build() -> str | None:
 def load():
     """The native library (built on the first call), or None."""
     global lib, _tried
-    if _tried:
+    with _lock:
+        if not _tried:
+            lib = _load()
+            _tried = True
         return lib
-    _tried = True
+
+
+def _load():
+    """Build and bind the library; None when it cannot be built."""
     so = _build()
     if so is None:
         return None
@@ -80,8 +90,7 @@ def load():
         ctypes.POINTER(ctypes.c_char_p), ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p]
     l.wfa_pack_direct.restype = ctypes.c_int32
-    lib = l
-    return lib
+    return l
 
 
 def build_and_pack(seqs, lens: np.ndarray, offs, L: int):

@@ -22,13 +22,36 @@ re-queues the chunk for the next tier, and after two faults in one call
 the rest finishes on the oracle, as ``wfa_tpu.pipeline`` does.  A kernel
 that does not build or a launch the kernel refuses
 (``_build.KernelError``) is a fault of the code and propagates.
+
+The host side is ``wfa_tpu.pipeline``'s (pipeline.py:350-671): every
+batch of a tier is handed to a pool of submit workers (pack, upload,
+launches; three) and a pool of drain workers (fetch, results; four)
+before any is collected, under a cap on the batches in flight (eight)
+and a gate on their modelled device bytes (:meth:`AlignmentPipeline
+._mem_acquire`); ``WFA_SUBMIT_WORKERS``, ``WFA_DRAIN_WORKERS`` and
+``WFA_MAX_INFLIGHT`` override the three.  A batch reserves its full
+modelled bytes while its submit runs (a two-phase one until phase 2 has
+launched) and its output bytes from then until its drain; the gate holds
+the reservations to twice ``mem_budget`` and always admits one batch.
+Every submit launches on the device's default stream, so the kernels of
+all batches run in the order they were launched and the caching
+allocator's reuse of a batch's freed working set stays ordered behind
+them.  Two-phase batches modelled above ``max(2 GiB, mem_budget / 2)``
+submit and drain one at a time on the calling thread.  The first chunk
+of a tier with more chunks is a probe: when at least 90% of it
+overflows, the tier's remaining chunks go straight to the next tier.
+Faults surface through the workers' futures and are counted on the
+calling thread.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import sys
-from typing import Dict, List, Optional, Sequence, Tuple
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor, wait
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 from .cigar import AlignmentResult
 from .constants import (MAX_SEQ_LEN, AdaptiveReductionOption, EmptySeqError,
@@ -60,9 +83,12 @@ class PipelineConfig:
     k_win_base: int = 128
     # the card unless the caller asks for the CPU (plain PyTorch versions)
     device: str = "cuda"
-    # device memory one batch may allocate (the pipeline keeps up to two
-    # batches in flight); bounds the batch size where s_cap * k_win grows
+    # device memory one batch may allocate (the byte gate holds the
+    # batches in flight to two of it); bounds the batch size where
+    # s_cap * k_win grows
     mem_budget: int = 16 << 30
+    # False: every pair by the exact host oracle, no device
+    use_device: bool = True
 
 
 def aux_cell_bytes(rebased: bool) -> int:
@@ -136,11 +162,26 @@ class AlignmentPipeline:
         # exact fallback)
         self.served: Dict[object, int] = {}
         self._device_errors = 0  # device faults in the current align_all
+        # the worker pools and the count cap, made at first use
+        self._spool: Optional[ThreadPoolExecutor] = None
+        self._dpool: Optional[ThreadPoolExecutor] = None
+        self._isem: Optional[threading.BoundedSemaphore] = None
+        # the byte gate: modelled device bytes reserved by batches in
+        # flight, and the batches in flight
+        self._mem_cv = threading.Condition()
+        self._mem_used = 0
+        self._batches = 0
+        # the last align_all's most batches in flight at once, most bytes
+        # reserved at once, and the gate they were held to
+        self.peak: Dict[str, int] = {}
 
     def _tier_caps(self, lq: int, lt: int, tier: int, skey=None):
-        """(k_win, s_cap, b_cap, engine) for a bucket class and tier
-        (0-3).  ``skey`` names the bucket for the adaptive score-cap
-        memory."""
+        """(k_win, s_cap, b_cap, engine, serial, batch_bytes) for a bucket
+        class and tier (0-3): ``batch_bytes`` models the device bytes of
+        one batch of ``min(batch_size, b_cap)`` pairs, and ``serial`` says
+        whether that passes ``max(2 GiB, mem_budget / 2)``
+        (wfa_tpu/pipeline.py:305-315).  ``skey`` names the bucket for the
+        adaptive score-cap memory."""
         cfg = self.cfg
         full_span = _round_up(lq + lt - 1 + 2, 128)
         longest = max(lq, lt)
@@ -214,7 +255,14 @@ class AlignmentPipeline:
         else:
             per_pair = batch_bytes_per_pair(ecfg, longest, engine)
         b_cap = max(1, min(8192, cfg.mem_budget // per_pair))
-        return k_win, s_cap, b_cap, engine
+        batch_bytes = per_pair * min(cfg.batch_size, b_cap)
+        return k_win, s_cap, b_cap, engine, self._serial(batch_bytes), \
+            batch_bytes
+
+    def _serial(self, nbytes: int) -> bool:
+        """Whether a batch of ``nbytes`` modelled bytes is too large to
+        overlap another."""
+        return nbytes > max(2 << 30, self.cfg.mem_budget // 2)
 
     def _engine(self, k_win: int, s_cap: int, engine: str) -> BatchAligner:
         key = (k_win, s_cap, engine)
@@ -246,91 +294,263 @@ class AlignmentPipeline:
                 valid.append((i, (q, t)))
 
         served: Dict[object, int] = {0: 0, 1: 0, 2: 0, 3: 0, "oracle": 0}
-        pending = bucket_pairs(valid)
-        prev_caps = {}  # bucket -> previous tier's caps
-        score_seen = {}  # bucket -> max final score observed this call
+        self.served = served
+        self.peak = {"batches": 0, "bytes": 0, "gate": self._gate()}
+        pending = bucket_pairs(valid) if self.cfg.use_device else {
+            None: valid}
         # device faults are counted per call (wfa_tpu/pipeline.py:376-379):
         # a faulted chunk retries on the next tier, at the same caps if the
         # ladder has nothing wider, and after two faults the rest finishes
         # on the oracle
         self._device_errors = 0
-        for tier in (0, 1, 2, 3):
-            if self._device_errors >= 2:
-                break
-            nxt = {key: [] for key in pending}
-            for key, items in pending.items():
-                if not items:
-                    continue
-                lq_max = max(len(p[0]) for _, p in items)
-                lt_max = max(len(p[1]) for _, p in items)
-                caps = self._tier_caps(lq_max, lt_max, tier, skey=key)
-                if prev_caps.get(key) == caps and self._device_errors == 0:
-                    # nothing wider on the ladder: go to the fallback (a
-                    # fault, by contrast, retries at the same caps)
-                    nxt[key] = items
-                    continue
-                prev_caps[key] = caps
-                k_win, s_cap, b_cap, engine = caps
-                eng = self._engine(k_win, s_cap, engine)
-                bs = min(self.cfg.batch_size, b_cap)
-                chunks = [items[i:i + bs] for i in range(0, len(items), bs)]
-                mx = score_seen.get(key, -1)
-                # one batch ahead: the next batch's host pack and launch
-                # overlap the device work of the one being fetched
-                handle = self._submit(eng, chunks[0])
-                for ci, chunk in enumerate(chunks):
-                    nxt_handle = (self._submit(eng, chunks[ci + 1])
-                                  if ci + 1 < len(chunks) else None)
-                    out = None
-                    if handle is not None:
-                        try:
-                            out = eng.finish_batch(handle, fallback=False)
-                        except RuntimeError as exc:
-                            self._device_fault(exc)
-                    handle = nxt_handle
-                    if out is None:  # faulted, or not run after two faults
-                        nxt[key].extend(chunk)
-                        continue
-                    for (idx, pair), res in zip(chunk, out):
-                        if res is None:
-                            nxt[key].append((idx, pair))
-                        else:
-                            results[idx] = res
-                            served[tier] += 1
-                            # the score K1 ran to: above a semi-global
-                            # pair's score when its global end costs more
-                            mx = max(mx, res.final_s)
-                if mx >= 0:
-                    score_seen[key] = mx
-            pending = nxt
+        score_seen: Dict[Tuple[int, int], int] = {}
+        if self.cfg.use_device:
+            prev_caps = {}  # bucket -> previous tier's caps
+            for tier in (0, 1, 2, 3):
+                if self._device_errors >= 2:
+                    break
+                inflight = []
+                counted = set()  # futures whose fault is already counted
+                try:
+                    self._run_tier(tier, pending, prev_caps, inflight,
+                                   counted)
+                    pending = self._collect(tier, inflight, counted, pending,
+                                            results, served, score_seen)
+                except BaseException:
+                    # no batch of the call outlives it, whatever failed
+                    wait([f for _, _, f in inflight
+                          if isinstance(f, Future)])
+                    raise
         for items in pending.values():  # final exact fallback
             for idx, (q, t) in items:
                 results[idx] = self._oracle.align(q, t)
                 served["oracle"] += 1
         # replace, not max-merge: easier workloads shrink the caps again
         self._score_memory.update(score_seen)
-        self.served = served
         return results  # type: ignore[return-value]
 
-    def _submit(self, eng: BatchAligner, chunk):
-        """``eng.submit_batch`` of a chunk's pairs, or None when the device
-        faulted (a RuntimeError: an out-of-memory error, an illegal address)
-        or has faulted twice in this call.  Host errors (TypeError,
-        ValueError) and kernel errors (``KernelError``: no build, a refused
-        launch) propagate: sending them to the oracle would hide a bug."""
-        if self._device_errors >= 2:
-            return None
+    def align_iter(self, pairs: Iterable[Tuple[bytes, bytes]],
+                   chunk: int = 4096) -> Iterator[AlignmentResult]:
+        """Streaming form of :meth:`align_all`: buffers ``chunk`` pairs,
+        aligns them, yields their results in order
+        (wfa_tpu/pipeline.py:682-693)."""
+        buf: List[Tuple[bytes, bytes]] = []
+        for pair in pairs:
+            buf.append(pair)
+            if len(buf) >= chunk:
+                yield from self.align_all(buf)
+                buf.clear()
+        if buf:
+            yield from self.align_all(buf)
+
+    def _run_tier(self, tier: int, pending, prev_caps, inflight,
+                  counted) -> None:
+        """Hand every chunk of ``pending``'s buckets to the workers at this
+        tier's caps, appending (bucket, chunk, out) to ``inflight``: out
+        is a drain's Future, a finished result list, or a list of None for
+        a chunk that did not run (a fault, a skipped tier, no wider caps).
+        A probe whose fault is counted here joins ``counted``."""
+        submit_futs = []  # outstanding async submits (the serial fence)
+        for key, items in pending.items():
+            if not items:
+                continue
+            lq_max = max(len(p[0]) for _, p in items)
+            lt_max = max(len(p[1]) for _, p in items)
+            caps = self._tier_caps(lq_max, lt_max, tier, skey=key)
+            if prev_caps.get(key) == caps and self._device_errors == 0:
+                # nothing wider on the ladder: go to the fallback (a
+                # fault, by contrast, retries at the same caps)
+                inflight.append((key, items, [None] * len(items)))
+                continue
+            prev_caps[key] = caps
+            k_win, s_cap, b_cap, engine, _, batch_bytes = caps
+            eng = self._engine(k_win, s_cap, engine)
+            bs = min(self.cfg.batch_size, b_cap)
+            n_chunks = (len(items) + bs - 1) // bs
+            # the probe (does this tier's ladder fit the workload at
+            # all?) drains asynchronously; past probe_hard chunks an
+            # unresolved probe blocks
+            probe = tier < 3 and n_chunks > 1
+            probe_hard = min(8, n_chunks - 1)
+            probe_fut = None
+            skip_rest = False
+            for ci in range(n_chunks):
+                chunk = items[ci * bs:(ci + 1) * bs]
+                if skip_rest or self._device_errors >= 2:
+                    inflight.append((key, chunk, [None] * len(chunk)))
+                    continue
+                cb = batch_bytes * len(chunk) // bs  # this chunk's model
+                chunk_pairs = [p for _, p in chunk]
+                try:
+                    if engine.startswith("semi2") and self._serial(cb):
+                        # a multi-GB two-phase batch runs alone: fence
+                        # the async submits, then submit and drain here
+                        for f in submit_futs:
+                            try:
+                                f.result()
+                            except RuntimeError:
+                                pass  # counted by its drain's future
+                        submit_futs.clear()
+                        out = eng.finish_batch(eng.submit_batch(chunk_pairs),
+                                               fallback=False)
+                        inflight.append((key, chunk, out))
+                        if probe and ci == 0:
+                            skip_rest = _doomed(out)
+                        continue
+                    self._slot_acquire()
+                    self._mem_acquire(cb)
+                    owned = False
+                    try:
+                        sub = self._pool("submit").submit(
+                            self._submit_one, eng, chunk_pairs, cb)
+                        submit_futs.append(sub)
+                        fut = self._pool("drain").submit(
+                            self._drain_from, eng, sub, cb)
+                        owned = True
+                    finally:
+                        if not owned:
+                            self._mem_release(cb)
+                            self._slot_release()
+                    inflight.append((key, chunk, fut))
+                    if probe and ci == 0:
+                        probe_fut = fut
+                except RuntimeError as exc:  # a device fault
+                    self._device_fault(exc)
+                    inflight.append((key, chunk, [None] * len(chunk)))
+                    continue
+                if probe_fut is not None and (probe_fut.done()
+                                              or ci >= probe_hard):
+                    try:
+                        out = probe_fut.result()
+                    except RuntimeError as exc:
+                        self._device_fault(exc)
+                        counted.add(probe_fut)
+                        probe_fut = None
+                        continue
+                    probe_fut = None
+                    skip_rest = _doomed(out)
+
+    def _collect(self, tier: int, inflight, counted, pending, results,
+                 served, score_seen) -> dict:
+        """Wait for a tier's chunks, place their results, count device
+        faults and note each bucket's largest final score; returns the
+        pairs left for the next tier, by bucket."""
+        nxt = {key: [] for key in pending}
+        for key, chunk, item in inflight:
+            out = item
+            if isinstance(item, Future):
+                try:
+                    out = item.result()
+                except RuntimeError as exc:
+                    if item not in counted:
+                        self._device_fault(exc)
+                    out = [None] * len(chunk)
+            mx = score_seen.get(key, -1)
+            for (idx, pair), res in zip(chunk, out):
+                if res is None:
+                    nxt[key].append((idx, pair))
+                else:
+                    results[idx] = res
+                    served[tier] += 1
+                    # the score K1 ran to: above a semi-global pair's
+                    # score when its global end costs more
+                    mx = max(mx, res.final_s)
+            if mx >= 0:
+                score_seen[key] = mx
+        return nxt
+
+    # -- the workers (wfa_tpu/pipeline.py:586-655) ---------------------------
+
+    def _pool(self, kind: str) -> ThreadPoolExecutor:
+        """The submit pool (pack, upload, launches: three workers, so that
+        one's pack or two-phase mid-point overlaps the others' launches)
+        or the drain pool (fetch, results: four), made at first use."""
+        if kind == "submit":
+            if self._spool is None:
+                self._spool = ThreadPoolExecutor(
+                    int(os.environ.get("WFA_SUBMIT_WORKERS", "3")),
+                    thread_name_prefix="wfa-submit")
+            return self._spool
+        if self._dpool is None:
+            self._dpool = ThreadPoolExecutor(
+                int(os.environ.get("WFA_DRAIN_WORKERS", "4")),
+                thread_name_prefix="wfa-drain")
+        return self._dpool
+
+    def close(self) -> None:
+        """Stop the worker threads (a later call starts new ones)."""
+        for pool in (self._spool, self._dpool):
+            if pool is not None:
+                pool.shutdown()
+        self._spool = self._dpool = None
+
+    def _submit_one(self, eng: BatchAligner, chunk_pairs, cb: int):
+        """Submit worker: launch a batch, then give back its reservation
+        but for its outputs' bytes, which its drain releases; returns
+        (handle, bytes still held)."""
+        handle = eng.submit_batch(chunk_pairs)
+        held = min(cb, handle.nbytes)
+        self._mem_release(cb - held)
+        return handle, held
+
+    def _drain_from(self, eng: BatchAligner, sub_fut: Future, cb: int):
+        """Drain worker: wait for the batch's submit, then fetch it and
+        build its results (a fault of the submit surfaces here too).
+        Releases the batch's bytes and its slot whatever happens."""
+        held = cb
         try:
-            return eng.submit_batch([p for _, p in chunk])
-        except RuntimeError as exc:
-            self._device_fault(exc)
-            return None
+            handle, held = sub_fut.result()
+            return eng.finish_batch(handle, fallback=False)
+        finally:
+            self._mem_release(held)
+            self._slot_release()
+
+    # -- the count cap and the byte gate (wfa_tpu/pipeline.py:626-671) -------
+
+    def _slot_acquire(self) -> None:
+        """Wait for a slot under the cap on batches in flight."""
+        if self._isem is None:
+            self._isem = threading.BoundedSemaphore(
+                int(os.environ.get("WFA_MAX_INFLIGHT", "8")))
+        self._isem.acquire()
+        with self._mem_cv:
+            self._batches += 1
+            self.peak["batches"] = max(self.peak["batches"], self._batches)
+
+    def _slot_release(self) -> None:
+        with self._mem_cv:
+            self._batches -= 1
+        self._isem.release()
+
+    def _gate(self) -> int:
+        """The most modelled bytes the batches in flight may reserve."""
+        return 2 * self.cfg.mem_budget
+
+    def _mem_acquire(self, nbytes: int) -> None:
+        """Block until ``nbytes`` more of modelled device memory fits the
+        gate (one batch is always admitted)."""
+        with self._mem_cv:
+            while (self._mem_used > 0
+                   and self._mem_used + nbytes > self._gate()):
+                self._mem_cv.wait()
+            self._mem_used += nbytes
+            self.peak["bytes"] = max(self.peak["bytes"], self._mem_used)
+
+    def _mem_release(self, nbytes: int) -> None:
+        with self._mem_cv:
+            self._mem_used -= nbytes
+            self._mem_cv.notify_all()
 
     def _device_fault(self, exc: Exception) -> None:
         """Count a device fault and say on stderr what follows
-        (wfa_tpu/pipeline.py:673-680)."""
+        (wfa_tpu/pipeline.py:673-680); the calling thread's only."""
         self._device_errors += 1
         then = ("falling back to host oracle" if self._device_errors >= 2
                 else "retrying")
         print(f"wfa-tpu-torch: device error ({exc}); {then}",
               file=sys.stderr)
+
+
+def _doomed(out) -> bool:
+    """Whether at least 90% of a probe chunk's pairs overflowed."""
+    return sum(r is None for r in out) * 10 >= len(out) * 9

@@ -2,7 +2,8 @@
 score loop's phases.
 
     python -m wfa_tpu_torch.profiling [--length 50000] [--pairs 64]
-                                      [--calls 3] [--semi] [--ab DIR]
+                                      [--calls 3] [--semi]
+                                      [--ab DIR | --host | --upload]
     python -m wfa_tpu_torch.profiling --phases [--plans [k3|warp]]
                                       [--ab DIR]
 
@@ -10,12 +11,16 @@ Generates ``generate_pairs(pairs, length, 0.05, seed=42)`` (bench.py's
 data), runs one warm call of ``AlignmentPipeline.align_all`` (global, or
 semi-global with ``--semi``; gap-affine 4/6/2, wf-adaptive 10/50/1,
 device "cuda"), then times ``--calls`` calls
-(host clock, each ending in a synchronise) and traces the last one with
-``torch.profiler``: the card's name and power limit, wall time, aln/s, the
+(host clock, each ending in a synchronise) and traces two more with
+``torch.profiler``, one for host and device activity and one for device
+activity only: the card's name and power limit, wall time, aln/s, the
 device's busy share (the union of its kernel and copy intervals over the
-wall time) and the device time per kernel name.  With ``--ab DIR`` it
-times, untraced, the same calls under the package copy in DIR and under
-this tree in turns instead (:func:`path_turns`).
+traced call's wall, and over the untraced calls' median wall) and the
+device time per kernel name.  With ``--ab DIR`` it times, untraced, the
+same calls under the package copy in DIR and under this tree in turns
+instead (:func:`path_turns`); ``--host`` splits the host time by stage
+(:func:`host_split`); ``--upload`` does that with the uploads as they are
+and staged through pinned buffers, in turns (:func:`upload_turns`).
 
 ``--phases`` prints ptxas's register, spill and shared-memory report of
 every kernel (when this process built the library), then runs the timed
@@ -832,7 +837,9 @@ def path_turns(pkgs: dict, length: int, n: int, semi: bool,
     builds the package's kernels and fits its score cap), then ``calls``
     timed calls a turn, host clock up to a synchronise, on
     ``generate_pairs(n, length, 0.05, seed=42)`` (4/6/2, 10/50/1, batch
-    2048); returns ms per call by package, and what each served."""
+    2048); returns ms per call by package, what each served and, for a
+    package whose pipeline keeps it, its last call's peak batches in
+    flight and bytes reserved (``AlignmentPipeline.peak``)."""
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
@@ -858,12 +865,129 @@ def path_turns(pkgs: dict, length: int, n: int, semi: bool,
             torch.cuda.synchronize()
             out[who].append((time.perf_counter() - t0) * 1e3)
     return {"pairs": n, "length": length, "semi": semi, "ms": out,
-            "served": {who: dict(p.served) for who, p in pipes.items()}}
+            "served": {who: dict(p.served) for who, p in pipes.items()},
+            "peak": {who: dict(getattr(p, "peak", {}))
+                     for who, p in pipes.items()}}
+
+
+def host_split(pipe, pairs, calls: int) -> dict:
+    """Host time of each stage over ``calls`` timed ``align_all`` calls
+    of ``pipe`` (this package's pipeline) on ``pairs``: the seconds the
+    workers spent in each stage summed over batches and threads (a
+    submit's pack, its launches and uploads, the rest of its wait at the
+    two-phase mid-point included; a drain's ``finish_small`` and
+    ``finish_tokens``, of which the splice of the token streams; the rest
+    of it builds the results), the seconds the calling thread spent handing
+    the batches to the workers (its waits at the count cap and the byte
+    gate included) and collecting them, and the wall seconds per call
+    (host clock, each ending in a synchronise)."""
+    import threading
+
+    import torch
+
+    from . import engine as te
+    from . import pipeline as tp
+
+    lock = threading.Lock()
+    spent: dict = {}
+
+    def timed(owner, name: str, stage: str):
+        fn = getattr(owner, name)
+
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                with lock:
+                    sec, n = spent.get(stage, (0.0, 0))
+                    spent[stage] = (sec + time.perf_counter() - t0, n + 1)
+
+        return wrapper
+
+    stages = ((te.BatchAligner, "submit_batch", "submit"),
+              (te, "_pack_all", "submit: pack"),
+              (te.BatchAligner, "finish_small", "finish_small"),
+              (te.BatchAligner, "finish_tokens", "finish_tokens"),
+              (te, "_split_tokens", "finish_tokens: splice"),
+              (tp.AlignmentPipeline, "_run_tier", "calling thread: hand-off"),
+              (tp.AlignmentPipeline, "_collect", "calling thread: collect"))
+    saved = []
+    for owner, name, stage in stages:
+        wrapper = timed(owner, name, stage)
+        saved.append((owner, name, owner.__dict__[name]))
+        setattr(owner, name, wrapper)
+    walls = []
+    try:
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            pipe.align_all(pairs)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    finally:
+        for owner, name, orig in saved:
+            setattr(owner, name, orig)
+    return {"calls": calls, "wall_s": walls,
+            "stages_s": {k: v[0] / calls for k, v in spent.items()},
+            "stage_calls": {k: v[1] // calls for k, v in spent.items()}}
+
+
+def _pinned_upload(eng, a):
+    """``BatchAligner._upload`` staged through a pinned buffer, with a
+    copy the host does not wait for: the form ``--upload`` times against
+    the plain copy."""
+    import torch
+
+    return torch.from_numpy(a).pin_memory().to(eng.device, non_blocking=True)
+
+
+def upload_turns(pipe, pairs, calls: int) -> dict:
+    """``host_split`` of ``pipe`` on ``pairs`` with the uploads as they
+    are (a copy from pageable memory) and through ``_pinned_upload``, in
+    turns (copy, pinned, pinned, copy): ms a call of the wall and of the
+    submits (summed over batches and workers), by turn."""
+    from .engine import BatchAligner
+
+    plain = BatchAligner._upload
+    turns = []
+    for form in ("copy", "pinned", "pinned", "copy"):
+        BatchAligner._upload = plain if form == "copy" else _pinned_upload
+        try:
+            split = host_split(pipe, pairs, calls)
+        finally:
+            BatchAligner._upload = plain
+        turns.append({"upload": form,
+                      "wall_ms": [w * 1e3 for w in split["wall_s"]],
+                      "submit_ms": split["stages_s"]["submit"] * 1e3})
+    return {"calls": calls, "turns": turns}
+
+
+def _device_busy(prof):
+    """(device busy us, {name: (us, count)}) of a trace, or None when it
+    holds no device event."""
+    from torch.autograd import DeviceType
+
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        return None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    per_name = {}
+    for e in dev:
+        t, n = per_name.get(e.name, (0.0, 0))
+        per_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+    return busy, per_name
 
 
 def main() -> None:
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from . import AdaptiveReductionOption, Options, Penalties
@@ -883,6 +1007,12 @@ def main() -> None:
                     help="with --phases: time K3 (k3), K1-kw and K4 (warp) "
                          "or all three at each launch plan (and the first "
                          "--ab DIR's) in turns")
+    ap.add_argument("--host", action="store_true",
+                    help="the host time of each stage of a batch, summed "
+                         "over the workers, instead of the trace")
+    ap.add_argument("--upload", action="store_true",
+                    help="the host split with the uploads as they are and "
+                         "staged through pinned buffers, in turns")
     ap.add_argument("--ab", metavar="DIR", action="append", default=[],
                     help="time the package copy in DIR (DIR/wfa_tpu_torch) "
                          "against this tree's, in turns: with --phases its "
@@ -915,36 +1045,43 @@ def main() -> None:
         print(f"{tag}: {args.pairs} pairs in {wall * 1e3:.2f} ms = "
               f"{args.pairs / wall:.1f} aln/s{' (traced)' if traced else ''}"
               f" on {card}; engines {sorted(pipe._engines)}; served "
-              f"{pipe.served}")
+              f"{pipe.served}; peak {pipe.peak}")
         return wall
 
-    for _ in range(args.calls - 1):
-        timed(False)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall = timed(True)
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not dev:
-        print("no device events traced: time with CUDA events instead")
+    if args.host:
+        print(f"{tag} host split on {card}: "
+              + json.dumps(host_split(pipe, pairs, args.calls)), flush=True)
         return
-    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    per_name = {}
-    for e in dev:
-        t, n = per_name.get(e.name, (0.0, 0))
-        per_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
-    print(f"{tag}: device busy {busy / 1e3:.3f} ms of {wall * 1e3:.2f} ms "
-          f"wall ({100 * busy / 1e3 / (wall * 1e3):.1f}%, idle "
-          f"{100 - 100 * busy / 1e3 / (wall * 1e3):.1f}%)")
-    for name, (t, n) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:12]:
-        print(f"  {t / 1e3:10.3f} ms  {n:6d} x  {name[:90]}")
+    if args.upload:
+        print(f"{tag} uploads on {card}: "
+              + json.dumps(upload_turns(pipe, pairs, args.calls)), flush=True)
+        return
+    walls = [timed(False) for _ in range(args.calls - 1)]
+    mid = sorted(walls)[len(walls) // 2] if walls else None
+    # two traced calls: host and device activity, the busy share of the
+    # traced call's own wall (as the profiles before the workers took
+    # it); device activity only, whose trace stretches a call of the
+    # workers less, also as a share of the untraced calls' median wall
+    for what, acts in (("host and device",
+                        [ProfilerActivity.CPU, ProfilerActivity.CUDA]),
+                       ("device only", [ProfilerActivity.CUDA])):
+        with profile(activities=acts) as prof:
+            wall = timed(True)
+        traced = _device_busy(prof)
+        if traced is None:
+            print("no device events traced: time with CUDA events instead")
+            return
+        busy, per_name = traced
+        print(f"{tag} (traced {what}): device busy {busy / 1e3:.3f} ms of "
+              f"{wall * 1e3:.2f} ms wall ({100 * busy / 1e3 / (wall * 1e3):.1f}"
+              f"%, idle {100 - 100 * busy / 1e3 / (wall * 1e3):.1f}%)")
+        if mid:
+            print(f"{tag} (traced {what}): the same busy time is "
+                  f"{100 * busy / 1e6 / mid:.1f}% of the untraced calls' "
+                  f"median wall, {mid * 1e3:.2f} ms")
+        for name, (t, n) in sorted(per_name.items(),
+                                   key=lambda kv: -kv[1][0])[:12]:
+            print(f"  {t / 1e3:10.3f} ms  {n:6d} x  {name[:90]}")
 
 
 if __name__ == "__main__":
