@@ -1,6 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py          # every phase, on one card
+    python3 chip_smoke.py --dp     # the build, the data-parallel phases
+                                   # over every card, and the CLI
 
 Builds the CUDA kernels from ``wfa_tpu_torch/csrc`` (nvcc, sm_90a), holds
 each kernel against its plain PyTorch version on the card, then drives
@@ -45,6 +47,18 @@ spaced results of each against the port's exact oracle:
   both checked on those same 64 pairs, the path's one batch (the plain
   K1-long takes ~100 s a call, ~6 ms for each of ~14,600 scores); all 64
   results checked against the oracle;
+* data parallelism: ``AlignmentPipeline`` over a mesh of every card, or
+  of 2 shards of the one card (``PipelineConfig.devices``), global
+  l=1000 at the main path's width (32768 pairs) and two-phase semi-global
+  l=1000 (2048 pairs), each held token stream for token stream to a
+  single-device run of the same pairs (both with full token streams) and
+  timed against it in turns; then processes over gloo (this script with
+  ``--dp-worker``), one a card or 2 on the one card, on 4096 pairs of
+  global l=1000, each returning every result equal to a single-process
+  run; both print each shard's launches, and every shard must launch
+  every kernel of its path;
+* the CLI: ``python -m wfa_tpu_torch.cli -i tests/data/seqs.txt`` on the
+  card, byte for byte equal to the same with ``--no-device``;
 * then the per-phase cycle split of a score step of K1, K1-long, K1-kw,
   K3 (Kf 2048 and 20,096) and K4 (after each) on their paths' first
   batches (the timed instantiations of ``wfa_tpu_torch.profiling
@@ -72,6 +86,7 @@ package ``wfa_tpu``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -97,6 +112,16 @@ ITER_CHUNK = 4096  # align_iter's chunk on the global l=1000 pairs
 # bench.py's global l=1000 rows at higher error rates: tiers 1-2, the probe
 ERROR_RATES = (0.10, 0.20)
 N_ERR = 4096
+# the data-parallel phases: a mesh over the cards (2 shards of the card
+# where there is one); global l=1000 at the main path's width, semi-global
+# l=1000 (two-phase), and processes over gloo (one a card, 2 on one card)
+N_DP_SEMI = 2048
+N_DP_PROC = 4096
+# K1-kw and K1-long under the mesh: the K1-kw path's reads and pairs, and
+# long reads past LONG_READ (4096) that take K1-long at a tenth of the
+# l=50000 path's score steps (its plain version's time is per step)
+DP_LONG_LENGTH = 5000
+N_DP_LONG = N_LONG
 N_ERR_CHECK = 128
 # K1/K2 checks, (pairs, l, k_win, s_cap): the first of each mode is the
 # one the kernels' record reports
@@ -245,7 +270,13 @@ def read_counters() -> dict:
 
 class record_batches:
     """Within the block, the first batch each engine is given, by engine
-    key: ("semi2", Kf, S0, k_win, s_cap) or (engine, k_win, s_cap)."""
+    key: ("semi2", Kf, S0, k_win, s_cap) or (engine, k_win, s_cap).  With
+    ``mesh``, only the batches of aligners that shard over a mesh, each
+    padded to a multiple of the mesh size as the mesh pads it (its shards
+    are its equal slices); else only those of single-device aligners."""
+
+    def __init__(self, mesh: bool = False):
+        self.mesh = mesh
 
     def __enter__(self):
         import numpy as np
@@ -253,18 +284,23 @@ class record_batches:
         from wfa_tpu_torch.semi2 import prefix_span
 
         self.seen, self._orig = {}, BatchAligner.submit_batch
-        seen, orig = self.seen, self._orig
+        seen, orig, want_mesh = self.seen, self._orig, self.mesh
 
         def submit(eng, pairs, prepacked=None):
             pairs = list(pairs)
-            c = eng.cfg
-            if eng.engine == "semi2":
-                lens = np.array([(len(q), len(t)) for q, t in pairs])
-                key = ("semi2", prefix_span(lens[:, 0], lens[:, 1]),
-                       eng.s_switch, c.k_win, c.s_cap)
-            else:
-                key = (eng.engine, c.k_win, c.s_cap)
-            seen.setdefault(key, pairs)  # from the submit workers
+            if (eng.mesh is not None) == want_mesh:
+                batch = pairs
+                if eng.mesh is not None:
+                    batch = pairs + [(b"A", b"A")] * (
+                        (-len(pairs)) % eng.mesh.size)
+                c = eng.cfg
+                if eng.engine == "semi2":
+                    lens = np.array([(len(q), len(t)) for q, t in batch])
+                    key = ("semi2", prefix_span(lens[:, 0], lens[:, 1]),
+                           eng.s_switch, c.k_win, c.s_cap)
+                else:
+                    key = (eng.engine, c.k_win, c.s_cap)
+                seen.setdefault(key, batch)  # from the submit workers
             return orig(eng, pairs, prepacked)
 
         BatchAligner.submit_batch = submit
@@ -793,16 +829,19 @@ def phase_errors(card: str, recs) -> None:
 
 
 def phase_semi2(pairs, pen, S0: int, k_win: int, s_cap: int, reps: int,
-                tag: str):
+                tag: str, shards: int = 1, shard: int = 0):
     """K3, K4 and K2 over both aux tensors against their plain versions on
     one batch of the two-phase route: K3 on the packed pairs, K4 on K3's
     exports and the re-placed targets, K2 on K4's aux and K3's aux_old.
     The exports and aux rows the kernels leave unspecified are zeroed in
     both (``semi2.canonical_exports`` / ``canonical_resume``).  Each plain
     version's one checked call is also its time.  Returns the three
-    records."""
+    records.  With ``shards``, on shard ``shard`` of the batch as a mesh
+    runs it: packed whole, K3 on each shard, the targets re-placed over
+    the whole batch (``Ltb2`` batch-wide), K4 and K2 on the shard."""
     import dataclasses
 
+    import numpy as np
     import torch
     from wfa_tpu_torch import AdaptiveReductionOption
     from wfa_tpu_torch import semi2 as ts
@@ -818,7 +857,11 @@ def phase_semi2(pairs, pen, S0: int, k_win: int, s_cap: int, reps: int,
                        adaptive=AdaptiveReductionOption(10, 50, 1),
                        k_win=k_win, s_cap=s_cap)
     packed = _pack_all(pairs, k_win, global_alignment=False)
-    qb, tbuf, qlen, tlen, toff, Lq, Ltb = inputs_from_packed(packed, DEVICE)
+    whole = inputs_from_packed(packed, DEVICE)
+    lb = len(pairs) // shards
+    parts = [slice(i * lb, (i + 1) * lb) for i in range(shards)]
+    qb, tbuf, qlen, tlen, toff = (a[parts[shard]] for a in whole[:5])
+    Lq, Ltb = whole[5:]
     B = qb.shape[0]
     Kf = ts.prefix_span(packed[2], packed[3])
     wm, we = windows(pen)
@@ -856,11 +899,14 @@ def phase_semi2(pairs, pen, S0: int, k_win: int, s_cap: int, reps: int,
           f"{err} (tolerance 0); kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
           f"bound {rec3['bound_ms']:.4f} ms ({rec3['bound_by']})")
 
-    # ---- K4 on K3's exports
-    k02 = m1[:, ts.M1_K02].cpu().numpy()
+    # ---- K4 on K3's exports; the other shards' K3 gives their k02
+    k02 = np.concatenate([
+        (m1 if i == shard else run_prefix(
+            *(a[r] for a in whole[:5]), **pkw)["meta1"])[:, ts.M1_K02]
+        .cpu().numpy() for i, r in enumerate(parts)])
     t2raw, _, toff2, Ltb2 = ts.replace_targets([t for _, t in pairs], k02)
-    tb2 = torch.from_numpy(t2raw).to(DEVICE)
-    toff2 = torch.from_numpy(toff2).to(DEVICE)
+    tb2 = torch.from_numpy(t2raw[parts[shard]]).to(DEVICE)
+    toff2 = torch.from_numpy(toff2[parts[shard]]).to(DEVICE)
     keys = ("win_m", "win_i", "win_d", "ainit", "b_m", "b_ie", "meta1")
     r_args = (qb, tb2, qlen, tlen, toff2, *(ex[k] for k in keys))
     rkw = dict(cfg=cfg, Lq=Lq, Ltb2=Ltb2, Ltb_full=Ltb, S0=S0)
@@ -928,11 +974,14 @@ def merge(recs, new) -> None:
 
 
 def check_own_batches(seen, length: int, reps: int, recs, k1_recs,
-                      pen=None, tag: str = ""):
+                      pen=None, tag: str = "", shards: int = 1,
+                      shard: int = 0):
     """The two-phase route's kernels on each batch a path gave them (its
     first at each engine key), and K1-semi and K2 on the batches of its
     full-span last tier, at ``pen`` (default 4/6/2); the first batch's
-    times stay in ``recs`` (K3, K4, K2) unless it is already filled."""
+    times stay in ``recs`` (K3, K4, K2) unless it is already filled.
+    ``shards``/``shard``: the batches went to a mesh, and the kernels are
+    checked on that shard of each (``shard_ins``)."""
     from wfa_tpu_torch import Penalties
 
     pen = pen or Penalties(4, 6, 2)
@@ -941,32 +990,55 @@ def check_own_batches(seen, length: int, reps: int, recs, k1_recs,
             _, Kf, S0, k_win, s_cap = key
             new = phase_semi2(pairs, pen, S0, k_win, s_cap, reps,
                               f"{tag}l={length} Kf {Kf} S0 {S0} "
-                              f"({len(pairs)} pairs, s_cap {s_cap})")
+                              f"({len(pairs)} pairs, s_cap {s_cap})",
+                              shards, shard)
             if not recs:
                 recs.extend(new)
             else:
                 merge(recs, new)
             continue
         _, k_win, s_cap = key
-        check_batch(pairs, pen, False, k_win, s_cap, reps, k1_recs)
+        check_batch(pairs, pen, False, k_win, s_cap, reps, k1_recs,
+                    shards=shards, shard=shard)
+
+
+def shard_ins(pairs, k_win: int, global_alignment: bool, shards: int = 1,
+              shard: int = 0):
+    """K1's inputs (qb, tbuf, qlen, tlen, toff, Lq, Ltb) on the card for
+    shard ``shard`` of ``shards`` equal shards of ``pairs``, packed whole
+    as a mesh packs a batch (``Lq`` and ``Ltb`` batch-wide); the whole
+    batch for one shard."""
+    from wfa_tpu_torch.engine import _pack_all, inputs_from_packed
+
+    ins = inputs_from_packed(
+        _pack_all(pairs, k_win, global_alignment=global_alignment), DEVICE)
+    lb = len(pairs) // shards
+    rows = slice(shard * lb, (shard + 1) * lb)
+    return tuple(a[rows] for a in ins[:5]) + tuple(ins[5:])
 
 
 def check_batch(pairs, pen, global_alignment: bool, k_win: int, s_cap: int,
-                reps: int, recs) -> None:
-    """K1 (K1-semi) and K2 against their plain versions on a batch a path
-    gave them, at its caps; their max_abs_err folded into ``recs``."""
+                reps: int, recs, engine: str = "auto", shards: int = 1,
+                shard: int = 0) -> None:
+    """K1 (K1-semi; K1-kw for ``engine`` "kw", K1-long for "long") and K2
+    against their plain versions on a batch a path gave them, at its caps
+    (on shard ``shard`` of ``shards`` where a mesh ran it); their
+    max_abs_err folded into ``recs``."""
     import torch
     from wfa_tpu_torch import AdaptiveReductionOption
-    from wfa_tpu_torch.engine import EngineConfig, _pack_all, inputs_from_packed
+    from wfa_tpu_torch.engine import EngineConfig
 
     torch.cuda.empty_cache()
     cfg = EngineConfig(penalties=pen, global_alignment=global_alignment,
                        adaptive=AdaptiveReductionOption(10, 50, 1),
-                       k_win=k_win, s_cap=s_cap)
-    ins = inputs_from_packed(
-        _pack_all(pairs, k_win, global_alignment=global_alignment), DEVICE)
-    rec1, out = phase_k1(cfg, ins, reps)
-    merge(recs, (rec1, phase_k2(cfg, ins, out, reps=reps)))
+                       k_win=k_win, s_cap=s_cap,
+                       aux_kw=k_win if engine == "kw" else None)
+    ins = shard_ins(pairs, k_win, global_alignment, shards, shard)
+    k1 = {"auto": phase_k1, "kw": phase_k1_kw, "long": phase_k1_long}[engine]
+    rec1, out = k1(cfg, ins, reps)
+    merge(recs, (rec1, phase_k2(cfg, ins, out, reps=reps,
+                                long=engine == "long",
+                                rows_kw=engine == "kw")))
     del out, ins
     torch.cuda.empty_cache()
 
@@ -1030,6 +1102,327 @@ def phase_ab(card: str) -> None:
           f"{json.dumps(route_ab({'this': wfa_tpu_torch}))}")
 
 
+def full_tokens(res):
+    """The non-empty tokens of a result's full token stream (a flat
+    stream, or a 2-D layout's row with its trailing zeros)."""
+    toks = token_stream(res)
+    return toks[toks != 0]
+
+
+def stream_digest(results) -> str:
+    """A hash of every result's score, final score and full token
+    stream."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for r in results:
+        h.update(np.array([r.score, r.final_s], np.int64).tobytes())
+        h.update(full_tokens(r).astype(np.int32).tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def full_streams():
+    """Within the block, global batches ship full token streams
+    (``WFA_EDIT_TOKENS=0``), as a mesh's always do, so that the two can
+    be held token for token."""
+    before = os.environ.get("WFA_EDIT_TOKENS")
+    os.environ["WFA_EDIT_TOKENS"] = "0"
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["WFA_EDIT_TOKENS"]
+        else:
+            os.environ["WFA_EDIT_TOKENS"] = before
+
+
+def dp_pipeline(global_alignment: bool, devices=(), pen=None):
+    """A pipeline of the data-parallel phases at ``pen`` (default 4/6/2):
+    one card, or a mesh over ``devices``."""
+    from wfa_tpu_torch import AdaptiveReductionOption, Options, Penalties
+    from wfa_tpu_torch.pipeline import AlignmentPipeline, PipelineConfig
+
+    return AlignmentPipeline(PipelineConfig(
+        pen or Penalties(4, 6, 2), Options(global_alignment),
+        AdaptiveReductionOption(10, 50, 1), batch_size=BATCH, device=DEVICE,
+        n_devices=1, devices=devices))
+
+
+def no_faults(tag: str, pipe) -> None:
+    if pipe._device_errors or pipe.served["oracle"]:
+        fail(f"{tag}: {pipe._device_errors} device faults, "
+             f"{pipe.served['oracle']} pairs served by the oracle")
+
+
+def dp_devices() -> tuple:
+    """The mesh of the data-parallel phases: every card, or 2 shards of
+    the one card."""
+    import torch
+
+    n = torch.cuda.device_count()
+    return tuple(f"cuda:{i}" for i in range(n)) if n > 1 else ("cuda:0",) * 2
+
+
+def dummy_records() -> dict:
+    """Kernel records for ``phase_dp`` where the run keeps none (``--dp``):
+    the checks fold their errors into these, and a mismatch still fails."""
+    return {k: tuple({"max_abs_err": 0} for _ in range(n)) if n else []
+            for k, n in (("auto", 2), ("semi", 2), ("semi2", 0),
+                         ("semi2 4/6/1", 0), ("kw", 2), ("long", 2))}
+
+
+def check_shard_batches(seen, ga: bool, length: int, recs, shards: int,
+                        shard: int = 0, pen=None, semi2: str = "semi2"
+                        ) -> None:
+    """Each kernel of a mesh's run against its plain version on shard
+    ``shard`` of the first batch at each engine key (``record_batches``
+    with ``mesh=True``), at the shard's own size and the whole batch's
+    shapes, at ``pen`` (default 4/6/2); max_abs_err folded into ``recs``
+    (by engine: "auto" global K1 and K2, "kw", "long"; "semi" K1-semi and
+    K2, ``semi2`` K3, K4 and K2)."""
+    from wfa_tpu_torch import Penalties
+
+    pen = pen or Penalties(4, 6, 2)
+    if not ga:
+        check_own_batches(seen, length, 3, recs[semi2], recs["semi"], pen,
+                          tag=f"dp shard {shard} of {shards} ",
+                          shards=shards, shard=shard)
+        return
+    for (engine, k_win, s_cap), batch in seen.items():
+        print(f"dp shard {shard} of {shards}, global l={length} {engine} "
+              f"(k_win {k_win}, s_cap {s_cap}), {len(batch) // shards} "
+              "pairs:")
+        check_batch(batch, pen, True, k_win, s_cap, 3, recs[engine],
+                    engine=engine, shards=shards, shard=shard)
+
+
+def phase_dp(card: str, recs) -> None:
+    """The data-parallel mesh in one process: AlignmentPipeline over
+    ``dp_devices()``, global l=1000 at the main path's width (N_MAIN
+    pairs, K1), semi-global l=1000 (N_DP_SEMI pairs, the two-phase route),
+    semi-global l=200 (N_SEMI_SHORT pairs, K1-semi), semi-global l=1000 at
+    4/6/1 (N_BWA pairs, the two-phase route's K3 at any penalties),
+    global l=4000 (N_KW pairs, K1-kw) and l=DP_LONG_LENGTH (N_DP_LONG
+    pairs, K1-long), each held token stream for token stream to a
+    single-device pipeline on the same pairs, both with full streams.
+    Times the two in turns (one, mesh, mesh, one; after a warm call of
+    each) and prints each shard's launches in the last mesh call, which
+    must have launched every kernel of the path on every shard.  Then
+    holds each kernel to its plain version on the first shard of the
+    first batch the mesh ran at each engine key (``check_shard_batches``,
+    into ``recs``)."""
+    import torch
+    from wfa_tpu_torch import Penalties
+    from wfa_tpu_torch.datagen import generate_pairs
+    from wfa_tpu_torch.parallel import shard_launches
+
+    two_phase = (("score_loop_prefix", "prefix"),
+                 ("score_loop_resume", "resume"), ("backtrace", "semi2"))
+    for ga, length, n, pen, need in (
+            (True, 1000, N_MAIN, None, (("score_loop", "global"),
+                                        ("backtrace", "global"))),
+            (False, 1000, N_DP_SEMI, None, two_phase),
+            (False, 200, N_SEMI_SHORT, None, (("score_loop", "semi"),
+                                              ("backtrace", "semi"))),
+            (False, 1000, N_BWA, Penalties(4, 6, 1), two_phase),
+            (True, KW_LENGTH, N_KW, None, (("score_loop_kw", "kw"),
+                                           ("backtrace", "kw"))),
+            (True, DP_LONG_LENGTH, N_DP_LONG, None,
+             (("score_loop_long", "long"), ("backtrace", "long")))):
+        devices = dp_devices()
+        tag = (f"dp {len(devices)} shards of {len(set(devices))} cards "
+               f"{'global' if ga else 'semi'} l={length}"
+               + (f" at {pen.mismatch}/{pen.gap_open}/{pen.gap_ext}"
+                  if pen else ""))
+        pairs = generate_pairs(n, length, 0.05, seed=42)
+        with full_streams(), record_batches(mesh=True) as seen:
+            pipes = {"one": dp_pipeline(ga, pen=pen),
+                     "mesh": dp_pipeline(ga, devices, pen)}
+            mesh = pipes["mesh"]._mesh
+            if pipes["one"]._mesh is not None or mesh is None or (
+                    mesh.size != len(devices)):
+                fail(f"{tag}: meshes {pipes['one']._mesh} and {mesh}")
+            for name, pipe in pipes.items():
+                pipe.align_all(pairs)  # warm
+                no_faults(f"{tag} {name} warm", pipe)
+            secs, results = {"one": [], "mesh": []}, {}
+            for name in ("one", "mesh", "mesh", "one"):
+                for tally in mesh.launches:
+                    tally.clear()
+                t0 = time.perf_counter()
+                results[name] = pipes[name].align_all(pairs)
+                torch.cuda.synchronize()
+                secs[name].append(time.perf_counter() - t0)
+                no_faults(f"{tag} {name}", pipes[name])
+                if name == "mesh":
+                    per_shard = shard_launches(mesh)
+        for pipe in pipes.values():
+            pipe.close()
+        print(f"{tag}: launches per shard {per_shard}; engines "
+              f"{sorted(pipes['mesh']._engines)}; pairs served per tier "
+              f"{pipes['mesh'].served}")
+        for i, shard in enumerate(per_shard):
+            for counter, mode in need:
+                if shard.get(counter, {}).get(mode, 0) <= 0:
+                    fail(f"{tag}: shard {i} launched {counter} ({mode}) no "
+                         "time")
+        for i, (a, b) in enumerate(zip(results["one"], results["mesh"])):
+            if (a.score, a.final_s) != (b.score, b.final_s) or not (
+                    torch.equal(torch.from_numpy(full_tokens(a)),
+                                torch.from_numpy(full_tokens(b)))):
+                fail(f"{tag}: pair {i} differs from the single-device run")
+        rates = {k: [round(n / t, 1) for t in v] for k, v in secs.items()}
+        print(f"{tag}: all {n} results equal the single-device run token "
+              f"stream for token stream; aln/s in turns (one, mesh, mesh, "
+              f"one) {rates['one'][0]}, {rates['mesh'][0]}, "
+              f"{rates['mesh'][1]}, {rates['one'][1]} on {card}")
+        del pipes, results
+        check_shard_batches(seen, ga, length, recs, mesh.size, pen=pen,
+                            semi2="semi2 4/6/1" if pen else "semi2")
+
+
+def phase_dp_procs(card: str, recs) -> None:
+    """Processes over gloo, one a card (2 on the one card where there is
+    one), each a mesh of one shard on its card (``dp_worker``), on
+    N_DP_PROC pairs of global l=1000: each must return every result, equal
+    to a single-process run's
+    (score, final score and full token stream), with no fault and no
+    pair served by the oracle, each shard launching K1 and K2.  Each
+    process holds K1 and K2 to their plain versions on its own shard of
+    the first batch at each (k_win, s_cap); their max_abs_err folds into
+    ``recs`` (the global K1 and K2 records)."""
+    import socket
+
+    import torch
+    from wfa_tpu_torch.datagen import generate_pairs
+
+    pairs = generate_pairs(N_DP_PROC, 1000, 0.05, seed=42)
+    with full_streams():
+        pipe = dp_pipeline(True)
+        pipe.align_all(pairs)
+        t0 = time.perf_counter()
+        results = pipe.align_all(pairs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        no_faults("dp single process", pipe)
+        want = stream_digest(results)
+        pipe.close()
+    print(f"dp single process global l=1000: {N_DP_PROC} pairs in "
+          f"{secs:.3f} s = {N_DP_PROC / secs:.1f} aln/s (full streams)")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        init = f"tcp://localhost:{sock.getsockname()[1]}"
+    t0 = time.perf_counter()
+    world = len(dp_devices())
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-worker", str(r),
+         str(world), init], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+        for r in range(world)]
+    got = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=600)
+            if p.returncode != 0:
+                fail(f"dp worker exited {p.returncode}:\n{out[-2000:]}\n"
+                     f"{err[-3000:]}")
+            got += [json.loads(line.split(" ", 1)[1])
+                    for line in out.splitlines()
+                    if line.startswith("DP_WORKER ")]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    torch.cuda.synchronize()
+    for rec in got:
+        print(f"dp {world} processes global l=1000 (rank {rec['rank']}, "
+              f"{rec['device']}): "
+              f"{N_DP_PROC} pairs in {rec['secs']:.3f} s = "
+              f"{N_DP_PROC / rec['secs']:.1f} aln/s; launches per shard of "
+              f"this process {rec['launches']}; pairs served per tier "
+              f"{rec['served']}")
+        merge(recs, [{"max_abs_err": e} for e in rec["max_abs_err"]])
+        print(f"dp rank {rec['rank']}: K1 and K2 on its shard of the "
+              f"batches at (k_win, s_cap) {rec['checked']} equal their "
+              f"plain versions, max_abs_err {rec['max_abs_err']} "
+              "(tolerance 0)")
+        if rec["digest"] != want:
+            fail(f"dp rank {rec['rank']}: results differ from the "
+                 "single-process run")
+        if rec["faults"] or rec["served"]["oracle"]:
+            fail(f"dp rank {rec['rank']}: {rec['faults']} device faults, "
+                 f"{rec['served']['oracle']} pairs served by the oracle")
+        for counter, mode in (("score_loop", "global"),
+                              ("backtrace", "global")):
+            if rec["launches"][0].get(counter, {}).get(mode, 0) <= 0:
+                fail(f"dp rank {rec['rank']} launched {counter} no time")
+    if sorted(r["rank"] for r in got) != list(range(world)):
+        fail(f"dp workers reported {len(got)} results")
+    print(f"dp {world} processes: every rank's results equal the "
+          f"single-process run on {card} ({time.perf_counter() - t0:.1f} s "
+          "with the processes' start)")
+
+
+def dp_worker(rank: int, world: int, init: str) -> None:
+    """One of ``phase_dp_procs``' processes: a pipeline whose mesh is this
+    process's one shard on its card and the other processes'; a warm
+    call, then a timed one; then K1 and K2 against their plain versions
+    on this process's shard of the first batch at each (k_win, s_cap);
+    prints one ``DP_WORKER {json}`` line."""
+    import torch
+    from wfa_tpu_torch.datagen import generate_pairs
+    from wfa_tpu_torch.parallel import initialize_distributed, shard_launches
+
+    initialize_distributed(init_method=init, world_size=world, rank=rank)
+    device = dp_devices()[rank]
+    torch.cuda.set_device(device)
+    pipe = dp_pipeline(True, (device,))
+    if pipe._mesh is None or pipe._mesh.size != world:
+        fail(f"rank {rank}: mesh {pipe._mesh}")
+    pairs = generate_pairs(N_DP_PROC, 1000, 0.05, seed=42)
+    with record_batches(mesh=True) as seen:
+        pipe.align_all(pairs)
+        faults = pipe._device_errors + pipe.served["oracle"]
+        pipe._mesh.launches[0].clear()
+        t0 = time.perf_counter()
+        results = pipe.align_all(pairs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    pipe.close()
+    recs = dummy_records()
+    check_shard_batches(seen, True, 1000, recs, world, rank)
+    print("DP_WORKER " + json.dumps({
+        "rank": rank, "device": device, "secs": secs,
+        "digest": stream_digest(results),
+        "launches": shard_launches(pipe._mesh), "served": pipe.served,
+        "checked": sorted(k[1:] for k in seen),
+        "max_abs_err": [r["max_abs_err"] for r in recs["auto"]],
+        "faults": faults + pipe._device_errors}), flush=True)
+
+
+def phase_cli(card: str) -> None:
+    """``python -m wfa_tpu_torch.cli -i tests/data/seqs.txt`` on the card
+    against the same with ``--no-device`` (the oracle): the same standard
+    output, byte for byte."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "wfa_tpu_torch.cli", "-i",
+           os.path.join("tests", "data", "seqs.txt")]
+    runs = [subprocess.run(cmd + extra, capture_output=True, timeout=600,
+                           cwd=root) for extra in ([], ["--no-device"])]
+    for r in runs:
+        if r.returncode != 0:
+            fail(f"CLI exited {r.returncode}: {r.stderr[-2000:]!r}")
+    if not runs[0].stdout or runs[0].stdout != runs[1].stdout:
+        fail("CLI on the card differs from --no-device")
+    print(f"CLI on {card}: {len(runs[0].stdout)} bytes of standard output "
+          f"equal --no-device's, byte for byte "
+          f"({runs[0].stderr.decode().strip()})")
+
+
 def blocked_modules() -> set:
     """Loaded modules of JAX and of the JAX package wfa_tpu."""
     return {m for m in sys.modules
@@ -1037,7 +1430,10 @@ def blocked_modules() -> set:
             or m.split(".")[0] == "wfa_tpu"}
 
 
-def main() -> None:
+def main(dp_only: bool = False) -> None:
+    """Every phase; with ``dp_only`` (``--dp``: the data-parallel phases
+    over every card of the machine, and the CLI) the build and those
+    alone, and no kernel records."""
     preloaded = blocked_modules()
     import torch
 
@@ -1056,6 +1452,14 @@ def main() -> None:
     t_start = time.perf_counter()
 
     phase_build()
+    if dp_only:
+        recs = dummy_records()
+        phase_dp(card, recs)
+        phase_dp_procs(card, recs["auto"])
+        phase_cli(card)
+        print(f"data-parallel phases passed in "
+              f"{time.perf_counter() - t_start:.1f} s")
+        return
     # global: kernels at the main path's batch, then the main path
     rec1, rec2 = check_kernels(GLOBAL_CHECKS, True, reps=10)
     launches, _ = phase_main(N_MAIN, 1000, True, BATCH, N_CHECK, card,
@@ -1116,6 +1520,15 @@ def main() -> None:
                                                 ("backtrace", "long")))
     rec5["launches"] = launches["score_loop_long"]["long"]
     rec6["launches"] = launches["backtrace"]["long"]
+    # data parallelism (a mesh of shards of the one card, then two
+    # processes), each kernel held to its plain version on a shard's
+    # batch, and the CLI
+    phase_dp(card, {"auto": (rec1, rec2), "semi": (rec3, rec4),
+                    "semi2": semi2_recs,
+                    "semi2 4/6/1": [rec_bwa, k4_bwa, semi2_recs[2]],
+                    "kw": (rec7, rec8), "long": (rec5, rec6)})
+    phase_dp_procs(card, (rec1, rec2))
+    phase_cli(card)
     phase_steps(card)
     imported = sorted(blocked_modules() - preloaded)
     if imported:
@@ -1135,4 +1548,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-worker"]:
+        dp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1:] == ["--dp"]:
+        main(dp_only=True)
+    else:
+        main()

@@ -84,6 +84,19 @@ for (q, t), r in zip(pairs, pipe.align_all(pairs)):
         o.score, o.cigar(False), o.q_end, o.t_begin, o.matches), (q, t)
 assert pipe.served["oracle"] == 0, pipe.served
 assert any(e.startswith("semi2:") for _, _, e in pipe._engines), pipe._engines
+# the data-parallel mesh (two virtual shards of the CPU), the CLI and plot
+pipe = AlignmentPipeline(PipelineConfig(*args, batch_size=4, device="cpu",
+                                        n_devices=2))
+assert pipe._mesh is not None
+oracle = OracleAligner(*args)
+for (q, t), r in zip(pairs, pipe.align_all(pairs)):
+    assert (r.score, r.cigar(False)) == (oracle.align(q, t).score,
+                                         oracle.align(q, t).cigar(False))
+from wfa_tpu_torch import cli
+assert cli.main(["-i", "tests/data/seqs.txt", "--device", "cpu",
+                 "--devices", "2"]) == 0
+oracle.align(b"ACCATACTCG", b"AGGATGCTCG")
+assert "12" in oracle.plot(b"ACCATACTCG", b"AGGATGCTCG")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r})
 assert not loaded, loaded
 print("no-jax run ok")
@@ -134,14 +147,15 @@ def _oracle_pairs():
 
 HOST_CASES = ["oracle-global-adaptive", "oracle-global-plain",
               "oracle-semi-adaptive", "oracle-semi-plain", "generate_pairs",
-              "bucket_pairs", "native_pack"]
+              "bucket_pairs", "native_pack", "plot"]
 
 
 @pytest.mark.parametrize("case", HOST_CASES)
 def test_host_layers_match_wfa_tpu(case):
     """The port's copies of the host layers give what wfa_tpu's give:
     oracle results (every field and the CIGAR), datagen pairs, buckets,
-    and the native 2-bit pack, byte for byte."""
+    the native 2-bit pack, and the plot tables (``plot.plot`` and the
+    oracle's ``plot`` method), byte for byte."""
     import wfa_tpu
     import wfa_tpu_torch
 
@@ -165,6 +179,24 @@ def test_host_layers_match_wfa_tpu(case):
 
         for args in ((16, 300, 0.05, 42), (4, 2000, 0.2, 7), (3, 5, 1.0, 1)):
             assert jd.generate_pairs(*args) == td.generate_pairs(*args)
+    elif case == "plot":
+        from wfa_tpu import plot as jp
+        from wfa_tpu_torch import plot as tp
+
+        for ga in (True, False):
+            for ad in (None, (10, 50, 1)):
+                tables = []
+                for pkg, mod in ((wfa_tpu, jp), (wfa_tpu_torch, tp)):
+                    aligner = pkg.OracleAligner(
+                        pkg.Penalties(4, 6, 2), pkg.Options(ga),
+                        ad and pkg.AdaptiveReductionOption(*ad))
+                    got = []
+                    for q, t in _oracle_pairs()[:8]:
+                        aligner.align(q, t)
+                        got += [aligner.plot(q, t), mod.plot(
+                            aligner, q, t, aligner.I, True, 20)]
+                    tables.append(got)
+                assert tables[0] == tables[1]
     elif case == "bucket_pairs":
         from wfa_tpu import io as jio
         from wfa_tpu_torch import io as tio

@@ -19,6 +19,7 @@ from several threads at once, so both hold a lock.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -87,6 +88,7 @@ class KernelError(Exception):
 _lib = None
 _lib_lock = threading.Lock()
 _count_lock = threading.Lock()
+_tally = threading.local()  # a thread's shard tally (tally_launches)
 build_seconds = None  # wall time of the nvcc run (None: loaded cached)
 build_log = ""  # nvcc's output (ptxas register / spill report)
 
@@ -112,9 +114,27 @@ def library() -> ctypes.CDLL:
 
 
 def count(launches: dict, mode: str) -> None:
-    """Add one to a wrapper's launch count ``launches[mode]``."""
+    """Add one to a wrapper's launch count ``launches[mode]`` (and to the
+    calling thread's tally, within :func:`tally_launches`)."""
     with _count_lock:
         launches[mode] += 1
+        tally = getattr(_tally, "into", None)
+        if tally is not None:
+            key = (id(launches), mode)
+            tally[key] = tally.get(key, 0) + 1
+
+
+@contextlib.contextmanager
+def tally_launches(into: dict):
+    """Within the block, every launch the calling thread counts is also
+    added to ``into``, keyed by (id of the wrapper's count dict, mode): a
+    data-parallel shard's own launches."""
+    before = getattr(_tally, "into", None)
+    _tally.into = into
+    try:
+        yield into
+    finally:
+        _tally.into = before
 
 
 def build(src_dir: Path) -> ctypes.CDLL:

@@ -366,6 +366,35 @@ device_backtrace.launches = {"global": 0, "semi": 0, "long": 0, "kw": 0,
                              "semi2": 0}
 
 
+def _emission_order(tok0, buf, tail) -> torch.Tensor:
+    """The token slots of each pair in emission order: int32[B, NS],
+    tok0, buf[0], buf[1], ..., tail."""
+    B = tok0.shape[0]
+    return torch.cat(
+        [tok0[:, None], buf.permute(1, 0, 2).reshape(B, -1), tail],
+        dim=1).to(torch.int32)
+
+
+def compact_tokens(tok0, buf, tail, token_shift: int):
+    """Per-pair token compaction, equal to the JAX ``compact_tokens``
+    (wfa_tpu/device_backtrace.py:199-223): the non-empty tokens of each
+    row move to its front in emission order, the rest is zero.  JAX sorts
+    by position with a stable key; here an exclusive prefix sum of the
+    non-zero mask along the row gives each token its slot, and one scatter
+    places it.
+
+    Returns (toks [B, NS], int16 when ``token_shift <= 12`` else int32,
+    n_tok int32[B])."""
+    toks = _emission_order(tok0, buf, tail)
+    B, NS = toks.shape
+    nz = toks != 0
+    dest = torch.where(nz, torch.cumsum(nz, 1) - 1, NS)
+    out = torch.zeros((B, NS + 1), dtype=torch.int32, device=toks.device)
+    out.scatter_(1, dest, toks)
+    return (out[:, :NS].to(_tok_dtype(token_shift)),
+            nz.sum(1, dtype=torch.int32))
+
+
 def compact_tokens_flat_u8(tok0, buf, tail, token_shift: int,
                            drop_m: bool = False):
     """Cross-pair byte-stream token compaction, equal to the JAX
@@ -378,11 +407,8 @@ def compact_tokens_flat_u8(tok0, buf, tail, token_shift: int,
 
     Returns (bytes_flat uint8[B*NS], longs_flat [B*NS], n_tok int32[B],
     n_long int32[B]), both flats dense prefixes with trailing zeros."""
-    B = tok0.shape[0]
-    toks = torch.cat(
-        [tok0[:, None], buf.permute(1, 0, 2).reshape(B, -1), tail],
-        dim=1).to(torch.int32)
-    NS = toks.shape[1]
+    toks = _emission_order(tok0, buf, tail)
+    B, NS = toks.shape
     flat = toks.reshape(B * NS)
     nz = flat != 0
     code = flat >> token_shift  # tokens are non-negative

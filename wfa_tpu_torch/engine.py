@@ -1032,9 +1032,9 @@ def canonical_kw(res):
 def _finish_outputs(aux, start_cell, k0, start_s, start_k, qlen, tlen, done,
                     overflow, *, cfg: EngineConfig, Lq: int, Ltb: int,
                     edit: bool, aux_base=None, aux_old=None, k0_old=None,
-                    s_split: int = 0, aux_sbase=None):
+                    s_split: int = 0, aux_sbase=None, flat: bool = True):
     """Backtrace (kernel K2), token compaction and the meta header, equal
-    to ``wfa_tpu.engine._finish_outputs(..., flat=True)``.  ``aux_base``
+    to ``wfa_tpu.engine._finish_outputs(..., flat=flat)``.  ``aux_base``
     marks the long-read score loop's value-rebased int16 aux, ``aux_sbase``
     K1-kw's row- and value-rebased aux, KW = ``cfg.aux_kw`` columns wide
     (wfa_tpu/engine.py:1315-1317).  The
@@ -1045,18 +1045,21 @@ def _finish_outputs(aux, start_cell, k0, start_s, start_k, qlen, tlen, done,
 
     When ``_token_plan`` calls the stream compact: ``{"mtb": uint8,
     "lg": int16/int32}``, byte-identical to JAX's ``compact and flat``
-    branch, edit-only when ``edit``, else full.  Otherwise the raw
+    branch, edit-only when ``edit``, else full; with ``flat=False`` (the
+    layout whose shards concatenate along the batch axis) ``{"mt":
+    [B, 4 + NS]}``, the meta columns in front of each pair's compacted
+    full token row (engine.py:1376-1385).  Otherwise the raw
     ``{"meta", "tok0", "buf", "tail"}`` (engine.py:1386-1388): a full
     stream, never edit-only (engine.py:1324), whose meta trim column is
     the chase's iteration count; :func:`assemble_raw` joins it on the
     host."""
-    from .device_backtrace import (compact_tokens_flat_u8, device_backtrace,
-                                   iter_capacity)
+    from .device_backtrace import (compact_tokens, compact_tokens_flat_u8,
+                                   device_backtrace, iter_capacity)
 
     S = cfg.s_cap
     K = cfg.aux_kw if aux_sbase is not None else cfg.k_win
     token_shift, compact = _token_plan(S, cfg.penalties, Lq, Ltb)
-    edit = edit and compact
+    edit = edit and compact and flat  # the 2-D layout is never edit-only
     bt = device_backtrace(
         aux, start_cell, k0, start_s, start_k, qlen, tlen, done & ~overflow,
         penalties=cfg.penalties, S=S, K=K, token_shift=token_shift,
@@ -1076,6 +1079,15 @@ def _finish_outputs(aux, start_cell, k0, start_s, start_k, qlen, tlen, done,
                             zeros + it_used, zeros], dim=1)
         return {"meta": meta.to(torch.int16) if meta16 else meta,
                 "tok0": tok0, "buf": buf, "tail": tail}
+    if not flat:
+        toks, n_tok = compact_tokens(tok0, buf, tail, token_shift)
+        meta = torch.stack([start_s.to(_I32), overflow.to(_I32), n_tok,
+                            torch.zeros_like(n_tok)], dim=1)
+        # int16 tokens imply meta16 in the pipeline's configs; a direct
+        # s_cap past 32000 widens the tokens instead
+        if toks.dtype == torch.int16 and not meta16:
+            toks = toks.to(_I32)
+        return {"mt": torch.cat([meta.to(toks.dtype), toks], dim=1)}
     # an edit-only stream drops the match runs; the host rebuilds them
     bytes_flat, longs_flat, n_tok, n_long = compact_tokens_flat_u8(
         tok0, buf, tail, token_shift, drop_m=edit)
@@ -1092,16 +1104,17 @@ def _finish_outputs(aux, start_cell, k0, start_s, start_k, qlen, tlen, done,
 
 def align_full2(seq, lens, *, cfg: EngineConfig, B: int, Lq: int, Ltb: int,
                 packed: bool = False, edit: Optional[bool] = None,
-                engine: str = "auto"):
+                engine: str = "auto", flat: bool = True):
     """Full alignment of an uploaded batch, the port of
-    ``wfa_tpu.engine._align_full2(..., flat=True)``: ``seq`` is the query
+    ``wfa_tpu.engine._align_full2(..., flat=flat)``: ``seq`` is the query
     and target byte matrices side by side (2-bit packed when ``packed``),
     ``lens`` is int32[B, 3] (qlen, tlen, toff).  Score loop -> backtrace
     (K2) from the end the score loop reports -> compaction; returns
     :func:`_finish_outputs`' dict, plus ``"final_s"`` (int32[B]) in
     semi-global mode: the score at which each pair reached its global end,
     where K1 stops, which lies above its semi-global score.  ``edit``
-    picks the token stream (default :func:`edit_only`).
+    picks the token stream (default :func:`edit_only`); ``flat=False``
+    gives the 2-D layout of a data-parallel shard, whose streams are full.
 
     ``engine`` "auto" runs K1; "long" runs K1-long (global only, JAX's
     ``engine="pallas_long"``, engine.py:1247-1266) and K2 over its
@@ -1124,17 +1137,20 @@ def align_full2(seq, lens, *, cfg: EngineConfig, B: int, Lq: int, Ltb: int,
             *args, cfg=cfg, Lq=Lq, Ltb=Ltb)
         return _finish_outputs(aux, term_cell, -toff, final_s, tlen - qlen,
                                qlen, tlen, done, overflow, cfg=cfg, Lq=Lq,
-                               Ltb=Ltb, edit=edit, aux_base=aux_base)
+                               Ltb=Ltb, edit=edit, aux_base=aux_base,
+                               flat=flat)
     if engine == "kw":
         final_s, done, overflow, term_cell, aux, sbase = run_batch_kw(
             *args, cfg=cfg, Lq=Lq, Ltb=Ltb)
         return _finish_outputs(aux, term_cell, -toff, final_s, tlen - qlen,
                                qlen, tlen, done, overflow, cfg=cfg, Lq=Lq,
-                               Ltb=Ltb, edit=edit, aux_sbase=sbase)
+                               Ltb=Ltb, edit=edit, aux_sbase=sbase,
+                               flat=flat)
     final_s, done, overflow, _, aux, (end_s, end_k, end_cell) = run_batch(
         *args, cfg=cfg, Lq=Lq, Ltb=Ltb)
     out = _finish_outputs(aux, end_cell, -toff, end_s, end_k, qlen, tlen,
-                          done, overflow, cfg=cfg, Lq=Lq, Ltb=Ltb, edit=edit)
+                          done, overflow, cfg=cfg, Lq=Lq, Ltb=Ltb, edit=edit,
+                          flat=flat)
     if not cfg.global_alignment:
         out["final_s"] = final_s
     return out
@@ -1224,7 +1240,8 @@ class Submitted:
     buffers on the card, the tensors themselves on the CPU), ``ran``, the
     event after the batch's last launch, ``copied``, the event after its
     last queued copy (both None on the CPU), and the meta that
-    ``finish_small`` read."""
+    ``finish_small`` read.  A mesh's batch holds its shards' handles
+    (``parts``)."""
     pairs: list
     out: dict
     edit: bool
@@ -1232,11 +1249,31 @@ class Submitted:
     ran: Optional[torch.cuda.Event] = None
     copied: Optional[torch.cuda.Event] = None
     meta: Optional[np.ndarray] = None
+    # a mesh's batch: (aligner, handle) of each shard, in batch order
+    parts: Optional[list] = None
+    # a shard fetched and gathered from another process: (meta, token
+    # rows, edit-only, final_s), what finish_tokens builds results from
+    tokens: Optional[tuple] = None
 
     @property
     def nbytes(self) -> int:
         """Device bytes the batch's outputs hold until its finish."""
+        if self.parts is not None:
+            return sum(p.nbytes for _, p in self.parts)
         return sum(a.numel() * a.element_size() for a in self.out.values())
+
+
+def _seq_lens(packed_batch):
+    """(seq, lens, packed, Lq, Ltb) of a :func:`_pack_all` tuple:
+    the query and target rows side by side (2-bit packed where the pack
+    gave them) and the (qlen, tlen, toff) columns, as ``align_full2``
+    takes them."""
+    qb, tbuf, qlen, tlen, toff, Lq, Ltb, qp, tp = packed_batch
+    packed = tp is not None
+    seq = np.concatenate([qp if packed else qb, tp if packed else tbuf],
+                         axis=1)
+    lens = np.stack([qlen, tlen, toff], axis=1).astype(np.int32)
+    return seq, lens, packed, Lq, Ltb
 
 
 class BatchAligner:
@@ -1267,17 +1304,28 @@ class BatchAligner:
     pinned buffers; so a submit does not wait for the launches (but the
     two-phase route's mid-point fetch of ``meta1``), and several threads
     may submit and finish batches of one aligner at once.
+
+    ``mesh`` (:func:`wfa_tpu_torch.parallel.make_dp_mesh`, kept when its
+    size passes 1; ``device`` is then its first device) shards each batch
+    over its devices and processes: the batch is padded to a multiple of
+    the mesh size with ``(b"A", b"A")`` pairs whose results are dropped,
+    packed whole, and each shard runs ``align_full2(..., flat=False)`` (or
+    both two-phase phases) on its device; each shard's outputs are fetched
+    by an aligner of that device, as above.  Across processes a submit
+    also waits for its shards, fetches them and gathers every process's
+    (``DpMesh.exchange``), so that every process returns every result.
     """
 
     def __init__(self, penalties: Penalties = Penalties(),
                  options: Options = Options(),
                  adaptive: Optional[AdaptiveReductionOption] = None,
                  k_win: int = 128, s_cap: int = 256, device="cuda",
-                 engine: str = "auto") -> None:
+                 engine: str = "auto", mesh=None) -> None:
         if adaptive is not None and adaptive.min_wf_len == 0:
             # constructor-path twin of the attach check (wfa.go:134-137)
             raise ValueError("cutoff step should not be 0")
         self.s_switch = 0
+        engine_arg = engine
         kw = engine_kw(engine, k_win)
         if kw is not None:
             engine = "kw"
@@ -1295,6 +1343,9 @@ class BatchAligner:
                                 adaptive=adaptive, k_win=k_win, s_cap=s_cap,
                                 aux_kw=kw)
         self.engine = engine
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None:
+            device = self.mesh.devices[0]
         self.device = resolve_device(device)
         self._copy = (torch.cuda.Stream(self.device)
                       if self.device.type == "cuda" else None)
@@ -1302,8 +1353,14 @@ class BatchAligner:
         # full spans phase 1 ran at ("semi2")
         self.spans = set()
         # speculative fetch extents by output ("mtb" token bytes, "lg"
-        # long tokens, "buf" raw rows); None until a batch calibrates them
-        self._tok_guess = {"mtb": None, "lg": None, "buf": None}
+        # long tokens, "buf" raw rows, "mt" token columns); None until a
+        # batch calibrates them
+        self._tok_guess = {"mtb": None, "lg": None, "buf": None, "mt": None}
+        # the aligner that fetches the shards of each mesh device
+        self._shard_aligners = {} if self.mesh is None else {
+            d: BatchAligner(penalties, options, adaptive, k_win=k_win,
+                            s_cap=s_cap, device=d, engine=engine_arg)
+            for d in dict.fromkeys(self.mesh.devices)}
 
     def align_batch(self, pairs: Sequence[Tuple[bytes, bytes]],
                     fallback: bool = True) -> List[Optional[AlignmentResult]]:
@@ -1347,7 +1404,9 @@ class BatchAligner:
         the handle for :meth:`finish_batch`.  ``prepacked`` (the tuple
         :func:`_pack_all` gives for the same pairs at this aligner's window
         and mode) skips the pack, so that one thread may pack while
-        another submits."""
+        another submits; a mesh ignores it (its batch is padded first)."""
+        if self.mesh is not None:
+            return self._submit_mesh(list(pairs))
         with self._on_device():
             return self._submit(list(pairs), prepacked)
 
@@ -1361,13 +1420,9 @@ class BatchAligner:
                              "only")
         if self.engine == "semi2":
             return self._submit_semi2(pairs, prepacked)
-        qb, tbuf, qlen, tlen, toff, Lq, Ltb, qp, tp = (
+        seq, lens, packed, Lq, Ltb = _seq_lens(
             prepacked if prepacked is not None
             else self._pack_all(pairs, need_raw=False))
-        packed = tp is not None
-        seq = np.concatenate([qp if packed else qb, tp if packed else tbuf],
-                             axis=1)
-        lens = np.stack([qlen, tlen, toff], axis=1).astype(np.int32)
         edit = edit_only(self.cfg)  # fixed here; the decode follows it
         out = align_full2(self._upload(seq), self._upload(lens),
                           cfg=self.cfg, B=len(pairs), Lq=Lq, Ltb=Ltb,
@@ -1380,35 +1435,117 @@ class BatchAligner:
         sync) -> re-place each target for its window -> upload -> K4 ->
         K2 over both aux tensors -> compaction.  Returns the same handle
         as :meth:`submit_batch`."""
-        from .semi2 import (M1_K02, phase2, prefix_export, prefix_span,
-                            replace_targets)
+        from .semi2 import M1_K02, phase2, prefix_export
+
+        exports = {}
+
+        def phase1(seq, lens, pcfg, Lq, Ltb, packed):
+            exports.update(prefix_export(
+                self._upload(seq), self._upload(lens), cfg=pcfg, Lq=Lq,
+                Ltb=Ltb, S0=self.s_switch, K2=self.cfg.k_win,
+                packed=packed))
+            return exports["meta1"][:, M1_K02].cpu().numpy()
+
+        def run2(seq2, lens2, Lq, Ltb, Ltb2, packed2):
+            return phase2(
+                self._upload(seq2), self._upload(lens2),
+                *(exports[k] for k in ("win_m", "win_i", "win_d", "ainit",
+                                       "b_m", "b_ie", "meta1", "aux_old")),
+                cfg=self.cfg, Lq=Lq, Ltb_full=Ltb, Ltb2=Ltb2,
+                S0=self.s_switch, packed=packed2)
+
+        out = self._two_phase(pairs, prepacked, phase1, run2)
+        return self._queue_fetch(pairs, out, False)
+
+    def _two_phase(self, pairs, prepacked, phase1, phase2):
+        """The host steps of the two-phase route, on one device or a mesh:
+        pack the whole batch, take its full span, run ``phase1(seq, lens,
+        pcfg, Lq, Ltb, packed)`` (K3; it returns every pair's ``meta1``
+        k0-to-diagonal column on the host), re-place each target for its
+        window (``Ltb2`` batch-wide) and return ``phase2(seq2, lens2, Lq,
+        Ltb, Ltb2, packed2)`` (K4, K2)."""
+        from .semi2 import prefix_span, replace_targets
 
         # the raw query rows go with a re-placed target that is not ACGT
-        qb, tbuf, qlen, tlen, toff, Lq, Ltb, qp, tp = (
-            prepacked if prepacked is not None else self._pack_all(pairs))
-        packed = tp is not None
-        seq = np.concatenate([qp if packed else qb, tp if packed else tbuf],
-                             axis=1)
-        lens = np.stack([qlen, tlen, toff], axis=1).astype(np.int32)
-        S0 = self.s_switch
+        batch = prepacked if prepacked is not None else self._pack_all(pairs)
+        qb, _, qlen, tlen, _, _, _, qp, _ = batch
+        seq, lens, packed, Lq, Ltb = _seq_lens(batch)
         Kf = prefix_span(qlen, tlen)
         self.spans.add(Kf)
-        pcfg = dataclasses.replace(self.cfg, k_win=Kf)
-        exports = prefix_export(
-            self._upload(seq), self._upload(lens), cfg=pcfg, Lq=Lq, Ltb=Ltb,
-            S0=S0, K2=self.cfg.k_win, packed=packed)
-        k02 = exports["meta1"][:, M1_K02].cpu().numpy()
+        k02 = phase1(seq, lens, dataclasses.replace(self.cfg, k_win=Kf), Lq,
+                     Ltb, packed)
         t2raw, t2p, toff2, Ltb2 = replace_targets([t for _, t in pairs], k02)
         packed2 = packed and t2p is not None
         seq2 = np.concatenate([qp, t2p] if packed2 else [qb, t2raw], axis=1)
         lens2 = np.stack([qlen, tlen, toff2], axis=1).astype(np.int32)
-        out = phase2(
-            self._upload(seq2), self._upload(lens2),
-            *(exports[k] for k in ("win_m", "win_i", "win_d", "ainit", "b_m",
-                                   "b_ie", "meta1", "aux_old")),
-            cfg=self.cfg, Lq=Lq, Ltb_full=Ltb, Ltb2=Ltb2, S0=S0,
-            packed=packed2)
-        return self._queue_fetch(pairs, out, False)
+        return phase2(seq2, lens2, Lq, Ltb, Ltb2, packed2)
+
+    def _submit_mesh(self, pairs) -> Submitted:
+        """:meth:`submit_batch` under a mesh (wfa_tpu/engine.py:1640-1690,
+        1786-1892): pad the batch to a multiple of the mesh size, pack it
+        whole (so that its shapes and token plan are batch-wide), run each
+        of this process's shards on its device and queue its fetch on that
+        device's aligner.  Across processes, fetch the shards and gather
+        every process's, in one exchange."""
+        from .parallel import (dp_align_full_fn, dp_semi2_phase2_fn,
+                               dp_semi2_prefix_fn)
+        from .semi2 import M1_K02
+
+        mesh = self.mesh
+        if self.engine in ("long", "kw") and not self.cfg.global_alignment:
+            raise ValueError(f"engine={self.engine!r} runs global alignment "
+                             "only")
+        padded = pairs + [(b"A", b"A")] * ((-len(pairs)) % mesh.size)
+        B = len(padded)
+        if self.engine == "semi2":
+            # K3 on each shard, the mid-point on the whole batch (meta1
+            # from every shard of every process), K4 and K2 on each shard
+            exports = []
+
+            def phase1(seq, lens, pcfg, Lq, Ltb, packed):
+                def k02():
+                    exports.extend(dp_semi2_prefix_fn(
+                        pcfg, mesh, B, Lq, Ltb, self.s_switch,
+                        self.cfg.k_win, packed)(seq, lens))
+                    return [ex["meta1"][:, M1_K02].cpu().numpy()
+                            for ex in exports]
+
+                return np.concatenate([m for got in mesh.exchange(k02)
+                                       for m in got])
+
+            def run2(seq2, lens2, Lq, Ltb, Ltb2, packed2):
+                fn = dp_semi2_phase2_fn(self.cfg, mesh, B, Lq, Ltb, Ltb2,
+                                        self.s_switch, packed2)
+                return lambda: fn(seq2, lens2, exports)
+
+            run = self._two_phase(padded, None, phase1, run2)
+        else:
+            seq, lens, packed, Lq, Ltb = _seq_lens(
+                self._pack_all(padded, need_raw=False))
+            fn = dp_align_full_fn(self.cfg, mesh, B, Lq, Ltb, self.engine,
+                                  packed)
+
+            def run():
+                return fn(seq, lens)
+
+        def local():
+            parts = []
+            for (_, dev, rows), out in zip(mesh.shards(B), run()):
+                eng = self._shard_aligners[dev]
+                with eng._on_device():
+                    parts.append((eng, eng._queue_fetch(padded[rows], out,
+                                                        False)))
+            if mesh.world == 1:
+                return parts
+            return [eng._splice(eng.finish_small(h)) for eng, h in parts]
+
+        if mesh.world == 1:
+            return Submitted(pairs, {}, False, parts=local())
+        lb = B // mesh.size
+        shards = [t for got in mesh.exchange(local) for t in got]
+        return Submitted(pairs, {}, False, parts=[
+            (self, Submitted(padded[g * lb:(g + 1) * lb], {}, False,
+                             tokens=t)) for g, t in enumerate(shards)])
 
     # -- the split fetch (wfa_tpu/engine.py:1698-1772, 1899-2064) ----------
 
@@ -1442,15 +1579,16 @@ class BatchAligner:
     def _queue_fetch(self, pairs, out: dict, edit: bool) -> Submitted:
         """Queue the host copies of a launched batch's outputs: the small
         ones whole, and the token streams at the guessed extent ("mtb": the
-        meta bytes and, cold, 64 token bytes a pair; "lg" and the raw
-        "buf" once a batch has calibrated them)."""
+        meta bytes and, cold, 64 token bytes a pair; "mt": the meta columns
+        and the guessed token columns; "lg" and the raw "buf" once a batch
+        has calibrated them)."""
         h = Submitted(pairs, out, edit)
         if self._copy is not None:
             h.ran = torch.cuda.Event()
             # on the stream the launches went to (``_build.stream_ptr``)
             h.ran.record(torch.cuda.current_stream(self.device))
             self._copy.wait_event(h.ran)
-        streams = ("mtb", "lg", "buf")
+        streams = ("mtb", "lg", "buf", "mt")
         with self._on_copy():
             h.host = {k: self._host(a) for k, a in out.items()
                       if k not in streams}
@@ -1461,6 +1599,9 @@ class BatchAligner:
                 h.host["mtb"] = self._host(out["mtb"][:hd + gb])
                 if guess["lg"]:
                     h.host["lg"] = self._host(out["lg"][:guess["lg"]])
+            elif "mt" in out:
+                cols = len(META_COLS) + (guess["mt"] or 0)
+                h.host["mt"] = self._host(out["mt"][:, :cols])
             elif guess["buf"]:
                 h.host["buf"] = self._host(out["buf"][:guess["buf"]])
             h.copied = self._copied()
@@ -1470,6 +1611,8 @@ class BatchAligner:
     def wait_exec(h: Submitted) -> None:
         """Block until the batch's last launch has run on the device (no
         wait on the CPU, where the launches ran in the submit)."""
+        for _, part in h.parts or ():
+            BatchAligner.wait_exec(part)
         if h.ran is not None:
             h.ran.synchronize()
 
@@ -1478,6 +1621,10 @@ class BatchAligner:
         extents (the used extent and 1/8 more) and queue the copies of
         whatever the guess missed; returns the handle for
         :meth:`finish_tokens`."""
+        if h.parts is not None or h.tokens is not None:
+            for eng, part in h.parts or ():
+                eng.finish_small(part)
+            return h
         if h.copied is not None:
             h.copied.synchronize()
         out, host = h.out, h.host
@@ -1497,6 +1644,19 @@ class BatchAligner:
                 have_l = host["lg"].shape[0] if "lg" in host else 0
                 if have_l < tot_l:
                     host["lg_rest"] = self._host(out["lg"][have_l:tot_l])
+            elif "mt" in out:
+                # 2-D layout: the guess is the most token columns a pair
+                # used (wfa_tpu/engine.py:1982-1992)
+                nm = len(META_COLS)
+                head = host["mt"].numpy()
+                h.meta = head[:, :nm].astype(np.int32)
+                n = int(h.meta[:, M_TRIM].max()) if len(h.pairs) else 0
+                self._tok_guess["mt"] = _coarse(max(n, 1) * 5 // 4, 64)
+                cols = min(out["mt"].shape[1] - nm, _coarse(max(n, 1), 64))
+                have = head.shape[1] - nm
+                if have < cols:
+                    host["mt_rest"] = self._host(
+                        out["mt"][:, nm + have:nm + cols])
             else:
                 # raw layout: the trim column is the chase's iteration
                 # count, the same for every pair; buf's rows past it are 0
@@ -1513,7 +1673,36 @@ class BatchAligner:
                       ) -> List[Optional[AlignmentResult]]:
         """Wait for the remainder copies, splice the token streams, release
         the batch's device outputs and build its results (op decoding is
-        lazy, on first access)."""
+        lazy, on first access); a mesh's batch, each shard's in turn, the
+        padding dropped."""
+        if h.parts is not None:
+            results = []
+            for eng, part in h.parts:
+                results += eng.finish_tokens(part, fallback)
+            h.parts = None
+            return results[:len(h.pairs)]
+        meta, toks, edit, final = self._splice(h)
+        results: List[Optional[AlignmentResult]] = []
+        oracle = self._oracle
+        ga = self.cfg.global_alignment
+        for (q, t), score, fs, ovf, tk in zip(
+                h.pairs, meta[:, M_SCORE].tolist(), final,
+                meta[:, M_OVF].tolist(), toks):
+            if ovf:
+                results.append(oracle.align(q, t) if fallback else None)
+            else:
+                res = DeviceResult.from_device(
+                    ga, score, (tk, q, t) if edit else tk)
+                res.final_s = fs
+                results.append(res)
+        return results
+
+    def _splice(self, h: Submitted) -> tuple:
+        """Wait for the remainder copies, splice the token streams and
+        release the batch's device outputs: (meta int32[B, 4], per-pair
+        token arrays, whether they are edit-only, final_s list)."""
+        if h.tokens is not None:
+            return h.tokens
         if h.copied is not None:
             h.copied.synchronize()
         host = {k: a.numpy() for k, a in h.host.items()}
@@ -1528,6 +1717,12 @@ class BatchAligner:
                 0, np.int16 if h.out["lg"].dtype == torch.int16
                 else np.int32))
             toks = _split_tokens(meta, b, longs)
+        elif "mt" in h.out:
+            # a copy: the rows must not hold the pinned buffers
+            toks = list(np.concatenate(
+                [host[k] if k == "mt_rest" else host[k][:, len(META_COLS):]
+                 for k in ("mt", "mt_rest") if k in host], axis=1))
+            edit = False  # the 2-D layout's full streams
         else:
             rows = int(meta[:, M_TRIM].max())
             parts = [host[k] for k in ("buf", "buf_rest") if k in host]
@@ -1536,24 +1731,12 @@ class BatchAligner:
                                  host["tok0"].dtype))
             _, toks = assemble_raw(h.pairs, {**host, "buf": buf})
             edit = False  # raw full streams
-        scores = meta[:, M_SCORE].tolist()
-        final = host["final_s"].tolist() if "final_s" in host else scores
+        final = (host["final_s"].tolist() if "final_s" in host
+                 else meta[:, M_SCORE].tolist())
         # drop the device outputs now (their copies have landed): retry
         # tiers allocate large batches that must not wait for the GC
         h.out = h.host = None
-        results: List[Optional[AlignmentResult]] = []
-        oracle = self._oracle
-        ga = self.cfg.global_alignment
-        for (q, t), score, fs, ovf, tk in zip(h.pairs, scores, final,
-                                              meta[:, M_OVF].tolist(), toks):
-            if ovf:
-                results.append(oracle.align(q, t) if fallback else None)
-            else:
-                res = DeviceResult.from_device(
-                    ga, score, (tk, q, t) if edit else tk)
-                res.final_s = fs
-                results.append(res)
-        return results
+        return meta, toks, edit, final
 
     def finish_batch(self, h: Submitted, fallback: bool = True
                      ) -> List[Optional[AlignmentResult]]:

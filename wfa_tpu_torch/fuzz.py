@@ -41,6 +41,15 @@ Then it holds, at tolerance 0:
 3. for global cases, the results with ``WFA_EDIT_TOKENS=0`` (full token
    streams) against those with the edit-only default.
 
+Then ``--mesh-cases`` rounds of the data-parallel mesh (the counterpart
+of tests/fuzz.py:230-260), drawn from a generator of their own: penalties
+(4/6/2, or random ones), global or semi-global, wf-adaptive on or off,
+2, 4 or 8 shards of the one device (``PipelineConfig.devices``), batches
+of 16 or 64 and 4-40 pairs of up to 90 bases (often not a multiple of the
+mesh size) through ``AlignmentPipeline.align_all``: every result equal to
+the same pipeline's on one device, field by field, and to the oracle's
+score and CIGAR.
+
 A mismatch prints one JSON line (seed, case, config, the pair and the
 first tensor or field that diverges) and the run exits 1.
 """
@@ -367,10 +376,56 @@ def check_case(case: dict, device: str) -> tuple:
     return bad, served
 
 
+def draw_mesh_case(rng: random.Random) -> dict:
+    """One round of the mesh stage (tests/fuzz.py:230-260)."""
+    pen = (Penalties(4, 6, 2) if rng.random() < 0.4 else
+           Penalties(rng.randint(1, 8), rng.randint(0, 12),
+                     rng.randint(1, 6)))
+    ad = (None if rng.random() < 0.3 else
+          AdaptiveReductionOption(rng.randint(1, 20), rng.randint(5, 80), 1))
+    ga = rng.random() < 0.7
+    shards = rng.choice((2, 4, 8))
+    batch = rng.choice((16, 64))
+    pairs = draw_pairs(rng, rng.randint(4, 40), 90, rng.choice((0.05, 0.15)),
+                       rng.random() < 0.2)
+    return {"penalties": dataclasses.astuple(pen), "global": ga,
+            "adaptive": dataclasses.astuple(ad) if ad else None,
+            "shards": shards, "batch_size": batch, "pairs": pairs}
+
+
+def check_mesh_case(case: dict, device: str) -> list:
+    """Every mismatch of one mesh round as (what, pair index)."""
+    from .pipeline import AlignmentPipeline, PipelineConfig
+
+    ad = case["adaptive"]
+    args = (Penalties(*case["penalties"]), Options(case["global"]),
+            AdaptiveReductionOption(*ad) if ad else None)
+    base = dict(batch_size=case["batch_size"], device=device)
+    mesh = AlignmentPipeline(PipelineConfig(
+        *args, devices=(device,) * case["shards"], **base))
+    one = AlignmentPipeline(PipelineConfig(*args, n_devices=1, **base))
+    pairs = case["pairs"]
+    got, want = mesh.align_all(pairs), one.align_all(pairs)
+    mesh.close()
+    one.close()
+    bad = [("mesh device faults", None)] if mesh._device_errors else []
+    oracle = OracleAligner(*args)
+    for i, (a, b) in enumerate(zip(got, want)):
+        what = _result_diff(a, b)
+        if what:
+            bad.append((f"mesh vs one device: result.{what}", i))
+            continue
+        ref = oracle.align(*pairs[i])
+        if (a.score, a.cigar(False)) != (ref.score, ref.cigar(False)):
+            bad.append(("mesh vs the oracle: score or cigar", i))
+    return bad
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cases", type=int, default=40)
+    ap.add_argument("--mesh-cases", type=int, default=8)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     if args.device != "cpu" and not torch.cuda.is_available():
@@ -393,8 +448,27 @@ def main() -> None:
                               "pair": (None if i is None else [
                                   x.decode("latin-1")
                                   for x in case["pairs"][i]])}))
+    # the mesh stage, from a generator of its own so that every seed's
+    # kernel cases stay as they were
+    rng = random.Random(f"mesh {args.seed}")
+    n_mesh = 0
+    for c in range(args.mesh_cases):
+        case = draw_mesh_case(rng)
+        bad = check_mesh_case(case, args.device)
+        n_mesh += len(case["pairs"])
+        desc = {k: v for k, v in case.items() if k != "pairs"}
+        print(f"mesh case {c}: {json.dumps(desc)} {len(case['pairs'])} "
+              f"pairs, {len(bad)} mismatches", flush=True)
+        for what, i in bad:
+            n_bad += 1
+            print(json.dumps({"seed": args.seed, "mesh_case": c, **desc,
+                              "diverges": what, "pair_index": i,
+                              "pair": (None if i is None else [
+                                  x.decode("latin-1")
+                                  for x in case["pairs"][i]])}))
     print(f"fuzz seed {args.seed}: {args.cases} cases, {n_pairs} pairs, "
-          f"{n_served} served by the {args.device} kernels, {n_bad} "
+          f"{n_served} served by the {args.device} kernels; "
+          f"{args.mesh_cases} mesh cases, {n_mesh} pairs; {n_bad} "
           f"mismatches in {time.perf_counter() - t0:.1f} s")
     sys.exit(1 if n_bad else 0)
 

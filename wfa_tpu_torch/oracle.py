@@ -7,8 +7,7 @@ semantics of the reference gap-affine wavefront aligner — seeding
 end finder (wfa.go:270-375) and the backtrace (wfa.go:703-983).  The
 port's engine (wfa_tpu_torch.engine) must agree with this module
 bit-for-bit on scores, CIGARs, coordinates and stats; the test-suite
-enforces that.  The port's own copy of :mod:`wfa_tpu.oracle`, without its
-``plot`` method.
+enforces that.  The port's own copy of :mod:`wfa_tpu.oracle`.
 
 It is intentionally simple and unoptimized — correctness reference only.
 The storage layout here (per-score dict wavefronts) is *not* the device
@@ -476,6 +475,15 @@ class Aligner:
             self.M, self.I, self.D, self.p, self.opt.global_alignment,
             q, t, s, Ak,
         )
+
+    def plot(self, q: bytes, t: bytes, component=None,
+             not_change_to_match: bool = False, max_score: int = -1) -> str:
+        """Render a component's wavefronts as the reference's score/arrow
+        table ((*Aligner).Plot, wfa_component_plot.go:41); call after
+        :meth:`align` on the same pair."""
+        from .plot import plot as _plot
+
+        return _plot(self, q, t, component, not_change_to_match, max_score)
 
 
 def align(

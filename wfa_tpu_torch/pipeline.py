@@ -42,6 +42,14 @@ of a tier with more chunks is a probe: when at least 90% of it
 overflows, the tier's remaining chunks go straight to the next tier.
 Faults surface through the workers' futures and are counted on the
 calling thread.
+
+``PipelineConfig.n_devices`` (or ``devices``) shards every batch over a
+data-parallel mesh (:mod:`wfa_tpu_torch.parallel`), as ``wfa_tpu.pipeline``
+does (pipeline.py:76-84): the tier ladder, the gates and the fault
+handling stay as they are, and one submit worker launches the batches,
+so that every process launches and gathers in the same order.  The byte
+gate models one device's bytes per batch and is not scaled by the mesh
+(nor is JAX's).
 """
 
 from __future__ import annotations
@@ -52,6 +60,8 @@ import sys
 import threading
 from concurrent.futures import Future, ThreadPoolExecutor, wait
 from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
+
+import torch
 
 from .cigar import AlignmentResult
 from .constants import (MAX_SEQ_LEN, AdaptiveReductionOption, EmptySeqError,
@@ -89,6 +99,13 @@ class PipelineConfig:
     mem_budget: int = 16 << 30
     # False: every pair by the exact host oracle, no device
     use_device: bool = True
+    # data parallelism over the cards (after parallel
+    # .initialize_distributed, of every process): 0 = all, 1 = one, n = the
+    # first n; on the CPU, n virtual shards (0: one)
+    n_devices: int = 0
+    # the mesh's devices given outright (a device may repeat: shards that
+    # share a card); overrides n_devices
+    devices: Tuple[str, ...] = ()
 
 
 def aux_cell_bytes(rebased: bool) -> int:
@@ -174,6 +191,20 @@ class AlignmentPipeline:
         # the last align_all's most batches in flight at once, most bytes
         # reserved at once, and the gate they were held to
         self.peak: Dict[str, int] = {}
+        # the data-parallel mesh (wfa_tpu/pipeline.py:76-84): batches shard
+        # over it; None for a single device.  n_devices 0 on a machine
+        # without a card builds none here, and the engine raises then.
+        self._mesh = None
+        if cfg.use_device and (cfg.devices or cfg.n_devices > 1 or (
+                cfg.n_devices == 0 and (torch.device(cfg.device).type
+                                        == "cpu" or
+                                        torch.cuda.is_available()))):
+            from .parallel import make_dp_mesh
+
+            mesh = make_dp_mesh(cfg.n_devices or None,
+                                devices=cfg.devices or None,
+                                device=cfg.device)
+            self._mesh = mesh if mesh.size > 1 else None
 
     def _tier_caps(self, lq: int, lt: int, tier: int, skey=None):
         """(k_win, s_cap, b_cap, engine, serial, batch_bytes) for a bucket
@@ -270,7 +301,8 @@ class AlignmentPipeline:
         if eng is None:
             eng = BatchAligner(self.cfg.penalties, self.cfg.options,
                                self.cfg.adaptive, k_win=k_win, s_cap=s_cap,
-                               device=self.cfg.device, engine=engine)
+                               device=self.cfg.device, engine=engine,
+                               mesh=self._mesh)
             self._engines[key] = eng
         return eng
 
@@ -369,9 +401,12 @@ class AlignmentPipeline:
             n_chunks = (len(items) + bs - 1) // bs
             # the probe (does this tier's ladder fit the workload at
             # all?) drains asynchronously; past probe_hard chunks an
-            # unresolved probe blocks
+            # unresolved probe blocks.  Across processes it resolves at
+            # probe_hard only, so that every process submits (and gathers)
+            # the same chunks
             probe = tier < 3 and n_chunks > 1
             probe_hard = min(8, n_chunks - 1)
+            lockstep = self._mesh is not None and self._mesh.world > 1
             probe_fut = None
             skip_rest = False
             for ci in range(n_chunks):
@@ -418,8 +453,9 @@ class AlignmentPipeline:
                     self._device_fault(exc)
                     inflight.append((key, chunk, [None] * len(chunk)))
                     continue
-                if probe_fut is not None and (probe_fut.done()
-                                              or ci >= probe_hard):
+                if probe_fut is not None and (
+                        (probe_fut.done() and not lockstep)
+                        or ci >= probe_hard):
                     try:
                         out = probe_fut.result()
                     except RuntimeError as exc:
@@ -463,12 +499,15 @@ class AlignmentPipeline:
 
     def _pool(self, kind: str) -> ThreadPoolExecutor:
         """The submit pool (pack, upload, launches: three workers, so that
-        one's pack or two-phase mid-point overlaps the others' launches)
-        or the drain pool (fetch, results: four), made at first use."""
+        one's pack or two-phase mid-point overlaps the others' launches;
+        one under a mesh, so that every process launches and gathers in
+        the same order, wfa_tpu/pipeline.py:604-620) or the drain pool
+        (fetch, results: four), made at first use."""
         if kind == "submit":
             if self._spool is None:
                 self._spool = ThreadPoolExecutor(
-                    int(os.environ.get("WFA_SUBMIT_WORKERS", "3")),
+                    1 if self._mesh is not None
+                    else int(os.environ.get("WFA_SUBMIT_WORKERS", "3")),
                     thread_name_prefix="wfa-submit")
             return self._spool
         if self._dpool is None:
