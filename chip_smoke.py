@@ -34,8 +34,13 @@ spaced results of each against the port's exact oracle:
   two-phase run of 256 pairs of l=1000 against the oracle, and K3, K4 and
   K2 checked on the batch that run gave them; K4 keeps a record at each
   of the three (l=1000, l=10000, 4/6/1);
-  then one A/B of the two-phase route against K1-semi at the full span on
-  1024 pairs of l=1000, in turns;
+  then semi-global coordinates (``phase_semi_coords``): 4000 pairs of
+  30-200 bases at penalties drawn by the fuzz, through the oracle, and
+  those whose oracle CIGAR misses a length, with the card fuzz's two such
+  pairs, through K1-semi at the full span and the two-phase route, on the
+  card and on a mesh of 2 shards of it, held to the oracle on all 11
+  fields; then one A/B of the two-phase route against K1-semi at the full
+  span on 1024 pairs of l=1000, in turns;
 * global reads just past int16 offsets: 4096 pairs of l=4000, e=0.05,
   4/6/2, 10/50/1 (two 2048-pair batches, so that the fitted cap runs
   too), whose longest read lies in (4095 - k_win, 4096]: the route of TPU
@@ -45,18 +50,23 @@ spaced results of each against the port's exact oracle:
 * long global reads: 64 pairs of l=50000, e=0.05, 4/6/2, 10/50/1
   (bench.py's matrix row), through K1-long and K2 over its rebased aux,
   both checked on those same 64 pairs, the path's one batch (the plain
-  K1-long takes ~100 s a call, ~6 ms for each of ~14,600 scores); all 64
-  results checked against the oracle;
+  K1-long takes ~100 s a call, ~6 ms for each of ~14,600 scores, so it
+  runs once, at the higher cap: every pair finishes under both, and its
+  rows below the lower cap are the plain output there); all 64 results
+  checked against the oracle;
 * data parallelism: ``AlignmentPipeline`` over a mesh of every card, or
   of 2 shards of the one card (``PipelineConfig.devices``), global
-  l=1000 at the main path's width (32768 pairs) and two-phase semi-global
-  l=1000 (2048 pairs), each held token stream for token stream to a
-  single-device run of the same pairs (both with full token streams) and
-  timed against it in turns; then processes over gloo (this script with
-  ``--dp-worker``), one a card or 2 on the one card, on 4096 pairs of
-  global l=1000, each returning every result equal to a single-process
-  run; both print each shard's launches, and every shard must launch
-  every kernel of its path;
+  l=1000 at the main path's width (32768 pairs), two-phase semi-global
+  l=1000 (2048 pairs, and 256 at 4/6/1), semi-global l=200 (1024),
+  global l=4000 (4096, K1-kw), l=5000 and l=50000 (64 each, K1-long),
+  each held token stream for token stream to a single-device run of the
+  same pairs (both with full token streams) and timed against it in
+  turns, and each kernel held to its plain version on a shard of the
+  mesh's first batch at each engine key (K1-long at l=5000); then
+  processes over gloo (this script with ``--dp-worker``), one a card or
+  2 on the one card, on 4096 pairs of global l=1000, each returning
+  every result equal to a single-process run; both print each shard's
+  launches, and every shard must launch every kernel of its path;
 * the CLI: ``python -m wfa_tpu_torch.cli -i tests/data/seqs.txt`` on the
   card, byte for byte equal to the same with ``--no-device``;
 * then the per-phase cycle split of a score step of K1, K1-long, K1-kw,
@@ -123,6 +133,8 @@ N_DP_PROC = 4096
 DP_LONG_LENGTH = 5000
 N_DP_LONG = N_LONG
 N_ERR_CHECK = 128
+# phase_semi_coords: semi-global pairs drawn by the fuzz's generator
+N_COORD_GROUPS, COORD_GROUP, COORD_SEED = 100, 40, 0
 # K1/K2 checks, (pairs, l, k_win, s_cap): the first of each mode is the
 # one the kernels' record reports
 GLOBAL_CHECKS = ((BATCH, 1000, 128, 640), (BATCH, 1000, 128, 512))
@@ -159,6 +171,17 @@ FIELDS = ("score", "q_begin", "q_end", "t_begin", "t_end", "align_len",
           "matches", "gaps", "gap_regions")
 # cap mismatches found by the main paths: reported after every phase ran
 DEFERRED = []
+# seconds of each step of main, and when the last one ended
+LAPS, LAP = {}, [0.0]
+
+
+def lap(name: str) -> None:
+    """Records and prints the seconds since the last step of ``main``
+    ended (``LAP``) under ``name``."""
+    now = time.perf_counter()
+    LAPS[name] = round(now - LAP[0], 1)
+    LAP[0] = now
+    print(f"step {name}: {LAPS[name]} s", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -357,17 +380,20 @@ def check_kernels(checks, global_alignment: bool, reps: int,
     from wfa_tpu_torch.profiling import kernel_batch
 
     recs = None
+    plain = {}  # K1-long's plain output, kept for the next, lower cap
     for n, length, k_win, s_cap in checks:
         torch.cuda.empty_cache()
         cfg, ins = kernel_batch(n, length, k_win, s_cap,
                                 global_alignment=global_alignment)
-        rec1, k1_out = (phase_k1_long if long else phase_k1)(cfg, ins, reps)
+        rec1, k1_out = (phase_k1_long(cfg, ins, reps, plain) if long
+                        else phase_k1(cfg, ins, reps))
         rec2 = phase_k2(cfg, ins, k1_out, long=long)
         del k1_out, ins
         if recs is None:
             recs = (rec1, rec2)
         for rec, new in zip(recs, (rec1, rec2)):
             rec["max_abs_err"] = max(rec["max_abs_err"], new["max_abs_err"])
+    del plain
     torch.cuda.empty_cache()
     return recs
 
@@ -436,10 +462,13 @@ def phase_k1(cfg, ins, reps: int = 10):
     return rec, got
 
 
-def phase_k1_long(cfg, ins, reps: int = 3):
+def phase_k1_long(cfg, ins, reps: int = 3, plain=None):
     """K1-long against run_batch_long_plain on the card: every out row of
     every pair, the int16 aux rows and their bases 0..final_s of done
-    pairs.  The plain version's one checked call is also its time."""
+    pairs.  The plain version's one checked call is also its time.
+    ``plain`` (a dict) keeps the plain output for the next call on the
+    same inputs: at a lower cap that every pair finished under, its rows
+    below that cap are the plain output there, and it is not run again."""
     import torch
     from wfa_tpu_torch.engine import run_batch_long_plain
     from wfa_tpu_torch.kernel_engine import run_batch_long
@@ -448,16 +477,26 @@ def phase_k1_long(cfg, ins, reps: int = 3):
     args = (qb, tbuf, qlen, tlen, toff)
     kw = dict(cfg=cfg, Lq=Lq, Ltb=Ltb)
     name = "score_loop_long"
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    ref = run_batch_long_plain(*args, **kw)
-    end.record()
-    torch.cuda.synchronize()
-    plain_ms = start.elapsed_time(end)
-    plain_peak = torch.cuda.max_memory_allocated() / 2**30
+    kept = (plain or {}).get("out")
+    if kept is not None and bool(kept[1].all()) and (
+            int(kept[0].max()) < cfg.s_cap <= kept[5].shape[1]):
+        ref = (*kept[:4], kept[4][:, :cfg.s_cap], kept[5][:, :cfg.s_cap])
+        plain_ms, plain_peak = plain["ms"], plain["peak"]
+        how = f"reused from s_cap {kept[5].shape[1]}"
+    else:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref = run_batch_long_plain(*args, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        plain_peak = torch.cuda.max_memory_allocated() / 2**30
+        how = f"{plain_ms:.1f} ms"
+        if plain is not None:
+            plain.update(out=ref, ms=plain_ms, peak=plain_peak)
     got = run_batch_long(*args, **kw)
     torch.cuda.synchronize()
     for field, a, b in zip(("final_s", "done", "overflow", "term_cell"),
@@ -486,7 +525,7 @@ def phase_k1_long(cfg, ins, reps: int = 3):
     print(f"K1 {name} == run_batch_long_plain: {qb.shape[0]} pairs, k_win "
           f"{cfg.k_win}, s_cap {cfg.s_cap}, final_s max "
           f"{int(got[0].max())}, max_abs_err {err} (tolerance 0); kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.1f} ms (peak device memory "
+          f"{ms:.3f} ms, plain {how} (peak device memory "
           f"{plain_peak:.2f} GiB), bound {rec['bound_ms']:.4f} ms "
           f"({rec['bound_by']})")
     return rec, got
@@ -1089,6 +1128,132 @@ def phase_bwa(reps: int, recs, card: str):
     return rec3, rec4
 
 
+def _oracle_semi(item):
+    """The oracle's result of one semi-global pair at its own penalties:
+    whether its CIGAR uses up both lengths, and its fields."""
+    from wfa_tpu_torch import AdaptiveReductionOption, Options, Penalties
+    from wfa_tpu_torch.fuzz import uses_lengths
+    from wfa_tpu_torch.oracle import Aligner
+
+    pen, ad, q, t = item
+    o = Aligner(Penalties(*pen), Options(False),
+                AdaptiveReductionOption(*ad) if ad else None).align(q, t)
+    return uses_lengths(o, q, t), coord_fields(o)
+
+
+def coord_fields(res) -> tuple:
+    """The 11 fields a semi-global result is held to: score, the CIGAR and
+    its trimmed form, the four coordinates and the four stats."""
+    return (res.cigar(False), res.cigar(True)) + tuple(
+        getattr(res, f) for f in FIELDS)
+
+
+def phase_semi_coords(card: str) -> None:
+    """Semi-global coordinates on the pairs where the oracle's CIGAR
+    misses a length (``fuzz.uses_lengths``), which a walk of the ops from
+    (0, 0) places one diagonal off the oracle: N_COORD_GROUPS groups of
+    COORD_GROUP pairs of 30-200 bases at penalties of their own
+    (``fuzz.draw_semi_groups``, seed COORD_SEED) through the oracle in a
+    pool of forked processes, then the drift pairs and the card fuzz's two
+    (``fuzz.DRIFT_PAIRS``), a batch at each penalties, through K1-semi at
+    the full span (engine "auto") and the two-phase route ("semi2:<S0>",
+    S0 16 or the penalties' least, phase 2's window 256 and, for a pair
+    it loses there, the full span), each on the card and on a mesh of 2
+    shards of it: every pair served and equal to the oracle on all 11
+    fields, and K1-semi, K3, K4 and K2 launched."""
+    import dataclasses
+    import multiprocessing
+    import random
+
+    import torch
+    from wfa_tpu_torch import AdaptiveReductionOption, Options, Penalties
+    from wfa_tpu_torch.engine import BatchAligner, windows
+    from wfa_tpu_torch.fuzz import DRIFT_PAIRS, case_pair, draw_semi_groups
+    from wfa_tpu_torch.parallel import make_dp_mesh
+
+    t0 = time.perf_counter()
+    items = [(dataclasses.astuple(pen), ad and dataclasses.astuple(ad), q, t)
+             for pen, ad, pairs in draw_semi_groups(
+                 random.Random(COORD_SEED), N_COORD_GROUPS, COORD_GROUP)
+             for q, t in pairs]
+    with multiprocessing.get_context("fork").Pool(os.cpu_count() or 1) as p:
+        refs = p.map(_oracle_semi, items, chunksize=16)
+    batches = {}  # (penalties, adaptive) -> [(pair, oracle fields)]
+    for (pen, ad, q, t), (used, want) in zip(items, refs):
+        if not used:
+            batches.setdefault((pen, ad), []).append(((q, t), want))
+    n_drift = sum(len(b) for b in batches.values())
+    for seed, case, index in DRIFT_PAIRS:
+        drawn, (q, t) = case_pair(seed, case, index)
+        key = (drawn["penalties"], drawn["adaptive"])
+        used, want = _oracle_semi(key + (q, t))
+        if used:
+            fail(f"fuzz seed {seed} case {case} pair {index}: the oracle's "
+                 "CIGAR uses up both lengths")
+        batches.setdefault(key, []).append(((q, t), want))
+    secs_oracle = time.perf_counter() - t0
+    mesh = make_dp_mesh(devices=(f"{DEVICE}:0",) * 2)
+    retried = [[], []]  # by the two-phase route on one card, on the mesh
+    reset_counters()
+    for (pen, ad), got in batches.items():
+        pen = Penalties(*pen)
+        ad = AdaptiveReductionOption(*ad) if ad else None
+        longest = max(max(len(q), len(t)) for (q, t), _ in got)
+        spread = max(abs(len(q) - len(t)) for (q, t), _ in got)
+        s_cap = -(-(pen.mismatch * longest + pen.gap_open
+                    + pen.gap_ext * (spread + 1) + 8) // 8) * 8
+        span = -(-(2 * longest + 2) // 128) * 128
+        S0 = max(windows(pen)[0], 16)
+        # the two-phase route retries a pair its narrow window lost with
+        # phase 2's window at the full span, as the ladder widens it
+        for engine, k_wins in (("auto", (span,)),
+                               (f"semi2:{S0}", (min(256, span), span))):
+            for m in (None, mesh):
+                todo = list(range(len(got)))
+                for k_win in k_wins:
+                    if not todo:
+                        break
+                    if k_win != k_wins[0]:
+                        retried[m is not None] += [
+                            (str(pen), len(got[i][0][0]), len(got[i][0][1]))
+                            for i in todo]
+                    eng = BatchAligner(pen, Options(False), ad, k_win=k_win,
+                                       s_cap=max(s_cap, S0 + 8),
+                                       device=DEVICE, engine=engine, mesh=m)
+                    res = eng.align_batch([got[i][0] for i in todo],
+                                          fallback=False)
+                    for i, r in zip(todo, res):
+                        (q, t), want = got[i]
+                        if r is not None and coord_fields(r) != want:
+                            fail(f"semi coords {engine} k_win {k_win} "
+                                 f"{'mesh' if m else 'one'} at {pen}, {ad}: "
+                                 f"pair ({len(q)}, {len(t)}): "
+                                 f"{coord_fields(r)[2:]} against the "
+                                 f"oracle's {want[2:]}")
+                    todo = [i for i, r in zip(todo, res) if r is None]
+                for i in todo:
+                    fail(f"semi coords {engine} {'mesh' if m else 'one'} at "
+                         f"{pen}, {ad}: pair ({len(got[i][0][0])}, "
+                         f"{len(got[i][0][1])}) not served")
+    torch.cuda.synchronize()
+    launches = read_counters()
+    for counter, mode in (("score_loop", "semi"), ("score_loop_prefix",
+                                                   "prefix"),
+                          ("score_loop_resume", "resume"),
+                          ("backtrace", "semi"), ("backtrace", "semi2")):
+        if launches[counter].get(mode, 0) <= 0:
+            fail(f"semi coords launched {counter} ({mode}) no time")
+    print(f"semi coords: {len(items)} pairs drawn, {n_drift} whose oracle "
+          f"CIGAR misses a length, and the {len(DRIFT_PAIRS)} fuzz pairs, "
+          f"at {len(batches)} penalties, equal the oracle on all 11 fields "
+          f"through K1-semi and the two-phase route, on the card and on a "
+          f"mesh of 2 shards of it, every pair served (the two-phase route "
+          f"retried at the full span, one card {retried[0]}, mesh "
+          f"{retried[1]}), on {card}; oracle {secs_oracle:.1f} s, phase "
+          f"{time.perf_counter() - t0:.1f} s; launches "
+          f"{ {k: v for k, v in launches.items() if any(v.values())} }")
+
+
 def phase_ab(card: str) -> None:
     """The two-phase route (engine "semi2:64", k_win 256) against K1-semi
     at the full span (engine "auto", k_win 2048) on the same 1024 pairs of
@@ -1205,15 +1370,17 @@ def phase_dp(card: str, recs) -> None:
     pairs, K1), semi-global l=1000 (N_DP_SEMI pairs, the two-phase route),
     semi-global l=200 (N_SEMI_SHORT pairs, K1-semi), semi-global l=1000 at
     4/6/1 (N_BWA pairs, the two-phase route's K3 at any penalties),
-    global l=4000 (N_KW pairs, K1-kw) and l=DP_LONG_LENGTH (N_DP_LONG
-    pairs, K1-long), each held token stream for token stream to a
-    single-device pipeline on the same pairs, both with full streams.
+    global l=4000 (N_KW pairs, K1-kw), l=DP_LONG_LENGTH (N_DP_LONG
+    pairs, K1-long) and l=50000 (N_LONG pairs, K1-long), each held token
+    stream for token stream to a single-device pipeline on the same pairs,
+    both with full streams.
     Times the two in turns (one, mesh, mesh, one; after a warm call of
     each) and prints each shard's launches in the last mesh call, which
     must have launched every kernel of the path on every shard.  Then
     holds each kernel to its plain version on the first shard of the
     first batch the mesh ran at each engine key (``check_shard_batches``,
-    into ``recs``)."""
+    into ``recs``), but at l=50000, whose K1-long shards are checked at
+    l=DP_LONG_LENGTH."""
     import torch
     from wfa_tpu_torch import Penalties
     from wfa_tpu_torch.datagen import generate_pairs
@@ -1231,6 +1398,8 @@ def phase_dp(card: str, recs) -> None:
             (True, KW_LENGTH, N_KW, None, (("score_loop_kw", "kw"),
                                            ("backtrace", "kw"))),
             (True, DP_LONG_LENGTH, N_DP_LONG, None,
+             (("score_loop_long", "long"), ("backtrace", "long"))),
+            (True, 50000, N_LONG, None,
              (("score_loop_long", "long"), ("backtrace", "long")))):
         devices = dp_devices()
         tag = (f"dp {len(devices)} shards of {len(set(devices))} cards "
@@ -1280,6 +1449,8 @@ def phase_dp(card: str, recs) -> None:
               f"one) {rates['one'][0]}, {rates['mesh'][0]}, "
               f"{rates['mesh'][1]}, {rates['one'][1]} on {card}")
         del pipes, results
+        if length == 50000:
+            continue  # the plain K1-long takes ~100 s a cap: DP_LONG_LENGTH
         check_shard_batches(seen, ga, length, recs, mesh.size, pen=pen,
                             semi2="semi2 4/6/1" if pen else "semi2")
 
@@ -1402,6 +1573,8 @@ def dp_worker(rank: int, world: int, init: str) -> None:
         "checked": sorted(k[1:] for k in seen),
         "max_abs_err": [r["max_abs_err"] for r in recs["auto"]],
         "faults": faults + pipe._device_errors}), flush=True)
+    # gloo's threads joined before the interpreter's teardown
+    torch.distributed.destroy_process_group()
 
 
 def phase_cli(card: str) -> None:
@@ -1449,34 +1622,44 @@ def main(dp_only: bool = False) -> None:
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
-    t_start = time.perf_counter()
+    t_start = LAP[0] = time.perf_counter()
 
     phase_build()
+    lap("build")
     if dp_only:
         recs = dummy_records()
         phase_dp(card, recs)
+        lap("dp")
         phase_dp_procs(card, recs["auto"])
+        lap("dp processes")
         phase_cli(card)
+        lap("cli")
+        print(f"seconds by step: {json.dumps(LAPS)}")
         print(f"data-parallel phases passed in "
               f"{time.perf_counter() - t_start:.1f} s")
         return
     # global: kernels at the main path's batch, then the main path
     rec1, rec2 = check_kernels(GLOBAL_CHECKS, True, reps=10)
+    lap("K1, K2 global checks")
     launches, _ = phase_main(N_MAIN, 1000, True, BATCH, N_CHECK, card,
                              GLOBAL_CHECKS, need=(("score_loop", "global"),
                                                   ("backtrace", "global")),
                              iter_chunk=ITER_CHUNK)
     rec1["launches"] = launches["score_loop"]["global"]
     rec2["launches"] = launches["backtrace"]["global"]
+    lap("main global l=1000")
     phase_errors(card, (rec1, rec2))
+    lap("errors")
     # semi-global at spans up to 512: K1-semi and K2 (also at the A/B's
     # full-span shape), then the l=200 path
     rec3, rec4 = check_kernels(SEMI_CHECKS, False, reps=3)
+    lap("K1-semi, K2 checks")
     launches, _ = phase_main(N_SEMI_SHORT, 200, False, BATCH, N_CHECK, card,
                              SEMI_CHECKS, need=(("score_loop", "semi"),
                                                 ("backtrace", "semi")))
     rec3["launches"] = launches["score_loop"]["semi"]
     rec4["launches"] = launches["backtrace"]["semi"]
+    lap("main semi l=200")
     # the two-phase route: each path, then its kernels on its own batches
     need2 = (("score_loop_prefix", "prefix"), ("score_loop_resume", "resume"),
              ("backtrace", "semi2"))
@@ -1486,6 +1669,7 @@ def main(dp_only: bool = False) -> None:
     check_own_batches(seen, 1000, 3, semi2_recs, (rec3, rec4))
     for rec, (counter, mode) in zip(semi2_recs, need2):
         rec["launches"] = launches[counter][mode]
+    lap("main semi l=1000, checks")
     launches, seen = phase_main(N_SEMI_LONG, 10000, False, BATCH,
                                 N_SEMI_LONG, card, SEMI_CHECKS, need2,
                                 SEMI2_CHECKS)
@@ -1499,8 +1683,13 @@ def main(dp_only: bool = False) -> None:
                    launches=launches["score_loop_prefix"]["prefix"])
     k4_long.update(name="score_loop_resume_l10000",
                    launches=launches["score_loop_resume"]["resume"])
+    lap("main semi l=10000, checks")
     rec_bwa, k4_bwa = phase_bwa(3, semi2_recs, card)
+    lap("4/6/1")
+    phase_semi_coords(card)
+    lap("semi coords")
     phase_ab(card)
+    lap("A/B")
     # reads just past int16 offsets: the path, then K1-kw and K2 over its
     # sbase words on the batches it ran; the int32 K1 must not run there
     # (every pair at tier 0: a retry would also run unchecked caps)
@@ -1513,13 +1702,16 @@ def main(dp_only: bool = False) -> None:
     rec7, rec8 = check_kw_batches(seen, 3)
     rec7["launches"] = launches["score_loop_kw"]["kw"]
     rec8["launches"] = launches["backtrace"]["kw"]
+    lap("main global l=4000, checks")
     # long global reads: K1-long and K2 over its rebased aux, then the path
     rec5, rec6 = check_kernels(LONG_CHECKS, True, reps=3, long=True)
+    lap("K1-long, K2 checks")
     launches, _ = phase_main(N_LONG, 50000, True, BATCH, N_LONG_CHECK, card,
                              LONG_CHECKS, need=(("score_loop_long", "long"),
                                                 ("backtrace", "long")))
     rec5["launches"] = launches["score_loop_long"]["long"]
     rec6["launches"] = launches["backtrace"]["long"]
+    lap("main global l=50000")
     # data parallelism (a mesh of shards of the one card, then two
     # processes), each kernel held to its plain version on a shard's
     # batch, and the CLI
@@ -1527,14 +1719,19 @@ def main(dp_only: bool = False) -> None:
                     "semi2": semi2_recs,
                     "semi2 4/6/1": [rec_bwa, k4_bwa, semi2_recs[2]],
                     "kw": (rec7, rec8), "long": (rec5, rec6)})
+    lap("dp")
     phase_dp_procs(card, (rec1, rec2))
+    lap("dp processes")
     phase_cli(card)
+    lap("cli")
     phase_steps(card)
+    lap("step phases")
     imported = sorted(blocked_modules() - preloaded)
     if imported:
         fail(f"the run imported JAX or wfa_tpu modules: {imported[:5]}")
     if DEFERRED:
         fail("; ".join(DEFERRED))
+    print(f"seconds by step: {json.dumps(LAPS)}")
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -137,3 +137,68 @@ def test_token_plan_matches_jax():
         p = Penalties(4, 6, 2)
         assert (te._token_plan(s_cap, p, lq, ltb)
                 == _token_plan(s_cap, p, lq, ltb))
+
+
+def _stats_streams(shift):
+    """Seeded emission-order token streams (tok0, buf, tail) at token
+    width ``shift``: every code, the edit-only stream's split extension
+    codes among them, empty slots, rows without an M token and empty
+    rows."""
+    rng = np.random.default_rng(shift)
+    B, it, W, T = 24, 9, 3, 5
+    dt = np.int16 if shift == 12 else np.int32
+    parts = []
+    for shape in ((B,), (it, B, W), (B, T)):
+        code = rng.integers(0, 7, shape)
+        run = rng.integers(1, 1 << min(shift, 12), shape)
+        tok = (code << shift) | run
+        tok[rng.random(shape) < 0.3] = 0
+        parts.append(tok.astype(dt))
+    tok0, buf, tail = parts
+    for b in (3, 4):  # rows without an M token
+        for a in (tok0[b:b + 1], buf[:, b], tail[b]):
+            a[(a >> shift) == 0] = (1 << shift) | 7
+    tok0[5] = buf[:, 5] = tail[5] = 0  # an empty row
+    return tok0, buf, tail
+
+
+@pytest.mark.parametrize("source", ["seeded", "global", "semi"])
+def test_device_stats_matches_jax(source):
+    """device_stats against wfa_tpu.device_backtrace.device_stats on the
+    same token arrays (seeded streams at both token widths, or a real
+    batch's backtrace, split extension codes included), exact; on the
+    real batches also against the host decode's stats of each stream."""
+    from wfa_tpu_torch.cigar import AlignmentResult
+
+    cases = []
+    if source == "seeded":
+        cases = [(_stats_streams(s), s) for s in (12, 28)]
+    else:
+        ga = source == "global"
+        penalties = Penalties(4, 6, 2)
+        cfg, args = _aux_batch(5 if ga else 7, penalties, ga)
+        for shift in (12, 28):
+            for split in ((True, False) if ga else (False,)):
+                out = tdb.device_backtrace(
+                    *(torch.from_numpy(a) for a in args),
+                    penalties=penalties, S=cfg.s_cap, K=cfg.k_win,
+                    token_shift=shift, global_alignment=ga,
+                    split_ext_codes=split)
+                cases.append((tuple(a.numpy() for a in out), shift))
+    for streams, shift in cases:
+        want = jdb.device_stats(*(jnp.asarray(a) for a in streams), shift)
+        got = tdb.device_stats(*(torch.from_numpy(a) for a in streams),
+                               shift)
+        for a, b in zip(want, got):
+            a = np.asarray(a)
+            assert b.dtype == torch.int32 and np.array_equal(a, b.numpy())
+        if source == "seeded":
+            continue
+        rows = tdb._emission_order(
+            *(torch.from_numpy(a) for a in streams)).numpy()
+        dt = np.int16 if shift == 12 else np.int32
+        for b, row in enumerate(rows):
+            res = AlignmentResult.from_device(source == "global", 0,
+                                              row.astype(dt))
+            assert (res.align_len, res.matches, res.gaps,
+                    res.gap_regions) == tuple(int(s[b]) for s in got)

@@ -112,6 +112,18 @@ def test_main_path_runs_without_jax():
     assert "no-jax run ok" in r.stdout
 
 
+def test_public_names_match_wfa_tpu():
+    """The port exports what wfa_tpu exports, at its version, each name
+    resolving, so that the next gap fails here."""
+    import wfa_tpu
+    import wfa_tpu_torch
+
+    assert wfa_tpu_torch.__version__ == wfa_tpu.__version__
+    assert sorted(wfa_tpu_torch.__all__) == sorted(wfa_tpu.__all__)
+    for name in wfa_tpu_torch.__all__:
+        getattr(wfa_tpu_torch, name)
+
+
 ORACLE_FIELDS = ("score", "q_begin", "q_end", "t_begin", "t_end",
                  "align_len", "matches", "gaps", "gap_regions")
 
@@ -147,15 +159,16 @@ def _oracle_pairs():
 
 HOST_CASES = ["oracle-global-adaptive", "oracle-global-plain",
               "oracle-semi-adaptive", "oracle-semi-plain", "generate_pairs",
-              "bucket_pairs", "native_pack", "plot"]
+              "bucket_pairs", "native_pack", "plot", "dp"]
 
 
 @pytest.mark.parametrize("case", HOST_CASES)
 def test_host_layers_match_wfa_tpu(case):
     """The port's copies of the host layers give what wfa_tpu's give:
     oracle results (every field and the CIGAR), datagen pairs, buckets,
-    the native 2-bit pack, and the plot tables (``plot.plot`` and the
-    oracle's ``plot`` method), byte for byte."""
+    the native 2-bit pack, the plot tables (``plot.plot`` and the
+    oracle's ``plot`` method), byte for byte, and the Gotoh scores of
+    ``dp.dp_score``."""
     import wfa_tpu
     import wfa_tpu_torch
 
@@ -197,6 +210,15 @@ def test_host_layers_match_wfa_tpu(case):
                             aligner, q, t, aligner.I, True, 20)]
                     tables.append(got)
                 assert tables[0] == tables[1]
+    elif case == "dp":
+        from wfa_tpu import dp as jdp
+        from wfa_tpu_torch import dp as tdp
+
+        for p in ((4, 6, 2), (2, 3, 1), (1, 4, 1), (5, 1, 1), (2, 0, 2)):
+            for ga in (True, False):
+                for q, t in _oracle_pairs()[:16]:
+                    assert jdp.dp_score(q, t, wfa_tpu.Penalties(*p), ga) == \
+                        tdp.dp_score(q, t, wfa_tpu_torch.Penalties(*p), ga)
     elif case == "bucket_pairs":
         from wfa_tpu import io as jio
         from wfa_tpu_torch import io as tio

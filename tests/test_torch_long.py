@@ -89,6 +89,27 @@ def test_run_batch_long_plain_matches_pallas_longread(pen_id):
     assert int(aux.max()) < 8 * 256
 
 
+@pytest.mark.parametrize("pen_id", list(PENALTIES))
+def test_run_batch_long_plain_rows_do_not_depend_on_cap(pen_id):
+    """A batch whose pairs all finish under a lower cap gives, at that
+    cap, the same final_s, done, overflow and term_cell and the same aux
+    and aux_base rows below it as at the higher cap (``chip_smoke.py``
+    runs the plain K1-long once, at the higher of the long path's caps,
+    and holds the kernel at the lower one to those rows)."""
+    import dataclasses
+
+    cfg, packed, _, high = _long_batch(pen_id)
+    ins = te.inputs_from_packed(packed, "cpu")
+    s_cap = -(-(int(high[0].max()) + 1) // 8) * 8
+    assert s_cap < cfg.s_cap and bool(high[1].all())
+    low = run_batch_long(*ins[:5], cfg=dataclasses.replace(
+        te.config_from_jax(cfg), s_cap=s_cap), Lq=packed[5], Ltb=packed[6])
+    for a, b in zip(high[:4], low[:4]):
+        assert torch.equal(a, b)
+    assert torch.equal(high[4][:, :s_cap], low[4])
+    assert torch.equal(high[5][:, :s_cap], low[5])
+
+
 @pytest.mark.parametrize("token_shift", [12, 28])
 def test_device_backtrace_rebased_matches_jax(token_shift):
     """device_backtrace(aux_base=...) equals JAX's on the TPU long-read

@@ -414,6 +414,8 @@ for ga, n_pairs, length, batch in ((True, 12, 50, 8), (False, 6, 280, 6)):
     print("DIGEST:" + repr([(r.score, r.cigar(False), r.q_begin, r.q_end,
                              r.t_begin, r.t_end, r.align_len, r.matches,
                              r.gaps, r.gap_regions) for r in res]))
+# gloo's threads joined before the interpreter's teardown
+torch.distributed.destroy_process_group()
 """
 
 
@@ -452,3 +454,93 @@ def test_two_processes_over_gloo():
                 for r in (oracle.align(q, t) for q, t in generate_pairs(
                     n_pairs, length, 0.06, seed=33))]
         assert got == want
+
+
+def test_initialize_distributed_timeout(monkeypatch):
+    """The process group's timeout is 300 s unless the caller gives one,
+    and the caller's is passed on."""
+    import datetime
+
+    import torch.distributed as dist
+
+    seen = []
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda **kw: seen.append(kw))
+    monkeypatch.setattr(dist, "get_world_size", lambda: 2)
+    args = dict(init_method="tcp://localhost:1", world_size=2, rank=0)
+    assert parallel.initialize_distributed(**args) == 2
+    mine = datetime.timedelta(seconds=7)
+    parallel.initialize_distributed(**args, timeout=mine)
+    assert [kw["timeout"] for kw in seen] == [
+        datetime.timedelta(seconds=300), mine]
+    assert all(kw["backend"] == "gloo" for kw in seen)
+
+
+DEAD_TIMEOUT = 3  # seconds, the group's timeout in test_dead_peer_raises
+
+_DEAD_PEER = r"""
+import datetime
+import os
+import sys
+import time
+import torch
+torch.set_num_threads(1)
+from wfa_tpu_torch import AdaptiveReductionOption, Options, Penalties
+from wfa_tpu_torch.datagen import generate_pairs
+from wfa_tpu_torch.parallel import ShardError, initialize_distributed
+from wfa_tpu_torch.pipeline import AlignmentPipeline, PipelineConfig
+
+init, rank, how, timeout = sys.argv[1], int(sys.argv[2]), sys.argv[3], \
+    int(sys.argv[4])
+initialize_distributed(init_method=init, world_size=2, rank=rank,
+                       timeout=datetime.timedelta(seconds=timeout))
+pipe = AlignmentPipeline(PipelineConfig(
+    Penalties(4, 6, 2), Options(True), AdaptiveReductionOption(10, 50, 1),
+    batch_size=8, device="cpu"))
+print("READY", flush=True)
+if rank == 1:  # the peer: gone, or stuck past the timeout
+    if how == "hangs":
+        time.sleep(timeout + 60)
+    os._exit(0)
+t0 = time.perf_counter()
+try:
+    pipe.align_all(generate_pairs(12, 50, 0.06, seed=33))
+    print("NO RAISE", flush=True)
+except ShardError as exc:
+    print(f"RAISED {time.perf_counter() - t0:.3f} {exc}", flush=True)
+pipe.close()
+os._exit(0)
+"""
+
+
+@pytest.mark.parametrize("how", ["exits", "hangs"])
+def test_dead_peer_raises(how):
+    """Two processes over gloo with a 3 s timeout; one exits, or sleeps
+    past the timeout, before its first exchange.  The other's align_all
+    raises ShardError within the timeout plus a margin, and hangs in no
+    later gather."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    for k in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(k, None)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _DEAD_PEER, f"tcp://localhost:{port}", str(r),
+         how, str(DEAD_TIMEOUT)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in (0, 1)]
+    try:
+        # the test's own wall limit: a hang fails here, it does not hold
+        # the suite's clock
+        out, err = procs[0].communicate(timeout=120)
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    assert procs[0].returncode == 0, err[-3000:]
+    raised = [line.split() for line in out.splitlines()
+              if line.startswith("RAISED ")]
+    assert "READY" in out and len(raised) == 1, (out, err[-3000:])
+    assert float(raised[0][1]) < DEAD_TIMEOUT + 10, raised
+    assert "the gather failed" in out

@@ -18,7 +18,8 @@ imports nothing of it:
   (``python -m wfa_tpu_torch.cli``).
 
 The host layers (constants, oracle, backtrace, cigar decode, io, datagen,
-plot, the native packer) are the port's own copies of the JAX package's,
+plot, the native packer, the Gotoh score check :mod:`wfa_tpu_torch.dp`)
+are the port's own copies of the JAX package's,
 and the package exports what :mod:`wfa_tpu` exports.  Importing this
 package imports neither JAX nor :mod:`wfa_tpu`.
 """
@@ -37,6 +38,8 @@ from .constants import (
 )
 from .oracle import Aligner as OracleAligner
 from .oracle import align as oracle_align
+
+__version__ = "0.3.0"
 
 
 def __getattr__(name):

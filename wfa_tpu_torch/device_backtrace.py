@@ -18,6 +18,9 @@ stop on the first row or column.
 
 :func:`end_finder_plain` is the semi-global end finder over a stored M
 history; kernel K1 fuses the same search into its score loop.
+:func:`device_stats` computes a result's stats from its token stream in
+torch ops (an XLA op sequence in the JAX package, not on the main path:
+the host decode derives the stats).
 """
 
 from __future__ import annotations
@@ -373,6 +376,63 @@ def _emission_order(tok0, buf, tail) -> torch.Tensor:
     return torch.cat(
         [tok0[:, None], buf.permute(1, 0, 2).reshape(B, -1), tail],
         dim=1).to(torch.int32)
+
+
+def device_stats(tok0, buf, tail, token_shift: int = 28):
+    """Vectorized AlignmentResult.process stats (wfa_cigar.go:171-211), in
+    torch ops on the tokens' own device, equal to the JAX
+    ``device_stats`` (wfa_tpu/device_backtrace.py:133-197).
+
+    Works directly on the emission-order token stream (tok0, buf rows,
+    tail), which is the reverse of the final op order; zero tokens are
+    empty slots.  Stats cover merged ops between the first and last M
+    run: in emission order that is the span [first M token, last M token],
+    and a merged gap region starts wherever an I/D token's previous
+    non-empty token (emission order) has a different code.
+
+    Returns (align_len, matches, gaps, gap_regions), each int32[B]."""
+    toks = _emission_order(tok0, buf, tail)
+    B, NS = toks.shape
+    code = toks >> token_shift
+    # the edit-only stream's split extension codes are I and D here
+    code = torch.where(code == CODE_IE, CODE_I,
+                       torch.where(code == CODE_DE, CODE_D, code))
+    run = toks & ((1 << token_shift) - 1)
+    nz = toks != 0
+    pos = torch.arange(NS, dtype=torch.int32, device=toks.device)[None, :]
+
+    def first(mask):
+        return torch.where(mask, pos, NS).amin(1, keepdim=True)
+
+    def last(mask):
+        return torch.where(mask, pos, -1).amax(1, keepdim=True)
+
+    def total(mask, values):
+        return torch.where(mask, values, 0).sum(1, dtype=torch.int32)
+
+    is_m = nz & (code == CODE_M)
+    first_m, last_m = first(is_m), last(is_m)
+    # Go's begin/end default to index 0 when no M exists
+    # (wfa_cigar.go:171-187): the span is then the first final-order
+    # merged op, the whole trailing emission-order run of non-empty
+    # tokens sharing the last token's code
+    has_m = last_m >= 0
+    last_nz = last(nz)
+    last_code = torch.where(nz & (pos == last_nz), code, -1).amax(
+        1, keepdim=True)
+    first_trail = first(nz & (pos > last(nz & (code != last_code))))
+    first_m = torch.where(has_m, first_m, first_trail)
+    last_m = torch.where(has_m, last_m, last_nz)
+    span = nz & (pos >= first_m) & (pos <= last_m)
+    is_gap = (code == CODE_I) | (code == CODE_D)
+    # the previous non-empty token's code: a running max over
+    # pos * 8 | code (monotone in pos), shifted right by one slot
+    cm = torch.cummax(torch.where(nz, pos * 8 + code, -1), 1).values
+    prev = torch.cat([torch.full_like(cm[:, :1], -1), cm[:, :-1]], 1)
+    prev_in_span = (prev >= 0) & ((prev >> 3) >= first_m)
+    region_start = span & is_gap & (~prev_in_span | ((prev & 7) != code))
+    return (total(span, run), total(span & (code == CODE_M), run),
+            total(span & is_gap, run), total(region_start, 1))
 
 
 def compact_tokens(tok0, buf, tail, token_shift: int):

@@ -1223,9 +1223,31 @@ class DeviceResult(AlignmentResult):
 
     ``final_s`` (set by :meth:`BatchAligner.finish_batch`) is the score at
     which K1 stopped the pair: its score in global mode, the cost of its
-    global end in semi-global mode.  A score cap must lie above it."""
+    global end in semi-global mode.  A score cap must lie above it.
 
-    __slots__ = ("final_s",)
+    A semi-global result also carries its pair's lengths (``lens``, set
+    there too) and takes its coordinates from the end, as the oracle's
+    bookkeeping does: on rare pairs the oracle's leading ops stop one
+    base off (the stop at row or column 1, backtrace.py), so its CIGAR
+    does not use up both lengths and a walk from (0, 0) lands one
+    diagonal off the oracle's coordinates; a walk back from
+    (len q, len t) does not.  A global CIGAR uses up both lengths, so
+    there both walks agree."""
+
+    __slots__ = ("final_s", "lens")
+
+    def _derive_from_ops(self) -> None:
+        super()._derive_from_ops()
+        if self.global_alignment or not self._q_end:
+            return
+        # the forward walk's coordinates, shifted by the bases the ops
+        # leave unused: those of the walk back from (len q, len t)
+        dq = self.lens[0] - sum(n for op, n in self._ops if op != "I")
+        dt = self.lens[1] - sum(n for op, n in self._ops if op in "MXI")
+        self._q_begin += dq
+        self._q_end += dq
+        self._t_begin += dt
+        self._t_end += dt
 
 
 @dataclasses.dataclass(eq=False)
@@ -1694,6 +1716,8 @@ class BatchAligner:
                 res = DeviceResult.from_device(
                     ga, score, (tk, q, t) if edit else tk)
                 res.final_s = fs
+                if not ga:
+                    res.lens = (len(q), len(t))
                 results.append(res)
         return results
 

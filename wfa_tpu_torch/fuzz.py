@@ -1,7 +1,8 @@
 """Randomized check of the port's card kernels against their plain
 versions and of its results against the oracle.
 
-    python -m wfa_tpu_torch.fuzz [--seed 0] [--cases 40] [--device cuda]
+    python -m wfa_tpu_torch.fuzz [--seed 0] [--cases 40] [--start 0]
+                                 [--device cuda]
 
 Not a pytest file: it needs the card (``--device cpu`` runs the plain
 versions on both sides, which checks only the harness and the oracle
@@ -51,7 +52,11 @@ the same pipeline's on one device, field by field, and to the oracle's
 score and CIGAR.
 
 A mismatch prints one JSON line (seed, case, config, the pair and the
-first tensor or field that diverges) and the run exits 1.
+first tensor or field that diverges) and the run exits 1.  A case whose
+batch the pipeline's memory model puts past ``MAX_MODEL_BYTES`` (its
+plain versions on the CPU would not fit the host) holds step 1 on slices
+of its distinct pairs, each under it, and its whole batch's results to
+the plain results of those slices; the last line counts such cases.
 """
 
 from __future__ import annotations
@@ -151,12 +156,19 @@ def draw_pairs(rng: random.Random, n: int, length: int, err: float,
     return pairs
 
 
-def draw_case(rng: random.Random) -> dict:
+def draw_penalties(rng: random.Random) -> tuple:
+    """(penalties, whether global, wf-adaptive reduction or None) of one
+    case."""
     pen = (rng.choice(DEGENERATE) if rng.random() < 0.4 else
            Penalties(rng.randint(1, 8), rng.randint(0, 8), rng.randint(1, 4)))
     ga = rng.random() < 0.6
     ad = (AdaptiveReductionOption(10, rng.choice((20, 50)), 1)
           if rng.random() < 0.7 else None)
+    return pen, ga, ad
+
+
+def draw_case(rng: random.Random) -> dict:
+    pen, ga, ad = draw_penalties(rng)
     length = rng.randint(60, 450)
     pairs = draw_pairs(rng, rng.randint(4, 16), length,
                        rng.choice((0.02, 0.05, 0.1, 0.2)),
@@ -206,6 +218,88 @@ def draw_case(rng: random.Random) -> dict:
             "adaptive": dataclasses.astuple(ad) if ad else None,
             "engine": engine, "k_win": k_win, "s_cap": s_cap,
             "length": length, "pairs": pairs}
+
+
+# (seed, case, pair index) of the two semi-global pairs on which a walk of
+# the ops from (0, 0) missed the oracle's coordinates (DeviceResult)
+DRIFT_PAIRS = ((1, 20, 2), (7, 7, 8))
+
+
+def case_pair(seed: int, case: int, index: int) -> tuple:
+    """(case, pair): case ``case`` of seed ``seed`` as :func:`main` draws
+    it, and the case's pair ``index``."""
+    rng = random.Random(seed)
+    for _ in range(case):
+        draw_case(rng)
+    drawn = draw_case(rng)
+    return drawn, drawn["pairs"][index]
+
+
+def uses_lengths(res, q: bytes, t: bytes) -> bool:
+    """Whether the CIGAR of ``res`` uses up both lengths of (q, t).  The
+    oracle's semi-global CIGAR misses one on rare pairs (its leading ops
+    stop a base off at row or column 1), where only a walk of the ops
+    back from the end gives its coordinates."""
+    nq = sum(n for op, n in res.ops if op in "MXDH")
+    nt = sum(n for op, n in res.ops if op in "MXI")
+    return (nq, nt) == (len(q), len(t))
+
+
+def draw_semi_groups(rng: random.Random, groups: int, size: int) -> list:
+    """``groups`` groups of ``size`` semi-global pairs of 30-200 bases at
+    2-20% error (:func:`draw_pairs`, no raw bytes), each at penalties and
+    a wf-adaptive reduction of its own (:func:`draw_penalties`):
+    [(penalties, adaptive or None, pairs)]."""
+    out = []
+    for _ in range(groups):
+        pen, _, ad = draw_penalties(rng)
+        out.append((pen, ad, draw_pairs(
+            rng, size, rng.randint(60, 200),
+            rng.choice((0.02, 0.05, 0.1, 0.2)), False)))
+    return out
+
+
+# a case whose batch the pipeline's memory model puts past this holds its
+# tensors and its plain results on slices of its distinct pairs: its plain
+# versions on the CPU hold several times the modelled bytes (the plain
+# K1-kw on 1024 pairs of l=4000 peaks at 15.8 GiB for a ~3.7 GiB model),
+# past a host of 96 GiB
+MAX_MODEL_BYTES = 16 << 30
+
+
+def model_bytes(case: dict) -> int:
+    """The device bytes the pipeline's memory model gives a case's batch
+    (``pipeline.batch_bytes_per_pair``, ``semi2_bytes_per_pair``)."""
+    from .pipeline import batch_bytes_per_pair, semi2_bytes_per_pair
+    from .semi2 import prefix_span
+
+    cfg = _aligner(case, "cpu").cfg
+    pairs = case["pairs"]
+    longest = max(max(len(q), len(t)) for q, t in pairs)
+    if case["engine"].startswith("semi2:"):
+        qlen = np.array([len(q) for q, _ in pairs])
+        tlen = np.array([len(t) for _, t in pairs])
+        per_pair = semi2_bytes_per_pair(
+            cfg, prefix_span(qlen, tlen), int(case["engine"][6:]),
+            int((qlen - 1 + tlen).max()), longest)
+    else:
+        per_pair = batch_bytes_per_pair(cfg, longest, case["engine"])
+    return per_pair * len(pairs)
+
+
+def row_slices(case: dict) -> list:
+    """The case's batch where its model fits ``MAX_MODEL_BYTES``, else its
+    distinct pairs in slices whose models each fit it."""
+    if model_bytes(case) <= MAX_MODEL_BYTES:
+        return [case["pairs"]]
+    out = []
+    for pair in dict.fromkeys(case["pairs"]):
+        if out and model_bytes(dict(case, pairs=out[-1] + [pair])) \
+                <= MAX_MODEL_BYTES:
+            out[-1].append(pair)
+        else:
+            out.append([pair])
+    return out
 
 
 def _aligner(case: dict, device: str) -> BatchAligner:
@@ -297,14 +391,11 @@ def _warp_plans_diff(card: BatchAligner, pairs, device: str,
     return []
 
 
-def check_case(case: dict, device: str) -> tuple:
-    """(every mismatch of one case as (what, pair index or None), the
-    pairs the card served)."""
+def _tensors_diff(pairs, card: BatchAligner, device: str) -> list:
+    """Step 1 on one batch: the card's tensors against the plain
+    versions', as (what, None)."""
     bad = []
-    pairs = case["pairs"]
-    card, plain = _aligner(case, device), _aligner(case, "cpu")
     cfg = card.cfg
-    # 1. the card's tensors against the plain versions'
     qb, tbuf, qlen, tlen, toff, Lq, Ltb, qp, tp = _pack_all(
         pairs, cfg.k_win, global_alignment=cfg.global_alignment)
     ok2 = tp is not None
@@ -337,9 +428,28 @@ def check_case(case: dict, device: str) -> tuple:
                     if not torch.equal(ref[k], got[k].cpu())][:1]
         if device != "cpu" and cfg.aux_kw is not None:
             bad += _warp_plans_diff(card, pairs, device)
+    return bad
+
+
+def check_case(case: dict, device: str) -> tuple:
+    """(every mismatch of one case as (what, pair index or None), the
+    pairs the card served).  Past ``MAX_MODEL_BYTES`` (:func:`row_slices`)
+    the tensors are held on slices of the distinct pairs, and the card's
+    results on the whole batch to the plain results of those slices."""
+    bad = []
+    pairs = case["pairs"]
+    card, plain = _aligner(case, device), _aligner(case, "cpu")
+    cfg = card.cfg
+    slices = row_slices(case)
+    # 1. the card's tensors against the plain versions'
+    for part in slices:
+        bad += _tensors_diff(part, card, device)
     # 2. served sets alike, served results equal the oracle
     res = card.align_batch(pairs, fallback=False)
-    res_plain = plain.align_batch(pairs, fallback=False)
+    by_pair = {}  # a pair's result does not depend on its batch
+    for part in slices:
+        by_pair.update(zip(part, plain.align_batch(part, fallback=False)))
+    res_plain = [by_pair[p] for p in pairs]
     oracle = OracleAligner(cfg.penalties, Options(cfg.global_alignment),
                            cfg.adaptive)
     truth = {}  # the oracle's result by pair (a repeated batch repeats)
@@ -425,6 +535,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cases", type=int, default=40)
+    ap.add_argument("--start", type=int, default=0,
+                    help="first case to run (the ones before it are drawn, "
+                    "not run): resumes a seed")
     ap.add_argument("--mesh-cases", type=int, default=8)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
@@ -433,14 +546,21 @@ def main() -> None:
     rng = random.Random(args.seed)
     t0 = time.perf_counter()
     n_bad = n_pairs = n_served = 0
+    sliced = []
     for c in range(args.cases):
         case = draw_case(rng)
+        if c < args.start:
+            continue
+        desc = {k: v for k, v in case.items() if k != "pairs"}
+        if model_bytes(case) > MAX_MODEL_BYTES:
+            sliced.append(c)
         bad, served = check_case(case, args.device)
         n_pairs += len(case["pairs"])
         n_served += served
-        desc = {k: v for k, v in case.items() if k != "pairs"}
         print(f"case {c}: {json.dumps(desc)} {len(case['pairs'])} pairs, "
-              f"{served} served, {len(bad)} mismatches", flush=True)
+              f"{served} served, {len(bad)} mismatches"
+              + (", held on slices of its distinct pairs" * (c in sliced)),
+              flush=True)
         for what, i in bad:
             n_bad += 1
             print(json.dumps({"seed": args.seed, "case": c, **desc,
@@ -466,7 +586,9 @@ def main() -> None:
                               "pair": (None if i is None else [
                                   x.decode("latin-1")
                                   for x in case["pairs"][i]])}))
-    print(f"fuzz seed {args.seed}: {args.cases} cases, {n_pairs} pairs, "
+    print(f"fuzz seed {args.seed}: cases {args.start}-{args.cases - 1} "
+          f"({len(sliced)} held on slices for their size: {sliced}), "
+          f"{n_pairs} pairs, "
           f"{n_served} served by the {args.device} kernels; "
           f"{args.mesh_cases} mesh cases, {n_mesh} pairs; {n_bad} "
           f"mismatches in {time.perf_counter() - t0:.1f} s")

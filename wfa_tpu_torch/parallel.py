@@ -32,6 +32,7 @@ of the batches, the same in every process (:meth:`DpMesh.exchange`).
 from __future__ import annotations
 
 import contextlib
+import datetime
 import os
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -41,10 +42,16 @@ import torch
 from . import _build
 
 
+# the process group's timeout unless the caller gives one
+# (initialize_distributed)
+DIST_TIMEOUT = datetime.timedelta(seconds=300)
+
+
 class ShardError(Exception):
     """A failure, other than a device fault, of another process's shards:
     every process raises after the exchange, so that none waits in a later
-    gather."""
+    gather.  Also the failure of a gather itself (a peer process gone, or
+    the process group's timeout), which no retry can mend."""
 
 
 class DpMesh:
@@ -63,6 +70,7 @@ class DpMesh:
             raise ValueError("a mesh needs at least one device")
         self.rank, self.world = rank, world
         self.launches = [{} for _ in self.devices]
+        self.broken = None  # why a gather failed: the group is gone
 
     @property
     def size(self) -> int:
@@ -98,11 +106,19 @@ class DpMesh:
         raises after the gather, so that none waits in a later one: the
         failure itself where it happened, elsewhere a RuntimeError for a
         device fault (which the pipeline retries everywhere alike) and a
-        :class:`ShardError` for any other."""
+        :class:`ShardError` for any other.
+
+        A gather that fails raises :class:`ShardError`, which the pipeline
+        does not retry, here and in every later exchange of this mesh: a
+        peer process gone (at once, its connections closed) or one that
+        does not reach the gather within the process group's timeout
+        (:func:`initialize_distributed`, 300 s by default)."""
         if self.world == 1:
             return [fn()]
         import torch.distributed as dist
 
+        if self.broken is not None:
+            raise ShardError(self.broken)
         err = None
         try:
             mine = (None, fn())
@@ -110,7 +126,12 @@ class DpMesh:
             err = exc
             mine = ((isinstance(exc, RuntimeError), repr(exc)), None)
         got = [None] * self.world
-        dist.all_gather_object(got, mine)
+        try:
+            dist.all_gather_object(got, mine)
+        except RuntimeError as exc:  # gloo: a peer gone, or the timeout
+            self.broken = (f"process {self.rank} of {self.world}: the "
+                           f"gather failed: {exc}")
+            raise ShardError(self.broken) from exc
         if err is not None:
             raise err
         for r, (fault, _) in enumerate(got):
@@ -134,13 +155,23 @@ def initialize_distributed(**kwargs) -> int:
     counterpart of ``JAX_COORDINATOR_ADDRESS``, and a single process (no
     ``WORLD_SIZE``, or 1) is a no-op.  Keyword arguments go to
     ``init_process_group`` (``init_method="tcp://localhost:<port>"``,
-    ``world_size``, ``rank``).  A group that cannot be formed raises."""
+    ``world_size``, ``rank``, ``timeout``).  A group that cannot be formed
+    raises.
+
+    ``timeout`` (a ``datetime.timedelta``) bounds the group's forming and
+    each gather: 300 s unless the caller gives one, the figure of
+    ``jax.distributed.initialize``'s own initialization timeout (the JAX
+    package's counterpart), in place of the process group's 30 minutes.
+    A process whose peer has died then raises in its next
+    :meth:`DpMesh.exchange`: a :class:`ShardError`, at once where the
+    peer's connections closed, else once the timeout has passed."""
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():
         return dist.get_world_size()
     if not kwargs and int(os.environ.get("WORLD_SIZE", "1")) <= 1:
         return 1
+    kwargs.setdefault("timeout", DIST_TIMEOUT)
     kwargs.setdefault("backend", "gloo")
     if "store" not in kwargs:
         kwargs.setdefault("init_method", "env://")
