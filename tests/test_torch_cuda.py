@@ -864,3 +864,112 @@ def test_warp_pairs_leave_one_block_at_different_steps(card, kernel):
                                   64)
         for a, b in zip(ref[:5] + ref[5], got[:5] + got[5]):
             assert a.dtype == b.dtype and torch.equal(a, b), plan
+
+
+def _is_launch(e) -> bool:
+    return e.get("cat") == "cuda_runtime" and e.get("name", "").startswith(
+        ("cudaLaunchKernel", "cuLaunchKernel"))
+
+
+def _launch_coverage(events) -> dict:
+    """Of the kernel-launch runtime events issued off the caller's thread
+    (the port's workers), how many lie inside a ``launch`` or ``shard``
+    span of the same thread, and the largest distance in us from one
+    outside to the nearest such span; by tid, the kinds of span and the
+    runtime calls."""
+    mine = [e for e in events if e.get("cat") == "wfa"]
+    caller = {e["tid"] for e in mine if e["name"] == "call"}
+    spans: dict = {}
+    for e in mine:
+        if e["name"] in ("launch", "shard"):
+            spans.setdefault(e["tid"], []).append(
+                (e["ts"], e["ts"] + e["dur"]))
+    runtime = [e for e in events if e.get("cat") == "cuda_runtime"
+               and e.get("ph") == "X"]
+    launches = [e for e in runtime if e["tid"] not in caller
+                and _is_launch(e)]
+    inside, worst = 0, 0.0
+    for e in launches:
+        s, t = e["ts"], e["ts"] + e["dur"]
+        own = spans.get(e["tid"], [])
+        if any(a <= s and t <= b for a, b in own):
+            inside += 1
+        else:
+            worst = max(worst, min((max(a - s, t - b) for a, b in own),
+                                   default=float("inf")))
+    by_tid: dict = {}
+    for e in mine + runtime:
+        kinds = by_tid.setdefault(str(e["tid"]), {})
+        kinds[e["name"]] = kinds.get(e["name"], 0) + 1
+    return {"caller": sorted(caller), "launches": len(launches),
+            "inside": inside, "worst_us": worst, "by_tid": by_tid}
+
+
+def test_spans_share_the_profilers_clock(card, tmp_path):
+    """The recorder's timeline merged into a torch.profiler trace of three
+    calls of 256 pairs of 50,000 bases at 5% (the global.l50000-e05
+    cell's calls): at least 99% of the kernel launches the workers issue
+    lie inside a ``launch`` or ``shard`` span of their own thread, with
+    each worker's tid found from the trace's other runtime calls alone;
+    the offset from the calls' marks agrees with the one from the wall
+    clock (the trace's ``baseTimeNanoseconds``) within 1 ms.  Prints the
+    coverage, the largest displacement, the two clock anchors
+    (the calls' marks, the wall clock), the calls' records, and the
+    calls' walls without and with a timeline on (no profiler)."""
+    import json
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from wfa_tpu_torch import Options, trace
+    from wfa_tpu_torch.pipeline import AlignmentPipeline, PipelineConfig
+
+    pairs = generate_pairs(256, 50000, 0.05, seed=41)
+    pipe = AlignmentPipeline(PipelineConfig(
+        Penalties(4, 6, 2), Options(True), ADAPTIVE, batch_size=2048,
+        device="cuda", n_devices=1))
+    walls = {"off": [], "on": []}
+
+    def timed(what):
+        t0 = time.perf_counter()
+        pipe.align_all(pairs)
+        walls[what].append(round(1e3 * (time.perf_counter() - t0), 3))
+
+    try:
+        pipe.align_all(pairs)  # warm: builds the kernels, fits the cap
+        for what in ("off", "on", "on", "off") * 2:
+            if what == "on":
+                with trace.timeline():
+                    timed(what)
+            else:
+                timed(what)
+        with trace.timeline() as tl:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    pipe.align_all(pairs)
+                torch.cuda.synchronize()
+    finally:
+        pipe.close()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as fh:
+        raw = json.load(fh)
+    by_mark = tl.offset_ns(raw)
+    by_wall = tl.wall_less_perf - int(raw.get("baseTimeNanoseconds", 0))
+    # the launches counted below play no part in naming the workers
+    tids = tl.tids(raw, by_mark)
+    assert tids and tids == tl.tids(dict(raw, traceEvents=[
+        e for e in raw["traceEvents"] if not _is_launch(e)]), by_mark)
+    assert tl.merge(str(path)) > 0
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    got = _launch_coverage(events)
+    print(f"clock: marks - wall clock {(by_mark - by_wall) / 1e3:.1f} us; "
+          f"coverage {json.dumps(got)}")
+    for rec in trace.records(3):
+        print("record " + json.dumps(rec))
+    print(f"call ms, timeline off and on: {json.dumps(walls)}")
+    assert abs(by_mark - by_wall) < 1_000_000
+    assert got["launches"] > 0
+    assert got["inside"] >= 0.99 * got["launches"]

@@ -88,7 +88,7 @@ class KernelError(Exception):
 _lib = None
 _lib_lock = threading.Lock()
 _count_lock = threading.Lock()
-_tally = threading.local()  # a thread's shard tally (tally_launches)
+_tally = threading.local()  # a thread's open tallies (tally_launches)
 build_seconds = None  # wall time of the nvcc run (None: loaded cached)
 build_log = ""  # nvcc's output (ptxas register / spill report)
 
@@ -114,13 +114,12 @@ def library() -> ctypes.CDLL:
 
 
 def count(launches: dict, mode: str) -> None:
-    """Add one to a wrapper's launch count ``launches[mode]`` (and to the
-    calling thread's tally, within :func:`tally_launches`)."""
+    """Add one to a wrapper's launch count ``launches[mode]`` (and to
+    each tally the calling thread has open, :func:`tally_launches`)."""
     with _count_lock:
         launches[mode] += 1
-        tally = getattr(_tally, "into", None)
-        if tally is not None:
-            key = (id(launches), mode)
+        key = (id(launches), mode)
+        for tally in getattr(_tally, "open", ()):
             tally[key] = tally.get(key, 0) + 1
 
 
@@ -128,13 +127,14 @@ def count(launches: dict, mode: str) -> None:
 def tally_launches(into: dict):
     """Within the block, every launch the calling thread counts is also
     added to ``into``, keyed by (id of the wrapper's count dict, mode): a
-    data-parallel shard's own launches."""
-    before = getattr(_tally, "into", None)
-    _tally.into = into
+    data-parallel shard's own launches, a batch's (``trace.batch``).
+    Tallies nest: a launch goes to every one that is open."""
+    before = getattr(_tally, "open", ())
+    _tally.open = before + (into,)
     try:
         yield into
     finally:
-        _tally.into = before
+        _tally.open = before
 
 
 def build(src_dir: Path) -> ctypes.CDLL:

@@ -16,7 +16,8 @@ Reference CLI: wfa-go/wfa-go.go.  Flags (wfa-go.go:70-78):
 
 Extras: --batch-size, --no-device (host oracle only), --devices (data
 parallelism over the cards), --distributed (over the processes
-``torchrun`` starts), --resume, --profile-dir (a ``torch.profiler`` trace)
+``torchrun`` starts), --resume, --profile-dir (a ``torch.profiler`` chrome
+trace with the program's own spans, ``wfa_tpu_torch.trace``, merged in)
 and the port's one flag of its own, --device {cuda,cpu}: the card unless
 the caller asks for the CPU (the kernels' plain PyTorch versions).
 """
@@ -24,7 +25,10 @@ the caller asks for the CPU (the kernels' plain PyTorch versions).
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
+import time
 from typing import Iterable, Tuple
 
 from .cigar import AlignmentResult
@@ -77,6 +81,25 @@ def _format_result(
     out.write("\n")
 
 
+def _trace_handler(profile_dir: str, timeline):
+    """``on_trace_ready``: the profiler's chrome trace written into
+    ``profile_dir`` (named as ``tensorboard_trace_handler`` names it) with
+    the spans of ``timeline`` merged in, on its clock."""
+    import socket
+
+    def handler(prof) -> None:
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir, f"{socket.gethostname()}_"
+                            f"{os.getpid()}.{time.time_ns() // 10**6}"
+                            ".pt.trace.json")
+        prof.export_chrome_trace(path)
+        n = timeline.merge(path)
+        print(f"profile written to {path} with {n} program spans",
+              file=sys.stderr)
+
+    return handler
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="wfa-tpu", usage=USAGE, add_help=False
@@ -103,7 +126,10 @@ def build_parser() -> argparse.ArgumentParser:
         help="multi-process: torch.distributed over gloo before building "
              "the mesh (MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE, as "
              "torchrun sets them)")
-    ap.add_argument("--profile-dir", default="")
+    ap.add_argument(
+        "--profile-dir", default="",
+        help="write a torch.profiler chrome trace here, the program's "
+             "spans merged in")
     ap.add_argument(
         "--resume", default="",
         help="progress-state file: skip pairs recorded as completed and "
@@ -138,15 +164,18 @@ def main(argv=None) -> int:
     pipe = AlignmentPipeline(cfg)
 
     profiler = None
+    spans = contextlib.ExitStack()
     if args.profile_dir:
         import torch
+
+        from . import trace
 
         profiler = torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]
             + ([torch.profiler.ProfilerActivity.CUDA]
                if cfg.use_device and args.device == "cuda" else []),
-            on_trace_ready=torch.profiler.tensorboard_trace_handler(
-                args.profile_dir))
+            on_trace_ready=_trace_handler(
+                args.profile_dir, spans.enter_context(trace.timeline())))
         profiler.start()
     elif args.pprof_cpu:
         import cProfile
@@ -173,20 +202,15 @@ def main(argv=None) -> int:
             ]
             pair_src = pairs
         else:
-            import os
-
             if not os.path.exists(args.infile):
                 print(f"failed to read file: {args.infile}", file=sys.stderr)
                 return 1
             pair_src = read_pairs(args.infile)
 
         import itertools
-        import time
 
         skip = 0
         if args.resume:
-            import os
-
             if os.path.exists(args.resume):
                 with open(args.resume) as fh:
                     skip = int(fh.read().strip() or 0)
@@ -226,8 +250,6 @@ def main(argv=None) -> int:
                 tmp = args.resume + ".tmp"
                 with open(tmp, "w") as fh:
                     fh.write(str(n_done))
-                import os
-
                 os.replace(tmp, args.resume)
         elapsed = time.perf_counter() - t_start
         aligned = n_done - skip
@@ -240,6 +262,7 @@ def main(argv=None) -> int:
     finally:
         if args.profile_dir:
             profiler.stop()
+            spans.close()
         elif profiler == "mem":
             import tracemalloc
 

@@ -35,7 +35,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import native
+from . import native, trace
 from .cigar import AlignmentResult
 from .constants import (
     MAX_SEQ_LEN,
@@ -1258,11 +1258,11 @@ class Submitted:
     edit-only, and its fetch: ``host``, the host copies queued so far by
     output name ("mtb" the meta bytes and the guessed token extent, "lg"
     the long stream's guess, "buf" the raw layout's, "*_rest" what
-    :meth:`BatchAligner.finish_small` found the guess missed; pinned
-    buffers on the card, the tensors themselves on the CPU), ``ran``, the
-    event after the batch's last launch, ``copied``, the event after its
-    last queued copy (both None on the CPU), and the meta that
-    ``finish_small`` read.  A mesh's batch holds its shards' handles
+    :meth:`BatchAligner.finish_small` found the guess missed, ``missed``
+    then true; pinned buffers on the card, the tensors themselves on the
+    CPU), ``ran``, the event after the batch's last launch, ``copied``,
+    the event after its last queued copy (both None on the CPU), and the
+    meta that ``finish_small`` read.  A mesh's batch holds its shards' handles
     (``parts``)."""
     pairs: list
     out: dict
@@ -1276,6 +1276,8 @@ class Submitted:
     # a shard fetched and gathered from another process: (meta, token
     # rows, edit-only, final_s), what finish_tokens builds results from
     tokens: Optional[tuple] = None
+    # the guessed token extent fell short: finish_small queued the rest
+    missed: bool = False
 
     @property
     def nbytes(self) -> int:
@@ -1410,7 +1412,9 @@ class BatchAligner:
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         """``a`` on the device (a copy from pageable host memory)."""
-        return torch.from_numpy(a).to(self.device)
+        trace.count(trace.BYTES_UP, a.nbytes)
+        with trace.span(trace.UPLOAD):
+            return torch.from_numpy(a).to(self.device)
 
     def _on_device(self):
         """Context that makes this aligner's card the thread's current
@@ -1442,14 +1446,17 @@ class BatchAligner:
                              "only")
         if self.engine == "semi2":
             return self._submit_semi2(pairs, prepacked)
-        seq, lens, packed, Lq, Ltb = _seq_lens(
-            prepacked if prepacked is not None
-            else self._pack_all(pairs, need_raw=False))
+        with trace.span(trace.PACK):
+            seq, lens, packed, Lq, Ltb = _seq_lens(
+                prepacked if prepacked is not None
+                else self._pack_all(pairs, need_raw=False))
         edit = edit_only(self.cfg)  # fixed here; the decode follows it
-        out = align_full2(self._upload(seq), self._upload(lens),
-                          cfg=self.cfg, B=len(pairs), Lq=Lq, Ltb=Ltb,
-                          packed=packed, edit=edit, engine=self.engine)
-        return self._queue_fetch(pairs, out, edit)
+        seq, lens = self._upload(seq), self._upload(lens)
+        with trace.span(trace.LAUNCH):
+            out = align_full2(seq, lens, cfg=self.cfg, B=len(pairs), Lq=Lq,
+                              Ltb=Ltb, packed=packed, edit=edit,
+                              engine=self.engine)
+            return self._queue_fetch(pairs, out, edit)
 
     def _submit_semi2(self, pairs, prepacked=None) -> Submitted:
         """The two-phase semi-global submit (wfa_tpu/engine.py:1774-1892):
@@ -1462,22 +1469,28 @@ class BatchAligner:
         exports = {}
 
         def phase1(seq, lens, pcfg, Lq, Ltb, packed):
-            exports.update(prefix_export(
-                self._upload(seq), self._upload(lens), cfg=pcfg, Lq=Lq,
-                Ltb=Ltb, S0=self.s_switch, K2=self.cfg.k_win,
-                packed=packed))
-            return exports["meta1"][:, M1_K02].cpu().numpy()
+            seq, lens = self._upload(seq), self._upload(lens)
+            with trace.span(trace.LAUNCH):
+                exports.update(prefix_export(
+                    seq, lens, cfg=pcfg, Lq=Lq, Ltb=Ltb, S0=self.s_switch,
+                    K2=self.cfg.k_win, packed=packed))
+            with trace.span(trace.WAIT):
+                return exports["meta1"][:, M1_K02].cpu().numpy()
 
         def run2(seq2, lens2, Lq, Ltb, Ltb2, packed2):
-            return phase2(
-                self._upload(seq2), self._upload(lens2),
-                *(exports[k] for k in ("win_m", "win_i", "win_d", "ainit",
-                                       "b_m", "b_ie", "meta1", "aux_old")),
-                cfg=self.cfg, Lq=Lq, Ltb_full=Ltb, Ltb2=Ltb2,
-                S0=self.s_switch, packed=packed2)
+            seq2, lens2 = self._upload(seq2), self._upload(lens2)
+            with trace.span(trace.LAUNCH):
+                return phase2(
+                    seq2, lens2,
+                    *(exports[k] for k in ("win_m", "win_i", "win_d",
+                                           "ainit", "b_m", "b_ie", "meta1",
+                                           "aux_old")),
+                    cfg=self.cfg, Lq=Lq, Ltb_full=Ltb, Ltb2=Ltb2,
+                    S0=self.s_switch, packed=packed2)
 
         out = self._two_phase(pairs, prepacked, phase1, run2)
-        return self._queue_fetch(pairs, out, False)
+        with trace.span(trace.LAUNCH):
+            return self._queue_fetch(pairs, out, False)
 
     def _two_phase(self, pairs, prepacked, phase1, phase2):
         """The host steps of the two-phase route, on one device or a mesh:
@@ -1489,17 +1502,22 @@ class BatchAligner:
         from .semi2 import prefix_span, replace_targets
 
         # the raw query rows go with a re-placed target that is not ACGT
-        batch = prepacked if prepacked is not None else self._pack_all(pairs)
-        qb, _, qlen, tlen, _, _, _, qp, _ = batch
-        seq, lens, packed, Lq, Ltb = _seq_lens(batch)
-        Kf = prefix_span(qlen, tlen)
+        with trace.span(trace.PACK):
+            batch = (prepacked if prepacked is not None
+                     else self._pack_all(pairs))
+            qb, _, qlen, tlen, _, _, _, qp, _ = batch
+            seq, lens, packed, Lq, Ltb = _seq_lens(batch)
+            Kf = prefix_span(qlen, tlen)
         self.spans.add(Kf)
         k02 = phase1(seq, lens, dataclasses.replace(self.cfg, k_win=Kf), Lq,
                      Ltb, packed)
-        t2raw, t2p, toff2, Ltb2 = replace_targets([t for _, t in pairs], k02)
-        packed2 = packed and t2p is not None
-        seq2 = np.concatenate([qp, t2p] if packed2 else [qb, t2raw], axis=1)
-        lens2 = np.stack([qlen, tlen, toff2], axis=1).astype(np.int32)
+        with trace.span(trace.PACK):
+            t2raw, t2p, toff2, Ltb2 = replace_targets(
+                [t for _, t in pairs], k02)
+            packed2 = packed and t2p is not None
+            seq2 = np.concatenate([qp, t2p] if packed2 else [qb, t2raw],
+                                  axis=1)
+            lens2 = np.stack([qlen, tlen, toff2], axis=1).astype(np.int32)
         return phase2(seq2, lens2, Lq, Ltb, Ltb2, packed2)
 
     def _submit_mesh(self, pairs) -> Submitted:
@@ -1529,8 +1547,9 @@ class BatchAligner:
                     exports.extend(dp_semi2_prefix_fn(
                         pcfg, mesh, B, Lq, Ltb, self.s_switch,
                         self.cfg.k_win, packed)(seq, lens))
-                    return [ex["meta1"][:, M1_K02].cpu().numpy()
-                            for ex in exports]
+                    with trace.span(trace.WAIT):
+                        return [ex["meta1"][:, M1_K02].cpu().numpy()
+                                for ex in exports]
 
                 return np.concatenate([m for got in mesh.exchange(k02)
                                        for m in got])
@@ -1542,8 +1561,9 @@ class BatchAligner:
 
             run = self._two_phase(padded, None, phase1, run2)
         else:
-            seq, lens, packed, Lq, Ltb = _seq_lens(
-                self._pack_all(padded, need_raw=False))
+            with trace.span(trace.PACK):
+                seq, lens, packed, Lq, Ltb = _seq_lens(
+                    self._pack_all(padded, need_raw=False))
             fn = dp_align_full_fn(self.cfg, mesh, B, Lq, Ltb, self.engine,
                                   packed)
 
@@ -1554,12 +1574,20 @@ class BatchAligner:
             parts = []
             for (_, dev, rows), out in zip(mesh.shards(B), run()):
                 eng = self._shard_aligners[dev]
-                with eng._on_device():
+                with eng._on_device(), trace.span(trace.LAUNCH):
                     parts.append((eng, eng._queue_fetch(padded[rows], out,
                                                         False)))
             if mesh.world == 1:
                 return parts
-            return [eng._splice(eng.finish_small(h)) for eng, h in parts]
+            got = []
+            for eng, h in parts:
+                eng._fetch_rest(h)
+                eng._await_copies(h)
+                with trace.span(trace.BUILD):
+                    got.append(eng._splice(h))
+            if any(h.missed for _, h in parts):
+                trace.count(trace.REFETCHES)
+            return got
 
         if mesh.world == 1:
             return Submitted(pairs, {}, False, parts=local())
@@ -1583,6 +1611,7 @@ class BatchAligner:
         the copy stream (within :meth:`_on_copy`) and return the buffer;
         ``a`` itself on the CPU.  ``record_stream`` keeps the allocator
         from reusing ``a`` before the copy has run."""
+        trace.count(trace.BYTES_DOWN, a.numel() * a.element_size())
         if self._copy is None:
             return a
         h = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
@@ -1636,59 +1665,79 @@ class BatchAligner:
         for _, part in h.parts or ():
             BatchAligner.wait_exec(part)
         if h.ran is not None:
-            h.ran.synchronize()
+            with trace.span(trace.WAIT):
+                h.ran.synchronize()
 
     def finish_small(self, h: Submitted) -> Submitted:
         """Wait for the queued copies, read the meta, update the guessed
         extents (the used extent and 1/8 more) and queue the copies of
         whatever the guess missed; returns the handle for
-        :meth:`finish_tokens`."""
+        :meth:`finish_tokens`.  A batch whose guess missed (a mesh's: in
+        any shard) counts one refetch."""
         if h.parts is not None or h.tokens is not None:
             for eng, part in h.parts or ():
-                eng.finish_small(part)
-            return h
-        if h.copied is not None:
-            h.copied.synchronize()
+                if part.tokens is None:  # not gathered already
+                    eng._fetch_rest(part)
+            h.missed = any(part.missed for _, part in h.parts or ())
+        else:
+            self._fetch_rest(h)
+        if h.missed:
+            trace.count(trace.REFETCHES)
+        return h
+
+    @staticmethod
+    def _await_copies(h: Submitted) -> None:
+        """Block until the copies queued for the batch so far have landed
+        (no wait on the CPU)."""
+        with trace.span(trace.WAIT):
+            if h.copied is not None:
+                h.copied.synchronize()
+
+    def _fetch_rest(self, h: Submitted) -> Submitted:
+        """:meth:`finish_small` of one device's handle."""
+        self._await_copies(h)
         out, host = h.out, h.host
-        with self._on_copy():
-            if "mtb" in out:
-                hd = out["mtb"].shape[0] - out["lg"].shape[0]
-                head = host["mtb"].numpy()
-                h.meta = _meta_from_bytes(head[:hd], len(h.pairs))
-                tot_b = int(h.meta[:, M_TRIM].sum(dtype=np.int64))
-                tot_l = int(h.meta[:, M_LONG].sum(dtype=np.int64))
-                self._tok_guess["mtb"] = _coarse(max(tot_b, 1) * 9 // 8)
-                self._tok_guess["lg"] = _coarse(max(tot_l, 1) * 9 // 8)
-                have_b = head.shape[0] - hd
-                if have_b < tot_b:
-                    host["mtb_rest"] = self._host(
-                        out["mtb"][hd + have_b:hd + tot_b])
-                have_l = host["lg"].shape[0] if "lg" in host else 0
-                if have_l < tot_l:
-                    host["lg_rest"] = self._host(out["lg"][have_l:tot_l])
-            elif "mt" in out:
-                # 2-D layout: the guess is the most token columns a pair
-                # used (wfa_tpu/engine.py:1982-1992)
-                nm = len(META_COLS)
-                head = host["mt"].numpy()
-                h.meta = head[:, :nm].astype(np.int32)
-                n = int(h.meta[:, M_TRIM].max()) if len(h.pairs) else 0
-                self._tok_guess["mt"] = _coarse(max(n, 1) * 5 // 4, 64)
-                cols = min(out["mt"].shape[1] - nm, _coarse(max(n, 1), 64))
-                have = head.shape[1] - nm
-                if have < cols:
-                    host["mt_rest"] = self._host(
-                        out["mt"][:, nm + have:nm + cols])
-            else:
-                # raw layout: the trim column is the chase's iteration
-                # count, the same for every pair; buf's rows past it are 0
-                h.meta = host["meta"].numpy().astype(np.int32)
-                rows = int(h.meta[:, M_TRIM].max())
-                self._tok_guess["buf"] = _coarse(max(rows, 1) * 9 // 8, 32)
-                have = host["buf"].shape[0] if "buf" in host else 0
-                if have < rows:
-                    host["buf_rest"] = self._host(out["buf"][have:rows])
-            h.copied = self._copied()
+        rest = {}  # what the guess missed, by the host copy's name
+        if "mtb" in out:
+            hd = out["mtb"].shape[0] - out["lg"].shape[0]
+            head = host["mtb"].numpy()
+            h.meta = _meta_from_bytes(head[:hd], len(h.pairs))
+            tot_b = int(h.meta[:, M_TRIM].sum(dtype=np.int64))
+            tot_l = int(h.meta[:, M_LONG].sum(dtype=np.int64))
+            self._tok_guess["mtb"] = _coarse(max(tot_b, 1) * 9 // 8)
+            self._tok_guess["lg"] = _coarse(max(tot_l, 1) * 9 // 8)
+            have_b = head.shape[0] - hd
+            if have_b < tot_b:
+                rest["mtb_rest"] = out["mtb"][hd + have_b:hd + tot_b]
+            have_l = host["lg"].shape[0] if "lg" in host else 0
+            if have_l < tot_l:
+                rest["lg_rest"] = out["lg"][have_l:tot_l]
+        elif "mt" in out:
+            # 2-D layout: the guess is the most token columns a pair
+            # used (wfa_tpu/engine.py:1982-1992)
+            nm = len(META_COLS)
+            head = host["mt"].numpy()
+            h.meta = head[:, :nm].astype(np.int32)
+            n = int(h.meta[:, M_TRIM].max()) if len(h.pairs) else 0
+            self._tok_guess["mt"] = _coarse(max(n, 1) * 5 // 4, 64)
+            cols = min(out["mt"].shape[1] - nm, _coarse(max(n, 1), 64))
+            have = head.shape[1] - nm
+            if have < cols:
+                rest["mt_rest"] = out["mt"][:, nm + have:nm + cols]
+        else:
+            # raw layout: the trim column is the chase's iteration
+            # count, the same for every pair; buf's rows past it are 0
+            h.meta = host["meta"].numpy().astype(np.int32)
+            rows = int(h.meta[:, M_TRIM].max())
+            self._tok_guess["buf"] = _coarse(max(rows, 1) * 9 // 8, 32)
+            have = host["buf"].shape[0] if "buf" in host else 0
+            if have < rows:
+                rest["buf_rest"] = out["buf"][have:rows]
+        if rest:
+            h.missed = True
+            with self._on_copy(), trace.span(trace.LAUNCH):
+                host.update((k, self._host(a)) for k, a in rest.items())
+                h.copied = self._copied()
         return h
 
     def finish_tokens(self, h: Submitted, fallback: bool = True
@@ -1703,12 +1752,20 @@ class BatchAligner:
                 results += eng.finish_tokens(part, fallback)
             h.parts = None
             return results[:len(h.pairs)]
-        meta, toks, edit, final = self._splice(h)
+        if h.tokens is None:
+            self._await_copies(h)
+        with trace.span(trace.BUILD):
+            meta, toks, edit, final = self._splice(h)
+            return self._results(h.pairs, meta, toks, edit, final, fallback)
+
+    def _results(self, pairs, meta, toks, edit, final, fallback):
+        """:meth:`finish_tokens`' result objects from the spliced
+        streams."""
         results: List[Optional[AlignmentResult]] = []
         oracle = self._oracle
         ga = self.cfg.global_alignment
         for (q, t), score, fs, ovf, tk in zip(
-                h.pairs, meta[:, M_SCORE].tolist(), final,
+                pairs, meta[:, M_SCORE].tolist(), final,
                 meta[:, M_OVF].tolist(), toks):
             if ovf:
                 results.append(oracle.align(q, t) if fallback else None)
@@ -1722,13 +1779,12 @@ class BatchAligner:
         return results
 
     def _splice(self, h: Submitted) -> tuple:
-        """Wait for the remainder copies, splice the token streams and
-        release the batch's device outputs: (meta int32[B, 4], per-pair
-        token arrays, whether they are edit-only, final_s list)."""
+        """Splice the token streams of a batch whose copies have landed
+        (:meth:`_await_copies`) and release its device outputs: (meta
+        int32[B, 4], per-pair token arrays, whether they are edit-only,
+        final_s list)."""
         if h.tokens is not None:
             return h.tokens
-        if h.copied is not None:
-            h.copied.synchronize()
         host = {k: a.numpy() for k, a in h.host.items()}
         meta, edit = h.meta, h.edit
         if "mtb" in h.out:

@@ -39,7 +39,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, trace
 
 
 # the process group's timeout unless the caller gives one
@@ -92,11 +92,13 @@ class DpMesh:
     @contextlib.contextmanager
     def on(self, i: int):
         """Local shard i's device as the thread's current one (nothing on
-        the CPU), its launches tallied into ``launches[i]``."""
+        the CPU), its launches tallied into ``launches[i]``, inside the
+        shard's span (``trace.shard``)."""
         dev = self.devices[i]
         ctx = (torch.cuda.device(dev) if dev.type == "cuda"
                else contextlib.nullcontext())
-        with ctx, _build.tally_launches(self.launches[i]):
+        with trace.shard(i, len(self.devices)), ctx, \
+                _build.tally_launches(self.launches[i]):
             yield dev
 
     def exchange(self, fn: Callable):
@@ -265,7 +267,10 @@ def _rows(a, rows: slice, dev: torch.device) -> torch.Tensor:
     """Rows of a host array (or CPU tensor) of the whole batch on
     ``dev``."""
     a = a.numpy() if isinstance(a, torch.Tensor) else a
-    return torch.from_numpy(np.ascontiguousarray(a[rows])).to(dev)
+    with trace.span(trace.UPLOAD):
+        a = np.ascontiguousarray(a[rows])
+        trace.count(trace.BYTES_UP, a.nbytes)
+        return torch.from_numpy(a).to(dev)
 
 
 def dp_align_full_fn(cfg, mesh: DpMesh, B: int, Lq: int, Ltb: int,
@@ -282,10 +287,11 @@ def dp_align_full_fn(cfg, mesh: DpMesh, B: int, Lq: int, Ltb: int,
         outs = []
         for i, dev, rows in mesh.shards(B):
             with mesh.on(i):
-                outs.append(align_full2(
-                    _rows(seq, rows, dev), _rows(lens, rows, dev), cfg=cfg,
-                    B=rows.stop - rows.start, Lq=Lq, Ltb=Ltb, packed=packed,
-                    engine=engine, flat=False))
+                s, n = _rows(seq, rows, dev), _rows(lens, rows, dev)
+                with trace.span(trace.LAUNCH):
+                    outs.append(align_full2(
+                        s, n, cfg=cfg, B=rows.stop - rows.start, Lq=Lq,
+                        Ltb=Ltb, packed=packed, engine=engine, flat=False))
         return outs
 
     return fn
@@ -296,9 +302,11 @@ def _gathered(mesh: DpMesh, outs: Sequence[dict]) -> dict:
     other process's: the whole batch's outputs on the CPU, each along the
     batch axis (axis 1 for the raw ``buf``, as JAX's ``P(None, "dp",
     None)``)."""
-    parts = mesh.exchange(lambda: [{k: v.cpu() for k, v in o.items()}
-                                   for o in outs])
-    outs = [o for part in parts for o in part]
+    def fetch():
+        with trace.span(trace.WAIT):
+            return [{k: v.cpu() for k, v in o.items()} for o in outs]
+
+    outs = [o for part in mesh.exchange(fetch) for o in part]
     return {k: torch.cat([o[k] for o in outs], dim=1 if k == "buf" else 0)
             for k in outs[0]}
 
@@ -331,9 +339,11 @@ def dp_semi2_prefix_fn(cfg, mesh: DpMesh, B: int, Lq: int, Ltb: int, S0: int,
         outs = []
         for i, dev, rows in mesh.shards(B):
             with mesh.on(i):
-                outs.append(prefix_export(
-                    _rows(seq, rows, dev), _rows(lens, rows, dev), cfg=cfg,
-                    Lq=Lq, Ltb=Ltb, S0=S0, K2=K2, packed=packed))
+                s, n = _rows(seq, rows, dev), _rows(lens, rows, dev)
+                with trace.span(trace.LAUNCH):
+                    outs.append(prefix_export(
+                        s, n, cfg=cfg, Lq=Lq, Ltb=Ltb, S0=S0, K2=K2,
+                        packed=packed))
         return outs
 
     return fn
@@ -355,11 +365,12 @@ def dp_semi2_phase2_fn(cfg, mesh: DpMesh, B: int, Lq: int, Ltb_full: int,
         outs = []
         for (i, dev, rows), ex in zip(mesh.shards(B), exports):
             with mesh.on(i):
-                outs.append(phase2(
-                    _rows(seq2, rows, dev), _rows(lens2, rows, dev),
-                    *(ex[k] for k in names), cfg=cfg, Lq=Lq,
-                    Ltb_full=Ltb_full, Ltb2=Ltb2, S0=S0, packed=packed,
-                    flat=False))
+                s, n = _rows(seq2, rows, dev), _rows(lens2, rows, dev)
+                with trace.span(trace.LAUNCH):
+                    outs.append(phase2(
+                        s, n, *(ex[k] for k in names), cfg=cfg, Lq=Lq,
+                        Ltb_full=Ltb_full, Ltb2=Ltb2, S0=S0, packed=packed,
+                        flat=False))
         return outs
 
     return fn

@@ -63,6 +63,7 @@ from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
+from . import trace
 from .cigar import AlignmentResult
 from .constants import (MAX_SEQ_LEN, AdaptiveReductionOption, EmptySeqError,
                         Options, Penalties, SeqTooLongError)
@@ -308,8 +309,14 @@ class AlignmentPipeline:
 
     def align_all(self, pairs: Sequence[Tuple[bytes, bytes]]
                   ) -> List[AlignmentResult]:
-        """Align pairs, returning results in input order."""
+        """Align pairs, returning results in input order.  The call leaves
+        its record in ``trace.history``."""
         pairs = list(pairs)
+        self.peak = {"batches": 0, "bytes": 0, "gate": self._gate()}
+        with trace.call(len(pairs), self.peak):
+            return self._align_all(pairs)
+
+    def _align_all(self, pairs) -> List[AlignmentResult]:
         results: List[Optional[AlignmentResult]] = [None] * len(pairs)
         # per-pair input guards: invalid pairs become error-carrying
         # results, the rest proceed (wfa.go:204-209)
@@ -327,7 +334,6 @@ class AlignmentPipeline:
 
         served: Dict[object, int] = {0: 0, 1: 0, 2: 0, 3: 0, "oracle": 0}
         self.served = served
-        self.peak = {"batches": 0, "bytes": 0, "gate": self._gate()}
         pending = bucket_pairs(valid) if self.cfg.use_device else {
             None: valid}
         # device faults are counted per call (wfa_tpu/pipeline.py:376-379):
@@ -426,21 +432,27 @@ class AlignmentPipeline:
                             except RuntimeError:
                                 pass  # counted by its drain's future
                         submit_futs.clear()
-                        out = eng.finish_batch(eng.submit_batch(chunk_pairs),
-                                               fallback=False)
+                        with trace.batch(trace.next_batch()):
+                            with trace.span(trace.SUBMIT):
+                                h = eng.submit_batch(chunk_pairs)
+                            with trace.span(trace.DRAIN):
+                                out = eng.finish_batch(h, fallback=False)
                         inflight.append((key, chunk, out))
                         if probe and ci == 0:
                             skip_rest = _doomed(out)
                         continue
-                    self._slot_acquire()
-                    self._mem_acquire(cb)
+                    with trace.span(trace.GATE):
+                        self._slot_acquire()
+                    with trace.span(trace.GATE):
+                        self._mem_acquire(cb)
                     owned = False
                     try:
+                        tag = trace.next_batch()
                         sub = self._pool("submit").submit(
-                            self._submit_one, eng, chunk_pairs, cb)
+                            self._submit_one, eng, chunk_pairs, cb, tag)
                         submit_futs.append(sub)
                         fut = self._pool("drain").submit(
-                            self._drain_from, eng, sub, cb)
+                            self._drain_from, eng, sub, cb, tag)
                         owned = True
                     finally:
                         if not owned:
@@ -523,23 +535,26 @@ class AlignmentPipeline:
                 pool.shutdown()
         self._spool = self._dpool = None
 
-    def _submit_one(self, eng: BatchAligner, chunk_pairs, cb: int):
-        """Submit worker: launch a batch, then give back its reservation
-        but for its outputs' bytes, which its drain releases; returns
-        (handle, bytes still held)."""
-        handle = eng.submit_batch(chunk_pairs)
+    def _submit_one(self, eng: BatchAligner, chunk_pairs, cb: int, tag):
+        """Submit worker: launch a batch (``tag``: its ``trace.next_batch``),
+        then give back its reservation but for its outputs' bytes, which
+        its drain releases; returns (handle, bytes still held)."""
+        with trace.batch(tag, queued=True), trace.span(trace.SUBMIT):
+            handle = eng.submit_batch(chunk_pairs)
         held = min(cb, handle.nbytes)
         self._mem_release(cb - held)
         return handle, held
 
-    def _drain_from(self, eng: BatchAligner, sub_fut: Future, cb: int):
+    def _drain_from(self, eng: BatchAligner, sub_fut: Future, cb: int,
+                    tag):
         """Drain worker: wait for the batch's submit, then fetch it and
         build its results (a fault of the submit surfaces here too).
         Releases the batch's bytes and its slot whatever happens."""
         held = cb
         try:
             handle, held = sub_fut.result()
-            return eng.finish_batch(handle, fallback=False)
+            with trace.batch(tag), trace.span(trace.DRAIN):
+                return eng.finish_batch(handle, fallback=False)
         finally:
             self._mem_release(held)
             self._slot_release()

@@ -3,7 +3,7 @@ score loop's phases.
 
     python -m wfa_tpu_torch.profiling [--length 50000] [--pairs 64]
                                       [--calls 3] [--semi]
-                                      [--ab DIR | --host | --upload]
+                                      [--ab DIR | --host]
     python -m wfa_tpu_torch.profiling --phases [--plans [k3|warp]]
                                       [--ab DIR]
 
@@ -18,9 +18,10 @@ device's busy share (the union of its kernel and copy intervals over the
 traced call's wall, and over the untraced calls' median wall) and the
 device time per kernel name.  With ``--ab DIR`` it times, untraced, the
 same calls under the package copy in DIR and under this tree in turns
-instead (:func:`path_turns`); ``--host`` splits the host time by stage
-(:func:`host_split`); ``--upload`` does that with the uploads as they are
-and staged through pinned buffers, in turns (:func:`upload_turns`).
+instead (:func:`path_turns`); ``--host`` prints the timed calls' records
+of the program's own spans and counters (:mod:`wfa_tpu_torch.trace`:
+wall ns of each kind of span, CPU ns of pack and build, pairs, batches,
+bytes, refetches, launches) instead.
 
 ``--phases`` prints ptxas's register, spill and shared-memory report of
 every kernel (when this process built the library), then runs the timed
@@ -870,98 +871,6 @@ def path_turns(pkgs: dict, length: int, n: int, semi: bool,
                      for who, p in pipes.items()}}
 
 
-def host_split(pipe, pairs, calls: int) -> dict:
-    """Host time of each stage over ``calls`` timed ``align_all`` calls
-    of ``pipe`` (this package's pipeline) on ``pairs``: the seconds the
-    workers spent in each stage summed over batches and threads (a
-    submit's pack, its launches and uploads, the rest of its wait at the
-    two-phase mid-point included; a drain's ``finish_small`` and
-    ``finish_tokens``, of which the splice of the token streams; the rest
-    of it builds the results), the seconds the calling thread spent handing
-    the batches to the workers (its waits at the count cap and the byte
-    gate included) and collecting them, and the wall seconds per call
-    (host clock, each ending in a synchronise)."""
-    import threading
-
-    import torch
-
-    from . import engine as te
-    from . import pipeline as tp
-
-    lock = threading.Lock()
-    spent: dict = {}
-
-    def timed(owner, name: str, stage: str):
-        fn = getattr(owner, name)
-
-        def wrapper(*a, **k):
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **k)
-            finally:
-                with lock:
-                    sec, n = spent.get(stage, (0.0, 0))
-                    spent[stage] = (sec + time.perf_counter() - t0, n + 1)
-
-        return wrapper
-
-    stages = ((te.BatchAligner, "submit_batch", "submit"),
-              (te, "_pack_all", "submit: pack"),
-              (te.BatchAligner, "finish_small", "finish_small"),
-              (te.BatchAligner, "finish_tokens", "finish_tokens"),
-              (te, "_split_tokens", "finish_tokens: splice"),
-              (tp.AlignmentPipeline, "_run_tier", "calling thread: hand-off"),
-              (tp.AlignmentPipeline, "_collect", "calling thread: collect"))
-    saved = []
-    for owner, name, stage in stages:
-        wrapper = timed(owner, name, stage)
-        saved.append((owner, name, owner.__dict__[name]))
-        setattr(owner, name, wrapper)
-    walls = []
-    try:
-        for _ in range(calls):
-            t0 = time.perf_counter()
-            pipe.align_all(pairs)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-    finally:
-        for owner, name, orig in saved:
-            setattr(owner, name, orig)
-    return {"calls": calls, "wall_s": walls,
-            "stages_s": {k: v[0] / calls for k, v in spent.items()},
-            "stage_calls": {k: v[1] // calls for k, v in spent.items()}}
-
-
-def _pinned_upload(eng, a):
-    """``BatchAligner._upload`` staged through a pinned buffer, with a
-    copy the host does not wait for: the form ``--upload`` times against
-    the plain copy."""
-    import torch
-
-    return torch.from_numpy(a).pin_memory().to(eng.device, non_blocking=True)
-
-
-def upload_turns(pipe, pairs, calls: int) -> dict:
-    """``host_split`` of ``pipe`` on ``pairs`` with the uploads as they
-    are (a copy from pageable memory) and through ``_pinned_upload``, in
-    turns (copy, pinned, pinned, copy): ms a call of the wall and of the
-    submits (summed over batches and workers), by turn."""
-    from .engine import BatchAligner
-
-    plain = BatchAligner._upload
-    turns = []
-    for form in ("copy", "pinned", "pinned", "copy"):
-        BatchAligner._upload = plain if form == "copy" else _pinned_upload
-        try:
-            split = host_split(pipe, pairs, calls)
-        finally:
-            BatchAligner._upload = plain
-        turns.append({"upload": form,
-                      "wall_ms": [w * 1e3 for w in split["wall_s"]],
-                      "submit_ms": split["stages_s"]["submit"] * 1e3})
-    return {"calls": calls, "turns": turns}
-
-
 def _device_busy(prof):
     """(device busy us, {name: (us, count)}) of a trace, or None when it
     holds no device event."""
@@ -1008,11 +917,8 @@ def main() -> None:
                          "or all three at each launch plan (and the first "
                          "--ab DIR's) in turns")
     ap.add_argument("--host", action="store_true",
-                    help="the host time of each stage of a batch, summed "
-                         "over the workers, instead of the trace")
-    ap.add_argument("--upload", action="store_true",
-                    help="the host split with the uploads as they are and "
-                         "staged through pinned buffers, in turns")
+                    help="the timed calls' span and counter records "
+                         "(wfa_tpu_torch.trace) instead of the trace")
     ap.add_argument("--ab", metavar="DIR", action="append", default=[],
                     help="time the package copy in DIR (DIR/wfa_tpu_torch) "
                          "against this tree's, in turns: with --phases its "
@@ -1049,12 +955,13 @@ def main() -> None:
         return wall
 
     if args.host:
-        print(f"{tag} host split on {card}: "
-              + json.dumps(host_split(pipe, pairs, args.calls)), flush=True)
-        return
-    if args.upload:
-        print(f"{tag} uploads on {card}: "
-              + json.dumps(upload_turns(pipe, pairs, args.calls)), flush=True)
+        from . import trace
+
+        for _ in range(args.calls):
+            timed(False)
+        for rec in trace.records(args.calls):
+            print(f"{tag} call record on {card}: " + json.dumps(rec),
+                  flush=True)
         return
     walls = [timed(False) for _ in range(args.calls - 1)]
     mid = sorted(walls)[len(walls) // 2] if walls else None
