@@ -21,8 +21,9 @@ scratch on either side of the limit, and its size and place against the
 kernel's own layout; the warp shape of K1-kw and K4 on either side of
 each threshold of its launch plan, at every plan on a batch whose pairs
 leave one block at different steps; mismatch or gap extension 1; an
-extension that ends at the last byte of the batch's rows).
-Integer outputs: exact equality.
+extension that ends at the last byte of the batch's rows), and that the
+card's host packs the long-read cell's batch with the native pack's
+vector body.  Integer outputs: exact equality.
 """
 
 import dataclasses
@@ -973,3 +974,25 @@ def test_spans_share_the_profilers_clock(card, tmp_path):
     assert abs(by_mark - by_wall) < 1_000_000
     assert got["launches"] > 0
     assert got["inside"] >= 0.99 * got["launches"]
+
+
+def test_the_cells_pack_runs_the_vector_body(card):
+    """A call of the global.l50000-e05 cell's 256 pairs on the card's host:
+    every base of the batch goes through the native direct pack, and
+    through its vector body (the host's CPU has one)."""
+    from wfa_tpu_torch import Options, native, trace
+    from wfa_tpu_torch.pipeline import AlignmentPipeline, PipelineConfig
+
+    pairs = generate_pairs(256, 50000, 0.05, seed=43)
+    pipe = AlignmentPipeline(PipelineConfig(
+        Penalties(4, 6, 2), Options(True), ADAPTIVE, batch_size=2048,
+        device="cuda", n_devices=1))
+    try:
+        pipe.align_all(pairs)
+    finally:
+        pipe.close()
+    rec = trace.records(1)[0]
+    print(f"vector body {native.load().wfa_pack_vector()}; packed_bases "
+          f"{rec['packed_bases']}, packed_vec_bases {rec['packed_vec_bases']}")
+    assert rec["packed_bases"] > 0
+    assert rec["packed_vec_bases"] == rec["packed_bases"]

@@ -27,7 +27,7 @@ CHILDREN = {"submit": ("pack", "upload", "launch", "shard"),
 NEW_METRICS = ("pack_ms_per_kpair", "upload_ms_per_kpair",
                "launch_ms_per_kpair", "device_wait_ms_per_kpair",
                "build_ms_per_kpair", "queue_wait_ms_per_kpair",
-               "host_stall_pct", "refetch_pct")
+               "host_stall_pct", "refetch_pct", "pack_vector_pct")
 
 
 def _pipe(**kw):
@@ -268,6 +268,11 @@ def test_a_traced_cell_reads_every_new_metric(name):
     assert got["queue_wait_ms_per_kpair"] >= 0
     assert 0 <= got["refetch_pct"] <= 100
     assert got["host_stall_pct"] <= 100
+    # every batch of the cell is pure ACGT: the direct pack packs them all
+    from wfa_tpu_torch import native
+
+    assert got["pack_vector_pct"] == (100.0 if native.load().wfa_pack_vector()
+                                      else 0.0)
 
 
 def test_a_reader_needs_the_records_to_match_the_window():

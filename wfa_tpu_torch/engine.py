@@ -212,7 +212,8 @@ def _pack_all(pairs: Sequence[Tuple[bytes, bytes]], k_win: int,
     (qb, tbuf, qlen, tlen, toff, Lq, Ltb, qp, tp), the same tuple as
     ``wfa_tpu.engine.BatchAligner._pack_all``.  qp/tp are None when the
     batch has non-ACGT bytes; qb/tbuf are None when ``need_raw`` is False
-    and the native packer packed the batch directly."""
+    and the native packer packed the batch directly, and qp/tp are then
+    the two column ranges of one matrix."""
     B = len(pairs)
     qlen = np.fromiter((len(q) for q, _ in pairs), np.int32, B)
     tlen = np.fromiter((len(t) for _, t in pairs), np.int32, B)
@@ -229,8 +230,13 @@ def _pack_all(pairs: Sequence[Tuple[bytes, bytes]], k_win: int,
     ts = [t for _, t in pairs]
     lib = native.load()
     if lib is not None and not need_raw:
-        qp = native.pack_direct(qs, qlen, None, Lq)
-        tp = native.pack_direct(ts, tlen, toff, Ltb) if qp is not None else None
+        # both halves packed into one [B, Lq/4 + Ltb/4] matrix: _seq_lens
+        # hands it on whole
+        Wq = Lq // 4
+        seq = np.empty((B, Wq + Ltb // 4), np.uint8)
+        qp = native.pack_direct(qs, qlen, None, Lq, out=seq[:, :Wq])
+        tp = (native.pack_direct(ts, tlen, toff, Ltb, out=seq[:, Wq:])
+              if qp is not None else None)
         if tp is not None:
             return None, None, qlen, tlen, toff, Lq, Ltb, qp, tp
     if lib is not None:
@@ -1287,15 +1293,31 @@ class Submitted:
         return sum(a.numel() * a.element_size() for a in self.out.values())
 
 
+def _joined(left: np.ndarray, right: np.ndarray):
+    """The one C-contiguous matrix whose columns are ``left`` then
+    ``right`` (as :func:`_pack_all`'s direct pack writes them), or None
+    where the two are not its halves."""
+    m = left.base
+    if (m is None or m is not right.base or not m.flags.c_contiguous
+            or m.shape != (left.shape[0], left.shape[1] + right.shape[1])):
+        return None
+    at = m.ctypes.data
+    if left.ctypes.data != at or right.ctypes.data != at + left.shape[1]:
+        return None
+    return m
+
+
 def _seq_lens(packed_batch):
     """(seq, lens, packed, Lq, Ltb) of a :func:`_pack_all` tuple:
     the query and target rows side by side (2-bit packed where the pack
-    gave them) and the (qlen, tlen, toff) columns, as ``align_full2``
-    takes them."""
+    gave them; the direct pack's one matrix as it is) and the (qlen,
+    tlen, toff) columns, as ``align_full2`` takes them."""
     qb, tbuf, qlen, tlen, toff, Lq, Ltb, qp, tp = packed_batch
     packed = tp is not None
-    seq = np.concatenate([qp if packed else qb, tp if packed else tbuf],
-                         axis=1)
+    seq = _joined(qp, tp) if packed else None
+    if seq is None:
+        seq = np.concatenate([qp if packed else qb, tp if packed else tbuf],
+                             axis=1)
     lens = np.stack([qlen, tlen, toff], axis=1).astype(np.int32)
     return seq, lens, packed, Lq, Ltb
 

@@ -20,6 +20,8 @@ import threading
 
 import numpy as np
 
+from . import trace
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "csrc", "pack.c")
 _BUILD = os.path.join(_DIR, "build")
@@ -86,10 +88,13 @@ def _load():
         ctypes.POINTER(ctypes.c_char_p), ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p]
     l.wfa_build_and_pack.restype = ctypes.c_int32
-    l.wfa_pack_direct.argtypes = [
-        ctypes.POINTER(ctypes.c_char_p), ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p]
-    l.wfa_pack_direct.restype = ctypes.c_int32
+    for fn in (l.wfa_pack_direct, l.wfa_pack_direct_scalar):
+        fn.argtypes = [
+            ctypes.POINTER(ctypes.c_char_p), ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int64, ctypes.c_void_p]
+        fn.restype = ctypes.c_int64
+    l.wfa_pack_vector.argtypes = []
+    l.wfa_pack_vector.restype = ctypes.c_int32
     return l
 
 
@@ -114,21 +119,42 @@ def build_and_pack(seqs, lens: np.ndarray, offs, L: int):
     return raw, (packed if ok else None)
 
 
-def pack_direct(seqs, lens: np.ndarray, offs, L: int):
+def pack_direct(seqs, lens: np.ndarray, offs, L: int, out=None):
     """2-bit-pack straight from the source strings — no raw matrix
     (the pipeline hot path never reads the raw rows of a pure-ACGT
-    batch, and skipping them saves ~4x the host memory traffic).
-    Returns packed or None (non-ACGT: caller falls back to
-    :func:`build_and_pack`)."""
+    batch, and skipping them saves ~4x the host memory traffic), with
+    the vector body where the CPU has one.  ``out``: the uint8[B, L // 4]
+    array to pack into (a column range of a wider matrix does; a new one
+    when None).  Returns it, or None (non-ACGT: caller falls back to
+    :func:`build_and_pack`).  Counts the bases packed in the bound call's
+    record (``packed_bases``, and ``packed_vec_bases`` when the vector
+    body packed them)."""
+    got = _pack(lib.wfa_pack_direct, seqs, lens, offs, L, out)
+    if got is None:
+        return None
+    out, bases = got
+    trace.count(trace.PACKED_BASES, bases)
+    if lib.wfa_pack_vector():
+        trace.count(trace.PACKED_VEC_BASES, bases)
+    return out
+
+
+def _pack(fn, seqs, lens: np.ndarray, offs, L: int, out=None):
+    """(out, bases packed) of the direct pack ``fn`` (``wfa_pack_direct``
+    or ``wfa_pack_direct_scalar``), or None for a non-ACGT batch."""
     B = len(seqs)
-    packed = np.empty((B, L // 4), np.uint8)
+    if out is None:
+        out = np.empty((B, L // 4), np.uint8)
+    elif (out.dtype != np.uint8 or out.shape != (B, L // 4)
+          or out.strides[1] != 1):
+        raise ValueError("pack_direct: out must be uint8[B, L // 4] with "
+                         "contiguous rows")
     arr = (ctypes.c_char_p * B)(*seqs)
     lens = np.ascontiguousarray(lens, np.int32)
     offs_p = None
     if offs is not None:
         offs = np.ascontiguousarray(offs, np.int32)
         offs_p = offs.ctypes.data_as(ctypes.c_void_p)
-    ok = lib.wfa_pack_direct(
-        arr, lens.ctypes.data_as(ctypes.c_void_p), offs_p,
-        B, L, packed.ctypes.data_as(ctypes.c_void_p))
-    return packed if ok else None
+    bases = fn(arr, lens.ctypes.data_as(ctypes.c_void_p), offs_p, B, L,
+               out.strides[0], out.ctypes.data_as(ctypes.c_void_p))
+    return None if bases < 0 else (out, bases)

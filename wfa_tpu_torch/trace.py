@@ -27,10 +27,11 @@ every span of a call carries the call's id.  Counters: pairs and batches
 a call, bytes uploaded and fetched, refetches (batches whose guessed
 token extent missed, so that the drain queued a second copy and waited
 again), kernel launches (``_build.tally_launches``) and the shards'
-launch lag (a mesh step's last shard span's end less its first's).  A
-thread takes part only while a call has bound it (:func:`call`,
-:func:`batch`); elsewhere a span costs one attribute read.  No Python
-object is kept per span.
+launch lag (a mesh step's last shard span's end less its first's), and
+the bases the native direct pack packed, all and those its vector body
+packed (``native.pack_direct``).  A thread takes part only while a call
+has bound it (:func:`call`, :func:`batch`); elsewhere a span costs one
+attribute read.  No Python object is kept per span.
 
 Inside :func:`timeline` each span also goes to a bounded buffer, which
 :meth:`Timeline.chrome_events` exports as chrome-trace events on the
@@ -71,9 +72,10 @@ KINDS = ("call", "gate", "queue", "submit", "pack", "upload", "shard",
 # on an H100 host), so the other kinds do not read it.
 CPU_KINDS = frozenset((PACK, BUILD))
 COUNTERS = ("pairs", "batches", "bytes_up", "bytes_down", "refetches",
-            "launches", "shard_lag_ns", "shard_steps")
+            "launches", "shard_lag_ns", "shard_steps", "packed_bases",
+            "packed_vec_bases")
 (PAIRS, BATCHES, BYTES_UP, BYTES_DOWN, REFETCHES, LAUNCHES, SHARD_LAG,
- SHARD_STEPS) = range(len(COUNTERS))
+ SHARD_STEPS, PACKED_BASES, PACKED_VEC_BASES) = range(len(COUNTERS))
 HISTORY = 4096
 TIMELINE = 1 << 20  # spans a timeline keeps
 MARK = "wfa.align_all"
