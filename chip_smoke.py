@@ -11,7 +11,7 @@ protocol: one warm call, one timed call), each with the launch counts set
 to 0 just before its timed call and read just after, and checks evenly
 spaced results of each against the port's exact oracle:
 
-* global: 32768 pairs of l=1000, e=0.05, gap-affine 4/6/2, wf-adaptive
+* global: 16384 pairs of l=1000, e=0.05, gap-affine 4/6/2, wf-adaptive
   10/50/1, kernels checked on 2048-pair batches; then ``align_iter``
   over the same pairs in chunks of 4096, held to the timed call token
   stream for token stream; then bench.py's l=1000 rows at e=0.10 and
@@ -19,6 +19,16 @@ spaced results of each against the port's exact oracle:
   and its probe), their pairs served per tier printed, 128 results of
   each checked against the oracle, and K1 and K2 checked on the first
   batch each call gave each (k_win, s_cap) it ran (tiers 0 and 1);
+* exact global alignment, the benchmark's cell exact.l1000-e20 (wf-
+  adaptive reduction off, the reference CLI's ``-a``): two calls of the
+  cell's 2048 pairs of l=1000 at e=0.20 through a pipeline of its
+  configuration, the cold one up the tier ladder (s_cap 640, then 1920)
+  and the second at the caps the score memory fits; 32 results of each
+  call checked against the exact oracle (half of the first call's among
+  the pairs tier 1 served), a pair that wf-adaptive reduction gets wrong
+  held to the exact answer, and K1 without its reduce at the full-span
+  window (2048) and K2 over its dense int32 aux checked on the first
+  batch the path gave each cap;
 * semi-global l=200: 1024 pairs, e=0.05, 4/6/2, 10/50/1, on K1's
   semi-global mode at the full span (512 diagonals), K1-semi and K2
   checked on those pairs; K1-semi is also checked on 256 pairs of l=1000
@@ -56,7 +66,7 @@ spaced results of each against the port's exact oracle:
   checked against the oracle;
 * data parallelism: ``AlignmentPipeline`` over a mesh of every card, or
   of 2 shards of the one card (``PipelineConfig.devices``), global
-  l=1000 at the main path's width (32768 pairs), two-phase semi-global
+  l=1000 at the main path's width (16384 pairs), two-phase semi-global
   l=1000 (2048 pairs, and 256 at 4/6/1), semi-global l=200 (1024),
   global l=4000 (4096, K1-kw), l=5000 and l=50000 (64 each, K1-long),
   each held token stream for token stream to a single-device run of the
@@ -82,8 +92,8 @@ the most modelled device bytes they reserved against the byte gate.
 
 K1, K1-kw and K1-long are checked at each (k_win, s_cap) the paths run:
 tier 0's first cap and the cap the score memory fits after the warm call.
-A path that builds an engine of caps that GLOBAL_CHECKS, SEMI_CHECKS,
-SEMI2_CHECKS, KW_CHECKS or LONG_CHECKS lacks fails the run (after every
+A path that builds an engine of caps that GLOBAL_CHECKS, EXACT_CHECKS,
+SEMI_CHECKS, SEMI2_CHECKS, KW_CHECKS or LONG_CHECKS lacks fails the run (after every
 phase has run, so one run shows all of them).  Every comparison is integer and
 exact: the tolerance is 0.
 
@@ -103,7 +113,7 @@ import subprocess
 import sys
 import time
 
-N_MAIN = 32768
+N_MAIN = 16384
 BATCH = 2048  # the main path's batch: K1 and K2 are checked at its shapes
 N_CHECK = 512
 N_CHECK_SEMI = 256  # the semi-global oracle takes ~0.33 s a pair at l=1000
@@ -133,6 +143,13 @@ N_DP_PROC = 4096
 DP_LONG_LENGTH = 5000
 N_DP_LONG = N_LONG
 N_ERR_CHECK = 128
+# exact global alignment, the benchmark's cell exact.l1000-e20 (its
+# configuration and traffic, read from BENCHMARK.json): two calls of the
+# cell's pool at this seed, 2048 pairs of l=1000 at e=0.20 each, results
+# held to the oracle (the slow one, ~1.35 s a pair, exact) at N_EXACT_CHECK
+# positions of each call
+EXACT_CELL, EXACT_SEED = "exact.l1000-e20", 2**31 + 53
+N_EXACT_CHECK = 32
 # phase_semi_coords: semi-global pairs drawn by the fuzz's generator
 N_COORD_GROUPS, COORD_GROUP, COORD_SEED = 100, 40, 0
 # K1/K2 checks, (pairs, l, k_win, s_cap): the first of each mode is the
@@ -159,6 +176,15 @@ LONG_CHECKS = ((N_LONG, 50000, 384, 27648), (N_LONG, 50000, 384, 17792))
 # memory fits after the warm call; K1-kw and K2 are checked on the path's
 # own first batch at each
 KW_CHECKS = ((BATCH, KW_LENGTH, 256, 2304), (BATCH, KW_LENGTH, 256, 1664))
+# the exact path's caps, k_win the full span (round_up(lq + lt + 1, 128)):
+# the cold call's tier 0 (0.55 x 1000 rounded up to 128, which nearly every
+# pair overflows) and tier 1 (3 x 640), then the caps the score memory fits
+# for the second call (1.2 x each bucket's largest final score of the first
+# + 16, rounded up to 128: 1408, and 1280 for the bucket of reads past
+# 1024 bases); K1 without its reduce and K2 over its dense int32 aux are
+# checked on the path's own first batch at each
+EXACT_CHECKS = ((BATCH, 1000, 2048, 640), (BATCH, 1000, 2048, 1920),
+                (BATCH, 1000, 2048, 1408), (BATCH, 1000, 2048, 1280))
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W):
 # device memory bandwidth, and the non-tensor 32-bit rate the score
@@ -413,8 +439,10 @@ def k1_bound(cfg, ins, final_s, ok, cell_bytes: int, base_bytes: int = 0):
     return bound(nbytes, cells)
 
 
-def phase_k1(cfg, ins, reps: int = 10):
-    """K1 against run_batch_plain on the card; returns (record, outputs)."""
+def phase_k1(cfg, ins, reps: int = 10, once: bool = False):
+    """K1 against run_batch_plain on the card; returns (record, outputs).
+    With ``once`` the plain version's one checked call is also its
+    time."""
     import torch
     from wfa_tpu_torch.engine import run_batch_plain
     from wfa_tpu_torch.kernel_engine import run_batch
@@ -423,7 +451,7 @@ def phase_k1(cfg, ins, reps: int = 10):
     args = (qb, tbuf, qlen, tlen, toff)
     kw = dict(cfg=cfg, Lq=Lq, Ltb=Ltb)
     name = "score_loop" if cfg.global_alignment else "score_loop_semi"
-    ref = run_batch_plain(*args, **kw)
+    ref, plain_ms = timed_once(lambda: run_batch_plain(*args, **kw))
     got = run_batch(*args, **kw)
     torch.cuda.synchronize()
     names = ("final_s", "done", "overflow", "term_cell", "end_s", "end_k",
@@ -446,7 +474,8 @@ def phase_k1(cfg, ins, reps: int = 10):
     if err:
         fail(f"{name} aux differs in {bad} cells")
     del ref, diff
-    plain_ms = cuda_ms(lambda: run_batch_plain(*args, **kw), 1)
+    if not once:
+        plain_ms = cuda_ms(lambda: run_batch_plain(*args, **kw), 1)
     ms = cuda_ms(lambda: run_batch(*args, **kw), reps)
     n = qb.shape[0]
     rec = {"name": name, "route": "cuda",
@@ -642,10 +671,11 @@ def check_kw_batches(seen, reps: int):
 
 
 def phase_k2(cfg, ins, k1_out, reps: int = 10, long: bool = False,
-             rows_kw: bool = False):
+             rows_kw: bool = False, once: bool = False):
     """K2 against device_backtrace_plain on K1's aux (K1-long's rebased
     aux with its bases, or K1-kw's with its sbase words: ``rows_kw``),
-    from K1's end."""
+    from K1's end.  With ``once`` the plain version's one checked call is
+    also its time."""
     import torch
     from wfa_tpu_torch.device_backtrace import (device_backtrace,
                                                 device_backtrace_plain,
@@ -672,7 +702,7 @@ def phase_k2(cfg, ins, k1_out, reps: int = 10, long: bool = False,
               K=cfg.aux_kw if rows_kw else cfg.k_win, token_shift=shift,
               split_ext_codes=ga, global_alignment=ga, aux_base=aux_base,
               aux_sbase=sbase, return_iters=True)
-    ref = device_backtrace_plain(*args, **kw)
+    ref, plain_ms = timed_once(lambda: device_backtrace_plain(*args, **kw))
     got = device_backtrace(*args, **kw)
     torch.cuda.synchronize()
     err = 0
@@ -684,7 +714,8 @@ def phase_k2(cfg, ins, k1_out, reps: int = 10, long: bool = False,
         if d:
             fail(f"{name} {field} differs in {int((a != b).sum())} slots")
         err = max(err, d)
-    plain_ms = cuda_ms(lambda: device_backtrace_plain(*args, **kw), 1)
+    if not once:
+        plain_ms = cuda_ms(lambda: device_backtrace_plain(*args, **kw), 1)
     ms = cuda_ms(lambda: device_backtrace(*args, **kw), reps)
     # bytes: the scalar inputs, one aux cell (and base or sbase word) per
     # chase step, every token slot and the iteration counts
@@ -865,6 +896,143 @@ def phase_errors(card: str, recs) -> None:
             if engine != "auto":
                 fail(f"{tag} ran engine {engine!r}")
             check_batch(batch, pen, True, k_win, s_cap, 3, recs)
+
+
+def phase_exact(card: str):
+    """Exact global alignment on the main path, as the benchmark's cell
+    ``EXACT_CELL`` runs it: ``AlignmentPipeline`` of the cell's
+    configuration (wf-adaptive reduction off: K1 without its reduce at
+    the full-span window) over two calls of the cell's traffic, the cold
+    one up the tier ladder and the second, timed with the launch counts
+    set to 0 just before it, at the caps the score memory fits.  A
+    device fault or a pair left to the oracle fails it; caps that
+    ``EXACT_CHECKS`` lacks fail the run after every phase.  Results at
+    ``N_EXACT_CHECK`` positions of each call (half of the first call's
+    among the pairs tier 1 served) are held to the exact oracle, as is a
+    pair that wf-adaptive reduction gets wrong (through a second pipeline
+    of the same configuration: its read lengths make a bucket of their
+    own), and K1
+    and K2 to their plain versions on the first batch the path gave each
+    (k_win, s_cap).  Returns the records of K1 and K2 in this mode: the
+    times at the second call's cap, max_abs_err over every cap, the
+    second call's launches."""
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    from portbench import manifest, run, traffic
+    from wfa_tpu_torch import AdaptiveReductionOption, OracleAligner, Options
+    from wfa_tpu_torch.engine import EngineConfig
+    from wfa_tpu_torch.pipeline import AlignmentPipeline
+
+    root = Path(__file__).resolve().parent
+    cell = manifest.cell(manifest.load(root), EXACT_CELL, root)
+    pcfg = run.pipeline_config(cell.config, DEVICE)
+    if pcfg.adaptive is not None or not pcfg.options.global_alignment:
+        fail(f"{EXACT_CELL} is not exact global alignment")
+    tag = f"exact global l={cell.mix['length']} e={cell.mix['error_rate']}"
+    calls = traffic.make_pool(cell.mix, EXACT_SEED)[:2]
+    pipe = AlignmentPipeline(pcfg)
+    with record_batches() as seen:
+        t0 = time.perf_counter()
+        first = pipe.align_all(calls[0])
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        retried, served = sorted(pipe._retried), dict(pipe.served)
+        faults = [(pipe._device_errors, pipe.served["oracle"])]
+        reset_counters()
+        t0 = time.perf_counter()
+        second = pipe.align_all(calls[1])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_counters()
+        faults.append((pipe._device_errors, pipe.served["oracle"]))
+    pipe.close()  # no worker threads across the oracle pool's fork
+    caps = sorted((k_win, s_cap, engine)
+                  for (k_win, s_cap, engine) in pipe._engines)
+    n = len(calls[1])
+    print(f"{tag}: align_all {n} pairs in {secs:.3f} s = {n / secs:.1f} "
+          f"aln/s (cold call {warm:.3f} s, {len(retried)} of its pairs "
+          f"retried above tier 0) on {card}; launches {launches}; pairs "
+          f"served per tier {served}, then {pipe.served}; (k_win, s_cap, "
+          f"engine) {caps}; "
+          f"batches checked (k_win, s_cap, pairs) "
+          f"{[(k[1], k[2], len(b)) for k, b in seen.items()]}; at most "
+          f"{pipe.peak['batches']} batches in flight, "
+          f"{pipe.peak['bytes'] / 2**30:.3f} GiB reserved of the gate's "
+          f"{pipe.peak['gate'] / 2**30:.1f} GiB")
+    if any(errors or oracle for errors, oracle in faults):
+        fail(f"{tag}: (device faults, pairs served by the oracle) of the "
+             f"two calls {faults}")
+    if {e for _, _, e in caps} != {"auto"} or not retried:
+        fail(f"{tag}: engines {caps}, {len(retried)} pairs retried: the "
+             f"cold call must run the int32 K1 up the ladder")
+    for counter, mode in (("score_loop", "global"), ("backtrace", "global")):
+        if launches[counter][mode] <= 0:
+            fail(f"{tag} launched {counter} ({mode}) no time")
+    unchecked = {c[:2] for c in caps} - {c[2:] for c in EXACT_CHECKS}
+    if unchecked:
+        DEFERRED.append(f"{tag} ran K1 at unchecked (k_win, s_cap) "
+                        f"{sorted(unchecked)}")
+    for results in (first, second):
+        if len(results) != n or any(r is None or r.error for r in results):
+            fail(f"{tag} returned missing or failed results")
+    oracle = OracleAligner(pcfg.penalties, Options(True), None)
+    half = N_EXACT_CHECK // 2
+    idx = retried[::max(1, len(retried) // half)][:half]
+    rest = sorted(set(range(n)) - set(idx))
+    more = N_EXACT_CHECK - len(idx)
+    idx += rest[::max(1, len(rest) // more)][:more]
+    oracle_check(f"{tag} cold call", calls[0], first, sorted(idx), oracle)
+    idx = list(range(0, n, n // N_EXACT_CHECK))[:N_EXACT_CHECK]
+    oracle_check(f"{tag} second call", calls[1], second, idx, oracle)
+    # a pair that wf-adaptive reduction gets wrong, which random pairs at
+    # 20% error are not: a target that carries a 100-base copy of a later
+    # stretch of its query in front (exact 210, reduced 376); a pipeline of
+    # the cell's configuration must give the exact answer
+    q = traffic.BASES[np.random.default_rng(5).integers(0, 4, 1000)]
+    q = q.tobytes()
+    trap = (q, q[40:140] + q)
+    want = oracle.align(*trap)
+    reduced = OracleAligner(pcfg.penalties, Options(True),
+                            AdaptiveReductionOption(10, 50, 1)).align(*trap)
+    other = AlignmentPipeline(pcfg)
+    got = other.align_all([trap])[0]
+    other.close()
+    if reduced.score == want.score:
+        fail(f"{tag}: the reduction's answer to the trap pair is exact")
+    if got is None or got.cigar(False) != want.cigar(False) or tuple(
+            getattr(got, f) for f in FIELDS) != tuple(
+                getattr(want, f) for f in FIELDS):
+        fail(f"{tag}: the trap pair's answer is not the exact one "
+             f"({getattr(got, 'score', None)}, exact {want.score}, "
+             f"reduced {reduced.score})")
+    print(f"{tag}: the trap pair scores {got.score} (exact {want.score}, "
+          f"with wf-adaptive reduction {reduced.score})")
+    # the records' times at the second call's cap (its larger bucket's)
+    timed = max(s for _, s, _ in pipe._engines if s < EXACT_CHECKS[1][3])
+    del pipe, first, second
+    recs = None
+    for (engine, k_win, s_cap), pairs in sorted(
+            seen.items(), key=lambda kv: kv[0][2] != timed):
+        torch.cuda.empty_cache()
+        cfg = EngineConfig(penalties=pcfg.penalties, global_alignment=True,
+                           adaptive=None, k_win=k_win, s_cap=s_cap)
+        ins = shard_ins(pairs, k_win, True)
+        reps = 3 if recs is None else 1
+        rec1, out = phase_k1(cfg, ins, reps, once=True)
+        new = (rec1, phase_k2(cfg, ins, out, reps=reps, once=True))
+        del out, ins
+        if recs is None:
+            recs = new
+        else:
+            merge(recs, new)
+    torch.cuda.empty_cache()
+    recs[0].update(name="score_loop_exact",
+                   launches=launches["score_loop"]["global"])
+    recs[1].update(name="backtrace_exact",
+                   launches=launches["backtrace"]["global"])
+    return recs
 
 
 def phase_semi2(pairs, pen, S0: int, k_win: int, s_cap: int, reps: int,
@@ -1650,6 +1818,8 @@ def main(dp_only: bool = False) -> None:
     lap("main global l=1000")
     phase_errors(card, (rec1, rec2))
     lap("errors")
+    rec_ex1, rec_ex2 = phase_exact(card)
+    lap("exact")
     # semi-global at spans up to 512: K1-semi and K2 (also at the A/B's
     # full-span shape), then the l=200 path
     rec3, rec4 = check_kernels(SEMI_CHECKS, False, reps=3)
@@ -1736,8 +1906,8 @@ def main(dp_only: bool = False) -> None:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     k3, k4, k2d = semi2_recs
-    recs = [rec1, rec3, rec7, rec5, k3, k3_long, rec_bwa, k4, k4_long,
-            k4_bwa, rec2, rec4, rec8, rec6, k2d]
+    recs = [rec1, rec_ex1, rec3, rec7, rec5, k3, k3_long, rec_bwa, k4,
+            k4_long, k4_bwa, rec2, rec_ex2, rec4, rec8, rec6, k2d]
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in recs]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,9 +21,11 @@ scratch on either side of the limit, and its size and place against the
 kernel's own layout; the warp shape of K1-kw and K4 on either side of
 each threshold of its launch plan, at every plan on a batch whose pairs
 leave one block at different steps; mismatch or gap extension 1; an
-extension that ends at the last byte of the batch's rows), and that the
-card's host packs the long-read cell's batch with the native pack's
-vector body.  Integer outputs: exact equality.
+extension that ends at the last byte of the batch's rows; exact global
+alignment at its full-span window and the exact cell's score caps, on
+the batches its path builds), and that the card's host packs the
+long-read cell's batch with the native pack's vector body.  Integer
+outputs: exact equality.
 """
 
 import dataclasses
@@ -996,3 +998,91 @@ def test_the_cells_pack_runs_the_vector_body(card):
           f"{rec['packed_bases']}, packed_vec_bases {rec['packed_vec_bases']}")
     assert rec["packed_bases"] > 0
     assert rec["packed_vec_bases"] == rec["packed_bases"]
+
+
+def test_exact_kernels_match_plain_at_the_cells_caps(card, monkeypatch):
+    """Exact global alignment at its benchmark shape (cell exact.l1000-e20:
+    2048 pairs of 1,000 bases at 20% error a call, no wf-adaptive
+    reduction): a pipeline of the cell's configuration runs two calls of
+    the cell's traffic, the cold one at tier 0's score cap (640, which
+    every pair overflows) and tier 1's (1920), the next at the cap its
+    score memory settles on.  The first batch of each (k_win, s_cap) the
+    path builds is recorded, and on it K1 without its reduce and K2 over
+    its dense int32 aux are held to their plain versions (on the card, in
+    slices of rows): every out row, the aux rows up to each served pair's
+    final_s, the tokens and the chase iterations."""
+    from pathlib import Path
+
+    from portbench import manifest, run, traffic
+    from wfa_tpu_torch import engine as te
+    from wfa_tpu_torch.device_backtrace import (device_backtrace,
+                                                device_backtrace_plain)
+    from wfa_tpu_torch.kernel_engine import run_batch
+    from wfa_tpu_torch.pipeline import AlignmentPipeline
+
+    root = Path(__file__).resolve().parents[1]
+    cell = manifest.cell(manifest.load(root), "exact.l1000-e20", root)
+    pool = traffic.make_pool(cell.mix, 2**31 + 53)
+    batches = {}
+    orig = te.BatchAligner.submit_batch
+
+    def spy(self, pairs, prepacked=None):
+        key = (self.cfg.k_win, self.cfg.s_cap, self.engine)
+        batches.setdefault(key, (self.cfg, list(pairs)))
+        return orig(self, pairs, prepacked)
+
+    monkeypatch.setattr(te.BatchAligner, "submit_batch", spy)
+    pipe = AlignmentPipeline(run.pipeline_config(cell.config, "cuda"))
+    try:
+        for call in pool[:2]:
+            pipe.align_all(call)
+    finally:
+        pipe.close()
+    monkeypatch.undo()
+    del pipe
+    torch.cuda.empty_cache()
+    caps = sorted(batches)
+    print("exact caps (k_win, s_cap, engine, pairs): "
+          f"{[key + (len(b[1]),) for key, b in batches.items()]}")
+    assert {(k, e) for k, _, e in caps} == {(2048, "auto")}
+    s_caps = {s for _, s, _ in caps}
+    assert {640, 1920} <= s_caps and len(s_caps) >= 3
+    for key in caps:
+        cfg, pairs = batches[key]
+        assert cfg.adaptive is None and cfg.global_alignment
+        n = len(pairs)
+        qb, tbuf, qlen, tlen, toff, Lq, Ltb = te.inputs_from_packed(
+            te._pack_all(pairs, cfg.k_win), card)
+        args = (qb, tbuf, qlen, tlen, toff)
+        got = run_batch(*args, cfg=cfg, Lq=Lq, Ltb=Ltb)
+        outs = got[:4] + got[5]
+        served = 0
+        for lo in range(0, n, 128):
+            rows = slice(lo, min(n, lo + 128))
+            ref = te.run_batch_plain(*(a[rows] for a in args), cfg=cfg,
+                                     Lq=Lq, Ltb=Ltb)
+            for a, b in zip(ref[:4] + ref[5], outs):
+                assert torch.equal(a, b[rows]), (key, lo)
+            ok = ref[1] & ~ref[2]
+            served += int(ok.sum())
+            for b in torch.nonzero(ok).flatten().tolist():
+                f = int(ref[0][b])
+                assert torch.equal(ref[4][:, :f + 1, b],
+                                   got[4][:, :f + 1, lo + b]), (key, lo + b)
+            del ref
+        if key[1] == 640:
+            assert served <= n // 10  # the overflow that sends it to tier 1
+        else:
+            assert served == n
+        ok = got[1] & ~got[2]
+        shift, _ = te._token_plan(cfg.s_cap, cfg.penalties, Lq, Ltb)
+        end_s, end_k, end_cell = got[5]
+        bt_args = (got[4], end_cell, -toff, end_s, end_k, qlen, tlen, ok)
+        kw = dict(penalties=cfg.penalties, S=cfg.s_cap, K=cfg.k_win,
+                  token_shift=shift, split_ext_codes=True,
+                  global_alignment=True, return_iters=True)
+        for a, b in zip(device_backtrace_plain(*bt_args, **kw),
+                        device_backtrace(*bt_args, **kw)):
+            assert a.dtype == b.dtype and torch.equal(a, b), key
+        del got, outs, bt_args
+        torch.cuda.empty_cache()

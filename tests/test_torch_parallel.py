@@ -331,6 +331,34 @@ def test_each_shard_runs_on_its_own_device(monkeypatch):
         _same(r, oracle.align(q, t))
 
 
+@pytest.mark.parametrize("shards", [1, 4])
+def test_one_upload_path(monkeypatch, shards):
+    """One device's batch and a mesh's shards reach the device through the
+    one upload, ``engine.upload`` (on a card, its upload stream): the
+    sequences and lengths of each shard, and nothing else; the results
+    equal the oracle's."""
+    from wfa_tpu_torch import engine as te
+
+    seen = []
+    upload = te.upload
+
+    def spy(a, dev):
+        seen.append(torch.device(dev).type)
+        return upload(a, dev)
+
+    monkeypatch.setattr(te, "upload", spy)
+    pairs = generate_pairs(8, 60, 0.05, seed=5)
+    eng = BatchAligner(PEN, Options(True), ADA, k_win=128, s_cap=256,
+                       device="cpu",
+                       mesh=cpu_mesh(shards) if shards > 1 else None)
+    got = eng.align_batch(pairs, fallback=False)
+    assert seen == ["cpu"] * (2 * shards)
+    oracle = OracleAligner(PEN, Options(True), ADA)
+    assert all(r is not None for r in got)
+    for (q, t), r in zip(pairs, got):
+        _same(r, oracle.align(q, t))
+
+
 def test_mesh_that_cannot_be_built_raises(monkeypatch):
     """More cards than there are, or none: an error, never a quiet run on
     fewer devices or on the CPU; a batch that does not divide raises."""

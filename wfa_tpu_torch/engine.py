@@ -30,6 +30,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -140,6 +141,35 @@ def resolve_device(device) -> torch.device:
             "available here; pass device='cpu' to run the plain PyTorch "
             "versions of the kernels on the CPU")
     return dev
+
+
+# the uploads' stream of each card (:func:`upload`), made at first use
+_UP_STREAMS: dict = {}
+_UP_LOCK = threading.Lock()
+
+
+def upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """``a``, a host array in pageable memory, on ``dev``.  On a card the
+    copy runs on that card's upload stream: a copy from pageable memory
+    synchronises its stream, so on the launches' stream it would wait
+    for every batch launched before it.  The copy has landed when this
+    returns, and the launches on the thread's current stream then read
+    the tensor (``record_stream`` keeps the allocator from reusing it
+    before they have run).  Every upload of the port goes through here:
+    a batch's rows (:meth:`BatchAligner._upload`) and a mesh shard's
+    (``parallel._rows``)."""
+    t = torch.from_numpy(a)
+    if dev.type != "cuda":
+        return t.to(dev)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    with _UP_LOCK:
+        stream = _UP_STREAMS.get(idx)
+        if stream is None:
+            stream = _UP_STREAMS[idx] = torch.cuda.Stream(idx)
+    with torch.cuda.stream(stream):
+        t = t.to(dev)
+    t.record_stream(torch.cuda.current_stream(dev))
+    return t
 
 
 def window_origin(qlen: int, tlen: int, k_win: int,
@@ -1347,7 +1377,9 @@ class BatchAligner:
     the card a submit runs with this aligner's card as the thread's
     current device, the launches on that device's current stream and the
     copies on a copy stream of this aligner that waits for them, into
-    pinned buffers; so a submit does not wait for the launches (but the
+    pinned buffers, and the uploads on the card's upload stream
+    (:func:`upload`); so a submit waits neither for its own launches nor
+    for earlier batches' (but the
     two-phase route's mid-point fetch of ``meta1``), and several threads
     may submit and finish batches of one aligner at once.
 
@@ -1433,10 +1465,10 @@ class BatchAligner:
                          global_alignment=self.cfg.global_alignment)
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """``a`` on the device (a copy from pageable host memory)."""
+        """``a`` on the device (:func:`upload`)."""
         trace.count(trace.BYTES_UP, a.nbytes)
         with trace.span(trace.UPLOAD):
-            return torch.from_numpy(a).to(self.device)
+            return upload(a, self.device)
 
     def _on_device(self):
         """Context that makes this aligner's card the thread's current
@@ -1455,6 +1487,7 @@ class BatchAligner:
         another submits; a mesh ignores it (its batch is padded first)."""
         if self.mesh is not None:
             return self._submit_mesh(list(pairs))
+        trace.count(trace.AUX_ROWS, self.cfg.s_cap * len(pairs))
         with self._on_device():
             return self._submit(list(pairs), prepacked)
 
@@ -1559,6 +1592,7 @@ class BatchAligner:
                              "only")
         padded = pairs + [(b"A", b"A")] * ((-len(pairs)) % mesh.size)
         B = len(padded)
+        trace.count(trace.AUX_ROWS, self.cfg.s_cap * B)
         if self.engine == "semi2":
             # K3 on each shard, the mid-point on the whole batch (meta1
             # from every shard of every process), K4 and K2 on each shard
@@ -1786,18 +1820,21 @@ class BatchAligner:
         results: List[Optional[AlignmentResult]] = []
         oracle = self._oracle
         ga = self.cfg.global_alignment
+        used = 0  # aux rows the served pairs used
         for (q, t), score, fs, ovf, tk in zip(
                 pairs, meta[:, M_SCORE].tolist(), final,
                 meta[:, M_OVF].tolist(), toks):
             if ovf:
                 results.append(oracle.align(q, t) if fallback else None)
             else:
+                used += fs + 1
                 res = DeviceResult.from_device(
                     ga, score, (tk, q, t) if edit else tk)
                 res.final_s = fs
                 if not ga:
                     res.lens = (len(q), len(t))
                 results.append(res)
+        trace.count(trace.AUX_ROWS_USED, used)
         return results
 
     def _splice(self, h: Submitted) -> tuple:

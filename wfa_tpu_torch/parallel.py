@@ -264,13 +264,15 @@ def shard_launches(mesh: DpMesh) -> List[dict]:
 
 
 def _rows(a, rows: slice, dev: torch.device) -> torch.Tensor:
-    """Rows of a host array (or CPU tensor) of the whole batch on
-    ``dev``."""
+    """Rows of a host array (or CPU tensor) of the whole batch on ``dev``
+    (``engine.upload``: on the card's upload stream)."""
+    from .engine import upload
+
     a = a.numpy() if isinstance(a, torch.Tensor) else a
     with trace.span(trace.UPLOAD):
         a = np.ascontiguousarray(a[rows])
         trace.count(trace.BYTES_UP, a.nbytes)
-        return torch.from_numpy(a).to(dev)
+        return upload(a, dev)
 
 
 def dp_align_full_fn(cfg, mesh: DpMesh, B: int, Lq: int, Ltb: int,

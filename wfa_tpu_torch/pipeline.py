@@ -180,6 +180,9 @@ class AlignmentPipeline:
         # exact fallback)
         self.served: Dict[object, int] = {}
         self._device_errors = 0  # device faults in the current align_all
+        # the indices of the current align_all's pairs that a tier above 0
+        # ran (trace.RETRIED_PAIRS counts each once)
+        self._retried: set = set()
         # the worker pools and the count cap, made at first use
         self._spool: Optional[ThreadPoolExecutor] = None
         self._dpool: Optional[ThreadPoolExecutor] = None
@@ -341,6 +344,7 @@ class AlignmentPipeline:
         # ladder has nothing wider, and after two faults the rest finishes
         # on the oracle
         self._device_errors = 0
+        self._retried = set()
         score_seen: Dict[Tuple[int, int], int] = {}
         if self.cfg.use_device:
             prev_caps = {}  # bucket -> previous tier's caps
@@ -422,6 +426,8 @@ class AlignmentPipeline:
                     continue
                 cb = batch_bytes * len(chunk) // bs  # this chunk's model
                 chunk_pairs = [p for _, p in chunk]
+                if tier:
+                    self._note_retried(chunk)
                 try:
                     if engine.startswith("semi2") and self._serial(cb):
                         # a multi-GB two-phase batch runs alone: fence
@@ -477,6 +483,13 @@ class AlignmentPipeline:
                         continue
                     probe_fut = None
                     skip_rest = _doomed(out)
+
+    def _note_retried(self, chunk) -> None:
+        """Count the pairs of a chunk that a tier above 0 runs, each pair
+        once a call."""
+        new = {idx for idx, _ in chunk} - self._retried
+        self._retried |= new
+        trace.count(trace.RETRIED_PAIRS, len(new))
 
     def _collect(self, tier: int, inflight, counted, pending, results,
                  served, score_seen) -> dict:

@@ -29,9 +29,13 @@ token extent missed, so that the drain queued a second copy and waited
 again), kernel launches (``_build.tally_launches``) and the shards'
 launch lag (a mesh step's last shard span's end less its first's), and
 the bases the native direct pack packed, all and those its vector body
-packed (``native.pack_direct``).  A thread takes part only while a call
-has bound it (:func:`call`, :func:`batch`); elsewhere a span costs one
-attribute read.  No Python object is kept per span.
+packed (``native.pack_direct``), the pairs a tier above 0 ran (each pair
+once a call: the tier ladder's retries), and the aux rows: the score cap
+times the pairs of each batch launched (``aux_rows``) and the rows the
+served pairs used, final_s + 1 each (``aux_rows_used``).  A thread takes
+part only while a call has bound it (:func:`call`, :func:`batch`);
+elsewhere a span costs one attribute read.  No Python object is kept per
+span.
 
 Inside :func:`timeline` each span also goes to a bounded buffer, which
 :meth:`Timeline.chrome_events` exports as chrome-trace events on the
@@ -73,9 +77,10 @@ KINDS = ("call", "gate", "queue", "submit", "pack", "upload", "shard",
 CPU_KINDS = frozenset((PACK, BUILD))
 COUNTERS = ("pairs", "batches", "bytes_up", "bytes_down", "refetches",
             "launches", "shard_lag_ns", "shard_steps", "packed_bases",
-            "packed_vec_bases")
+            "packed_vec_bases", "retried_pairs", "aux_rows", "aux_rows_used")
 (PAIRS, BATCHES, BYTES_UP, BYTES_DOWN, REFETCHES, LAUNCHES, SHARD_LAG,
- SHARD_STEPS, PACKED_BASES, PACKED_VEC_BASES) = range(len(COUNTERS))
+ SHARD_STEPS, PACKED_BASES, PACKED_VEC_BASES, RETRIED_PAIRS, AUX_ROWS,
+ AUX_ROWS_USED) = range(len(COUNTERS))
 HISTORY = 4096
 TIMELINE = 1 << 20  # spans a timeline keeps
 MARK = "wfa.align_all"
