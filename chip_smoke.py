@@ -60,7 +60,7 @@ spaced results of each against the port's exact oracle:
 * long global reads: 64 pairs of l=50000, e=0.05, 4/6/2, 10/50/1
   (bench.py's matrix row), through K1-long and K2 over its rebased aux,
   both checked on those same 64 pairs, the path's one batch (the plain
-  K1-long takes ~100 s a call, ~6 ms for each of ~14,600 scores, so it
+  K1-long takes ~49 s a call, ~7 ms for each of ~7,230 rows, so it
   runs once, at the higher cap: every pair finishes under both, and its
   rows below the lower cap are the plain output there); all 64 results
   checked against the oracle;
@@ -92,6 +92,12 @@ the most modelled device bytes they reserved against the byte gate.
 
 K1, K1-kw and K1-long are checked at each (k_win, s_cap) the paths run:
 tier 0's first cap and the cap the score memory fits after the warm call.
+Each check launches a kernel and its plain version as the path does
+(``launch_config``): a global score loop, and K2 over its aux, at the
+penalties divided by their stride (``engine.score_stride``; 4/6/2 runs
+at 2/3/1 over (s_cap - 2) // 2 + 2 rows), with the stream layout of the
+configured penalties and cap, so each record's time and bound are those
+of the launch the path makes.
 A path that builds an engine of caps that GLOBAL_CHECKS, EXACT_CHECKS,
 SEMI_CHECKS, SEMI2_CHECKS, KW_CHECKS or LONG_CHECKS lacks fails the run (after every
 phase has run, so one run shows all of them).  Every comparison is integer and
@@ -424,6 +430,17 @@ def check_kernels(checks, global_alignment: bool, reps: int,
     return recs
 
 
+def launch_config(cfg):
+    """The config a path launches a score loop and K2 at, for the
+    configured ``cfg``, and its stride: a global loop runs at the
+    penalties' stride (``engine.score_stride``, ``engine.loop_config``),
+    any other at ``cfg``."""
+    from wfa_tpu_torch.engine import loop_config, score_stride
+
+    g = score_stride(cfg)
+    return loop_config(cfg, g), g
+
+
 def k1_bound(cfg, ins, final_s, ok, cell_bytes: int, base_bytes: int = 0):
     """Bytes and operations a score-loop call must spend: read the rows
     and lengths once, write the aux rows 0..final_s of the pairs it
@@ -440,7 +457,8 @@ def k1_bound(cfg, ins, final_s, ok, cell_bytes: int, base_bytes: int = 0):
 
 
 def phase_k1(cfg, ins, reps: int = 10, once: bool = False):
-    """K1 against run_batch_plain on the card; returns (record, outputs).
+    """K1 against run_batch_plain on the card, both at the path's launch
+    config for ``cfg`` (``launch_config``); returns (record, outputs).
     With ``once`` the plain version's one checked call is also its
     time."""
     import torch
@@ -449,6 +467,7 @@ def phase_k1(cfg, ins, reps: int = 10, once: bool = False):
 
     qb, tbuf, qlen, tlen, toff, Lq, Ltb = ins
     args = (qb, tbuf, qlen, tlen, toff)
+    cfg, g = launch_config(cfg)
     kw = dict(cfg=cfg, Lq=Lq, Ltb=Ltb)
     name = "score_loop" if cfg.global_alignment else "score_loop_semi"
     ref, plain_ms = timed_once(lambda: run_batch_plain(*args, **kw))
@@ -461,7 +480,8 @@ def phase_k1(cfg, ins, reps: int = 10, once: bool = False):
             fail(f"{name} {field} differs on {int((a != b).sum())} pairs")
     ok = ref[1] & ~ref[2]
     # the aux rows 0..final_s of done pairs, 64 rows at a time (at the
-    # e=0.20 path's tier-1 caps each aux is 17 GB)
+    # e=0.20 path's tier-1 caps each aux is 17 GB at every score, half at
+    # the stride)
     last, okm = ref[0][None, None, :, None], ok[None, None, :, None]
     err = bad = 0
     for s0 in range(0, cfg.s_cap, 64):
@@ -485,14 +505,16 @@ def phase_k1(cfg, ins, reps: int = 10, once: bool = False):
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            **k1_bound(cfg, ins, got[0], ok, 4)}
     print(f"K1 {name} == run_batch_plain: {n} pairs, k_win {cfg.k_win}, "
-          f"s_cap {cfg.s_cap}, {int(ok.sum())} done, max_abs_err {err} "
+          f"{cfg.penalties} (stride {g}), s_cap {cfg.s_cap}, "
+          f"{int(ok.sum())} done, max_abs_err {err} "
           f"(tolerance 0); kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
           f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
     return rec, got
 
 
 def phase_k1_long(cfg, ins, reps: int = 3, plain=None):
-    """K1-long against run_batch_long_plain on the card: every out row of
+    """K1-long against run_batch_long_plain on the card, both at the
+    path's launch config for ``cfg`` (``launch_config``): every out row of
     every pair, the int16 aux rows and their bases 0..final_s of done
     pairs.  The plain version's one checked call is also its time.
     ``plain`` (a dict) keeps the plain output for the next call on the
@@ -504,6 +526,7 @@ def phase_k1_long(cfg, ins, reps: int = 3, plain=None):
 
     qb, tbuf, qlen, tlen, toff, Lq, Ltb = ins
     args = (qb, tbuf, qlen, tlen, toff)
+    cfg, g = launch_config(cfg)
     kw = dict(cfg=cfg, Lq=Lq, Ltb=Ltb)
     name = "score_loop_long"
     kept = (plain or {}).get("out")
@@ -551,9 +574,11 @@ def phase_k1_long(cfg, ins, reps: int = 3, plain=None):
            "replaces": "wfa_tpu/pallas_longread.py:168",
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            **k1_bound(cfg, ins, got[0], ok, 2, 4)}
+    steps = float((got[0].double() + 1).mean())
     print(f"K1 {name} == run_batch_long_plain: {qb.shape[0]} pairs, k_win "
-          f"{cfg.k_win}, s_cap {cfg.s_cap}, final_s max "
-          f"{int(got[0].max())}, max_abs_err {err} (tolerance 0); kernel "
+          f"{cfg.k_win}, {cfg.penalties} (stride {g}), s_cap {cfg.s_cap}, "
+          f"final_s max {int(got[0].max())}, {steps:.1f} steps a pair, "
+          f"max_abs_err {err} (tolerance 0); kernel "
           f"{ms:.3f} ms, plain {how} (peak device memory "
           f"{plain_peak:.2f} GiB), bound {rec['bound_ms']:.4f} ms "
           f"({rec['bound_by']})")
@@ -561,20 +586,25 @@ def phase_k1_long(cfg, ins, reps: int = 3, plain=None):
 
 
 def phase_k1_kw(cfg, ins, reps: int = 3):
-    """K1-kw against run_batch_kw_plain on the card: every out row of every
+    """K1-kw against run_batch_kw_plain on the card, both at the path's
+    launch config for ``cfg`` (``launch_config``): every out row of every
     pair, the int16 aux rows and sbase words 0..final_s of served pairs
     (the rest zeroed on both sides, ``engine.canonical_kw``).  The plain
     version's one checked call is also its time.  Then int32 K1 and K1-kw
     on the same batch in turns (K1, K1-kw, K1-kw, K1), and K2 over each
     one's aux in turns, printed beside the record."""
     import torch
-    from wfa_tpu_torch.device_backtrace import device_backtrace
+    from wfa_tpu_torch.device_backtrace import device_backtrace, iter_capacity
     from wfa_tpu_torch.engine import (_token_plan, canonical_kw,
                                       run_batch_kw_plain)
     from wfa_tpu_torch.kernel_engine import run_batch, run_batch_kw
 
     qb, tbuf, qlen, tlen, toff, Lq, Ltb = ins
     args = (qb, tbuf, qlen, tlen, toff)
+    # K2 below: the stream layout of the configured cfg, the launch's rows
+    shift, _ = _token_plan(cfg.s_cap, cfg.penalties, Lq, Ltb)
+    it_cap = iter_capacity(cfg.s_cap, cfg.penalties)
+    cfg, g = launch_config(cfg)
     kw = dict(cfg=cfg, Lq=Lq, Ltb=Ltb)
     name = "score_loop_kw"
     torch.cuda.synchronize()
@@ -606,9 +636,8 @@ def phase_k1_kw(cfg, ins, reps: int = 3):
     # their times in turns on this batch
     k1 = run_batch(*args, **kw)
     ak, ok2 = tlen - qlen, ok & k1[1] & ~k1[2]
-    shift, _ = _token_plan(cfg.s_cap, cfg.penalties, Lq, Ltb)
     bkw = dict(penalties=cfg.penalties, S=cfg.s_cap, token_shift=shift,
-               split_ext_codes=True)
+               split_ext_codes=True, it_cap=it_cap)
 
     def k2(kw_aux: bool):
         if kw_aux:
@@ -630,7 +659,8 @@ def phase_k1_kw(cfg, ins, reps: int = 3):
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            **k1_bound(cfg, ins, got[0], ok, 2, 4)}
     print(f"K1 {name} == run_batch_kw_plain: {qb.shape[0]} pairs, k_win "
-          f"{cfg.k_win}, KW {cfg.aux_kw}, s_cap {cfg.s_cap}, {int(ok.sum())} "
+          f"{cfg.k_win}, KW {cfg.aux_kw}, {cfg.penalties} (stride {g}), "
+          f"s_cap {cfg.s_cap}, {int(ok.sum())} "
           f"served, final_s max {int(got[0].max())}, largest row base cb "
           f"{cb}, max_abs_err {err} (tolerance 0); kernel {ms:.3f} ms, plain "
           f"{plain_ms:.1f} ms (peak device memory {plain_peak:.2f} GiB, "
@@ -674,8 +704,10 @@ def phase_k2(cfg, ins, k1_out, reps: int = 10, long: bool = False,
              rows_kw: bool = False, once: bool = False):
     """K2 against device_backtrace_plain on K1's aux (K1-long's rebased
     aux with its bases, or K1-kw's with its sbase words: ``rows_kw``),
-    from K1's end.  With ``once`` the plain version's one checked call is
-    also its time."""
+    from K1's end, both as the path launches them for the configured
+    ``cfg``: at the score loop's launch config (``launch_config``) with
+    the stream layout and iteration capacity of ``cfg``.  With ``once``
+    the plain version's one checked call is also its time."""
     import torch
     from wfa_tpu_torch.device_backtrace import (device_backtrace,
                                                 device_backtrace_plain,
@@ -694,6 +726,8 @@ def phase_k2(cfg, ins, k1_out, reps: int = 10, long: bool = False,
     else:
         _, done, overflow, _, aux, (end_s, end_k, end_cell) = k1_out
     shift, _ = _token_plan(cfg.s_cap, cfg.penalties, Lq, Ltb)
+    it_cap = iter_capacity(cfg.s_cap, cfg.penalties)
+    cfg, g = launch_config(cfg)
     ga = cfg.global_alignment
     name = ("backtrace_long" if long else "backtrace_kw" if rows_kw
             else "backtrace" if ga else "backtrace_semi")
@@ -701,7 +735,7 @@ def phase_k2(cfg, ins, k1_out, reps: int = 10, long: bool = False,
     kw = dict(penalties=cfg.penalties, S=cfg.s_cap,
               K=cfg.aux_kw if rows_kw else cfg.k_win, token_shift=shift,
               split_ext_codes=ga, global_alignment=ga, aux_base=aux_base,
-              aux_sbase=sbase, return_iters=True)
+              aux_sbase=sbase, return_iters=True, it_cap=it_cap)
     ref, plain_ms = timed_once(lambda: device_backtrace_plain(*args, **kw))
     got = device_backtrace(*args, **kw)
     torch.cuda.synchronize()
@@ -723,7 +757,7 @@ def phase_k2(cfg, ins, k1_out, reps: int = 10, long: bool = False,
     steps = int(got[3].long().sum())
     cell = (2 + 4) if long or rows_kw else 4
     tok = got[0].element_size()
-    slots = 1 + 2 * iter_capacity(cfg.s_cap, cfg.penalties) + 4
+    slots = 1 + 2 * it_cap + 4
     nbytes = 25 * B + steps * cell + slots * B * tok + 4 * B
     rec = {"name": name, "route": "cuda",
            "source": "wfa_tpu_torch/csrc/backtrace.cu",
@@ -731,7 +765,8 @@ def phase_k2(cfg, ins, k1_out, reps: int = 10, long: bool = False,
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            **bound(nbytes, steps)}
     print(f"K2 {name} == device_backtrace_plain: {B} pairs, k_win "
-          f"{cfg.k_win}, s_cap {cfg.s_cap}, {steps} chase steps, "
+          f"{cfg.k_win}, {cfg.penalties} (stride {g}), s_cap {cfg.s_cap}, "
+          f"{steps} chase steps, "
           f"max_abs_err {err} (tolerance 0); kernel {ms:.3f} ms, plain "
           f"{plain_ms:.1f} ms, bound {rec['bound_ms']:.4f} ms "
           f"({rec['bound_by']})")

@@ -23,9 +23,10 @@ each threshold of its launch plan, at every plan on a batch whose pairs
 leave one block at different steps; mismatch or gap extension 1; an
 extension that ends at the last byte of the batch's rows; exact global
 alignment at its full-span window and the exact cell's score caps, on
-the batches its path builds), and that the card's host packs the
-long-read cell's batch with the native pack's vector body.  Integer
-outputs: exact equality.
+the batches its path builds; global paths at the penalties' stride
+against the plain versions and the stride-1 launch), and that the card's
+host packs the long-read cell's batch with the native pack's vector
+body.  Integer outputs: exact equality.
 """
 
 import dataclasses
@@ -494,6 +495,37 @@ def test_align_full2_card_matches_cpu(card, ga, engine, s_cap):
     assert sorted(cpu) == sorted(gpu)
     for key in cpu:
         assert torch.equal(cpu[key], gpu[key].cpu()), key
+
+
+@pytest.mark.parametrize("engine,n,length,k_win,s_cap", [
+    ("auto", 512, 1000, 128, 640), ("long", 16, 5000, 384, 2048)],
+    ids=["K1", "K1-long"])
+def test_align_full2_at_the_stride_matches_plain(card, monkeypatch, engine,
+                                                 n, length, k_win, s_cap):
+    """At 4/6/2 a global path runs its score loop and K2 at 2/3/1 over
+    (s_cap - 2) // 2 + 2 rows (``engine.score_stride``): the card's
+    streams equal the plain versions' and the card's at stride 1."""
+    from wfa_tpu_torch import engine as te
+
+    cfg = te.EngineConfig(penalties=Penalties(4, 6, 2), adaptive=ADAPTIVE,
+                          k_win=k_win, s_cap=s_cap)
+    assert te.score_stride(cfg) == 2
+    pairs = _pairs(n, length, 0.05, 17)
+    _, _, qlen, tlen, toff, Lq, Ltb, qp, tp = te._pack_all(pairs, k_win)
+    seq = torch.from_numpy(np.concatenate([qp, tp], axis=1))
+    lens = torch.from_numpy(np.stack([qlen, tlen, toff], axis=1))
+    kw = dict(cfg=cfg, B=len(pairs), Lq=Lq, Ltb=Ltb, packed=True,
+              engine=engine)
+    cpu = te.align_full2(seq, lens, **kw)
+    gpu = te.align_full2(seq.to(card), lens.to(card), **kw)
+    monkeypatch.setattr(te, "score_stride", lambda c: 1)
+    gpu1 = te.align_full2(seq.to(card), lens.to(card), **kw)
+    meta, _ = te.decode_outputs(pairs, cpu["mtb"].numpy(), cpu["lg"].numpy())
+    assert (meta[:, te.M_OVF] == 0).sum() >= n - 2
+    assert sorted(cpu) == sorted(gpu) == sorted(gpu1) == ["lg", "mtb"]
+    for key in cpu:
+        assert torch.equal(cpu[key], gpu[key].cpu()), key
+        assert torch.equal(gpu1[key], gpu[key]), key
 
 
 def test_wrappers_check_their_inputs(card):

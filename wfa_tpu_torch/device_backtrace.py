@@ -111,7 +111,7 @@ def device_backtrace_plain(
     penalties, S: int, K: int, token_shift: int,
     split_ext_codes: bool = False, global_alignment: bool = True,
     aux_base=None, aux_old=None, k0_old=None, s_split: int = 0,
-    aux_sbase=None, return_iters: bool = False,
+    aux_sbase=None, return_iters: bool = False, it_cap=None,
 ):
     """Plain PyTorch version of kernel K2.
 
@@ -132,14 +132,18 @@ def device_backtrace_plain(
     tail, zero = empty slot, int16 when ``token_shift`` <= 12; with
     ``return_iters`` also int32[B], the chase iterations each pair ran
     (their maximum is the JAX loop's iteration count).  A semi-global
-    chase stops once it reaches the first row or column."""
+    chase stops once it reaches the first row or column.  ``it_cap``
+    (default ``iter_capacity(S, penalties)``) sets the rows of ``buf``
+    and the most iterations: a loop run at a stride passes the capacity
+    of the scores it stands for, so that its stream keeps their layout."""
     dev = aux.device
     B = qlen.shape[0]
     i32 = torch.int32
     x = penalties.mismatch
     oe = penalties.gap_open + penalties.gap_ext
     e = penalties.gap_ext
-    it_cap = iter_capacity(S, penalties)
+    if it_cap is None:
+        it_cap = iter_capacity(S, penalties)
     tok_dtype = _tok_dtype(token_shift)
     Sn = S - s_split  # rows held by aux
     flat = aux.reshape(3 * Sn * B, K)
@@ -281,7 +285,7 @@ def device_backtrace(
     penalties, S: int, K: int, token_shift: int,
     split_ext_codes: bool = False, global_alignment: bool = True,
     aux_base=None, aux_old=None, k0_old=None, s_split: int = 0,
-    aux_sbase=None, return_iters: bool = False,
+    aux_sbase=None, return_iters: bool = False, it_cap=None,
 ):
     """Kernel K2 (same contract as :func:`device_backtrace_plain`).
 
@@ -297,7 +301,7 @@ def device_backtrace(
             split_ext_codes=split_ext_codes,
             global_alignment=global_alignment, aux_base=aux_base,
             aux_old=aux_old, k0_old=k0_old, s_split=s_split,
-            aux_sbase=aux_sbase, return_iters=return_iters)
+            aux_sbase=aux_sbase, return_iters=return_iters, it_cap=it_cap)
     from ._build import check_inputs, launch, stream_ptr
 
     B = qlen.shape[0]
@@ -332,7 +336,8 @@ def device_backtrace(
                      k0_old=(k0_old, i32, (B,)))
     elif s_split:
         raise ValueError("device_backtrace: s_split needs aux_old")
-    it_cap = iter_capacity(S, penalties)
+    if it_cap is None:
+        it_cap = iter_capacity(S, penalties)
     tok_dtype = _tok_dtype(token_shift)
     dev = aux.device
     tok0 = torch.empty(B, dtype=tok_dtype, device=dev)

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import os
 import threading
 from typing import List, Optional, Sequence, Tuple
@@ -97,6 +98,36 @@ def config_from_jax(cfg) -> EngineConfig:
         adaptive=cfg.adaptive, k_win=cfg.k_win, s_cap=cfg.s_cap,
         prefix=bool(getattr(cfg, "prefix", False)),
         aux_kw=getattr(cfg, "aux_kw", None))
+
+
+def score_stride(cfg: EngineConfig) -> int:
+    """The stride g of a global score loop: the greatest common divisor of
+    the penalties, which divides every score a wavefront can hold, so that
+    only the rows of scores 0, g, 2g, ... can hold a cell.  1 for
+    semi-global alignment (the two-phase route's S0 counts score steps,
+    and the end finder's rows are K1-semi's own) and where the mismatch
+    seed row lies past the cap."""
+    p = cfg.penalties
+    if not cfg.global_alignment or cfg.prefix or p.mismatch >= cfg.s_cap:
+        return 1
+    return max(1, math.gcd(p.mismatch, p.gap_open, p.gap_ext))
+
+
+def loop_config(cfg: EngineConfig, g: int) -> EngineConfig:
+    """The config a global score loop and its backtrace run at stride
+    ``g`` (:func:`score_stride`): the penalties divided by g, and
+    (s_cap - 2) // g + 2 rows, so that the last row the loop tests,
+    s_cap - 2, keeps the same multiples of g.  Row r then holds score g r
+    with the same cells, tags, bands and reductions: WFA's recurrences
+    read the penalties only as score differences, and the wf-adaptive
+    reduce reads offsets and distances."""
+    if g == 1:
+        return cfg
+    p = cfg.penalties
+    return dataclasses.replace(
+        cfg, penalties=Penalties(p.mismatch // g, p.gap_open // g,
+                                 p.gap_ext // g),
+        s_cap=(cfg.s_cap - 2) // g + 2)
 
 
 def engine_kw(engine: str, k_win: int) -> Optional[int]:
@@ -1068,9 +1099,14 @@ def canonical_kw(res):
 def _finish_outputs(aux, start_cell, k0, start_s, start_k, qlen, tlen, done,
                     overflow, *, cfg: EngineConfig, Lq: int, Ltb: int,
                     edit: bool, aux_base=None, aux_old=None, k0_old=None,
-                    s_split: int = 0, aux_sbase=None, flat: bool = True):
+                    s_split: int = 0, aux_sbase=None, flat: bool = True,
+                    stride: int = 1):
     """Backtrace (kernel K2), token compaction and the meta header, equal
-    to ``wfa_tpu.engine._finish_outputs(..., flat=flat)``.  ``aux_base``
+    to ``wfa_tpu.engine._finish_outputs(..., flat=flat)``.  A score loop
+    run at ``stride`` (:func:`score_stride`) hands over its aux in rows of
+    ``loop_config(cfg, stride)`` and ``start_s`` in those rows: K2 walks
+    them at that config, the meta's scores are ``start_s * stride``, and
+    the output layout follows ``cfg``.  ``aux_base``
     marks the long-read score loop's value-rebased int16 aux, ``aux_sbase``
     K1-kw's row- and value-rebased aux, KW = ``cfg.aux_kw`` columns wide
     (wfa_tpu/engine.py:1315-1317).  The
@@ -1096,14 +1132,17 @@ def _finish_outputs(aux, start_cell, k0, start_s, start_k, qlen, tlen, done,
     K = cfg.aux_kw if aux_sbase is not None else cfg.k_win
     token_shift, compact = _token_plan(S, cfg.penalties, Lq, Ltb)
     edit = edit and compact and flat  # the 2-D layout is never edit-only
+    lcfg = loop_config(cfg, stride)
+    it_cap = iter_capacity(S, cfg.penalties)
     bt = device_backtrace(
         aux, start_cell, k0, start_s, start_k, qlen, tlen, done & ~overflow,
-        penalties=cfg.penalties, S=S, K=K, token_shift=token_shift,
+        penalties=lcfg.penalties, S=lcfg.s_cap, K=K, token_shift=token_shift,
         split_ext_codes=edit, global_alignment=cfg.global_alignment,
         aux_base=aux_base, aux_old=aux_old, k0_old=k0_old, s_split=s_split,
-        aux_sbase=aux_sbase, return_iters=not compact)
+        aux_sbase=aux_sbase, return_iters=not compact, it_cap=it_cap)
     tok0, buf, tail = bt[:3]
-    ns_cap = 2 * iter_capacity(S, cfg.penalties) + 5
+    start_s = start_s * stride
+    ns_cap = 2 * it_cap + 5
     meta16 = max(Lq + Ltb, S, ns_cap) <= 32000
     if not compact:
         iters = bt[3]
@@ -1157,7 +1196,11 @@ def align_full2(seq, lens, *, cfg: EngineConfig, B: int, Lq: int, Ltb: int,
     rebased aux from (final_s, Ak, term_cell); "kw" runs K1-kw (global
     only, ``cfg.aux_kw`` columns, JAX's ``engine="pallas"`` with
     ``aux_kw``, engine.py:1232-1246) and K2 over its rebased aux through
-    the sbase words, from (final_s, Ak, term_cell)."""
+    the sbase words, from (final_s, Ak, term_cell).
+
+    A global score loop and K2 run at ``loop_config(cfg, g)``, g =
+    :func:`score_stride`: only the rows that can hold a cell, the same
+    cells in the same order, so every output byte is the stride-1 loop's."""
     from .kernel_engine import run_batch, run_batch_kw, run_batch_long
 
     qw = Lq // 4 if packed else Lq
@@ -1168,25 +1211,27 @@ def align_full2(seq, lens, *, cfg: EngineConfig, B: int, Lq: int, Ltb: int,
         tbuf = _unpack2(tbuf, Ltb, toff, toff + tlen)
     args = (qb.contiguous(), tbuf.contiguous(), qlen, tlen, toff)
     edit = edit_only(cfg) if edit is None else edit
+    g = score_stride(cfg)
+    lcfg = loop_config(cfg, g)
     if engine == "long":
         final_s, done, overflow, term_cell, aux, aux_base = run_batch_long(
-            *args, cfg=cfg, Lq=Lq, Ltb=Ltb)
+            *args, cfg=lcfg, Lq=Lq, Ltb=Ltb)
         return _finish_outputs(aux, term_cell, -toff, final_s, tlen - qlen,
                                qlen, tlen, done, overflow, cfg=cfg, Lq=Lq,
                                Ltb=Ltb, edit=edit, aux_base=aux_base,
-                               flat=flat)
+                               flat=flat, stride=g)
     if engine == "kw":
         final_s, done, overflow, term_cell, aux, sbase = run_batch_kw(
-            *args, cfg=cfg, Lq=Lq, Ltb=Ltb)
+            *args, cfg=lcfg, Lq=Lq, Ltb=Ltb)
         return _finish_outputs(aux, term_cell, -toff, final_s, tlen - qlen,
                                qlen, tlen, done, overflow, cfg=cfg, Lq=Lq,
                                Ltb=Ltb, edit=edit, aux_sbase=sbase,
-                               flat=flat)
+                               flat=flat, stride=g)
     final_s, done, overflow, _, aux, (end_s, end_k, end_cell) = run_batch(
-        *args, cfg=cfg, Lq=Lq, Ltb=Ltb)
+        *args, cfg=lcfg, Lq=Lq, Ltb=Ltb)
     out = _finish_outputs(aux, end_cell, -toff, end_s, end_k, qlen, tlen,
                           done, overflow, cfg=cfg, Lq=Lq, Ltb=Ltb, edit=edit,
-                          flat=flat)
+                          flat=flat, stride=g)
     if not cfg.global_alignment:
         out["final_s"] = final_s
     return out

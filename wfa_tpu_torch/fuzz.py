@@ -74,7 +74,7 @@ import torch
 
 from .constants import AdaptiveReductionOption, Options, Penalties
 from .engine import (BatchAligner, EngineConfig, _pack_all, align_full2,
-                     windows)
+                     loop_config, score_stride, windows)
 from .kernel_engine import H100_SMS, prefix_plan, workspace
 
 # batch sizes on either side of the warp shape's pairs-a-block thresholds
@@ -191,7 +191,9 @@ def draw_case(rng: random.Random) -> dict:
         engine = rng.choice(("auto", "long", "kw"))
         # (the K1-kw of these short reads runs 16-bit cells)
         mode = {"auto": 0, "long": 2, "kw": "kw16"}[engine]
-        k_win = rng.choice((128,) + limit_sides(base, mode))
+        # the sides of the workspace the loop gets at its stride
+        k_win = rng.choice((128,) + limit_sides(
+            loop_config(base, score_stride(base)), mode))
         # the windows must hold the terminal diagonal
         while k_win < 2 * spread + 8:
             k_win += 128

@@ -29,7 +29,9 @@ instantiations of the score loop (:func:`run_phases`,
 :func:`run_prefix_phases`, :func:`run_resume_phases`) on the batches of
 ``PHASE_BATCHES``: K1 on 2048 global pairs of l=1000 (k_win 128, s_cap
 640), K1-long on 64 pairs of l=50000 (k_win 384, s_cap 27,648) and K1-kw
-on 2048 pairs of l=4000 (KW = k_win 256, s_cap 2304), of
+on 2048 pairs of l=4000 (KW = k_win 256, s_cap 2304), each at the stride
+its path runs (``engine.score_stride``: 2/3/1 over (s_cap - 2) // 2 + 2
+rows), of
 ``SEMI2_BATCHES``: K3 on 2048 semi-global pairs of l=1000 (Kf 2048) and
 on 64 of l=10000 (Kf 20,096), S0 64, K2 256, and of ``RESUME_BATCHES``:
 K4 on those two batches' exports; ``generate_pairs(n, l, 0.05,
@@ -259,14 +261,15 @@ def run_resume_phases(*r_args, plan=None, **rkw):
 
 
 def phase_split(name: str) -> dict:
-    """The timed score loop on ``PHASE_BATCHES[name]``, for K3
+    """The timed score loop on ``PHASE_BATCHES[name]`` (at the stride its
+    path runs), for K3
     ``SEMI2_BATCHES[name]``, for K4 ``RESUME_BATCHES[name]`` (on K3's
     exports), each at its launch plan: cycles per phase (summed over the batch's pairs), per step,
     and shares; the steps, and the mean columns extend strode a step; the
     launch's milliseconds (CUDA events, stamps included)."""
     import torch
 
-    from .engine import semi_cell16
+    from .engine import loop_config, score_stride, semi_cell16
     from .kernel_engine import (_prefix_launch, _sms, kw_mode, prefix_plan,
                                 resume_mode, warp_plan)
 
@@ -301,6 +304,8 @@ def phase_split(name: str) -> dict:
     else:
         n, length, k_win, s_cap, kw, mode = PHASE_BATCHES[name]
         cfg, ins = kernel_batch(n, length, k_win, s_cap, kw)
+        g = score_stride(cfg)
+        cfg = loop_config(cfg, g)
         args = ins[:5]
         pkw = dict(cfg=cfg, Lq=ins[5], Ltb=ins[6], mode=mode)
 
@@ -309,7 +314,8 @@ def phase_split(name: str) -> dict:
             return out[1], cyc
 
         rec = {"row": name, "pairs": n, "length": length, "k_win": k_win,
-               "s_cap": s_cap, "kw": kw}
+               "s_cap": s_cap, "kw": kw, "stride": g,
+               "loop_s_cap": cfg.s_cap}
         if mode == 3:
             rec["plan"] = warp_plan(cfg, kw_mode(ins[6]), n, sms)._asdict()
     run()  # warm
