@@ -299,28 +299,18 @@ def oracle_check(tag: str, pairs, results, idx, aligner) -> None:
           f"({time.perf_counter() - t0:.1f} s, {workers} processes)")
 
 
-def counters() -> dict:
-    """Every kernel wrapper's launch counts, by mode."""
-    from wfa_tpu_torch.device_backtrace import device_backtrace
-    from wfa_tpu_torch.kernel_engine import (run_batch, run_batch_kw,
-                                             run_batch_long, run_prefix,
-                                             run_resume)
-
-    return {"score_loop": run_batch.launches,
-            "score_loop_kw": run_batch_kw.launches,
-            "score_loop_long": run_batch_long.launches,
-            "score_loop_prefix": run_prefix.launches,
-            "score_loop_resume": run_resume.launches,
-            "backtrace": device_backtrace.launches}
-
-
 def reset_counters() -> None:
-    for counts in counters().values():
+    from wfa_tpu_torch.parallel import launch_tallies
+
+    for counts in launch_tallies().values():
         counts.update(dict.fromkeys(counts, 0))
 
 
 def read_counters() -> dict:
-    return {name: dict(c) for name, c in counters().items()}
+    """Every kernel wrapper's launch counts, by mode."""
+    from wfa_tpu_torch.parallel import launch_tallies
+
+    return {name: dict(c) for name, c in launch_tallies().items()}
 
 
 class record_batches:
@@ -1471,8 +1461,8 @@ def phase_ab(card: str) -> None:
 
 
 def full_tokens(res):
-    """The non-empty tokens of a result's full token stream (a flat
-    stream, or a 2-D layout's row with its trailing zeros)."""
+    """The non-empty tokens of a result's full token stream (a compact
+    stream, or a raw layout's row with its empty slots)."""
     toks = token_stream(res)
     return toks[toks != 0]
 
@@ -1494,8 +1484,9 @@ def stream_digest(results) -> str:
 @contextlib.contextmanager
 def full_streams():
     """Within the block, global batches ship full token streams
-    (``WFA_EDIT_TOKENS=0``), as a mesh's always do, so that the two can
-    be held token for token."""
+    (``WFA_EDIT_TOKENS=0``), match runs included, so that a mesh's shards
+    and one card can be held token for token on every run of the
+    alignment."""
     before = os.environ.get("WFA_EDIT_TOKENS")
     os.environ["WFA_EDIT_TOKENS"] = "0"
     try:
@@ -1576,7 +1567,8 @@ def phase_dp(card: str, recs) -> None:
     global l=4000 (N_KW pairs, K1-kw), l=DP_LONG_LENGTH (N_DP_LONG
     pairs, K1-long) and l=50000 (N_LONG pairs, K1-long), each held token
     stream for token stream to a single-device pipeline on the same pairs,
-    both with full streams.
+    both with full streams, and then both with the streams they ship by
+    default (edit-only on the global routes).
     Times the two in turns (one, mesh, mesh, one; after a warm call of
     each) and prints each shard's launches in the last mesh call, which
     must have launched every kernel of the path on every shard.  Then
@@ -1631,7 +1623,11 @@ def phase_dp(card: str, recs) -> None:
                 no_faults(f"{tag} {name}", pipes[name])
                 if name == "mesh":
                     per_shard = shard_launches(mesh)
-        for pipe in pipes.values():
+        # and the streams the pipelines ship by default (edit-only on the
+        # global routes), one call each
+        shipped = {name: pipe.align_all(pairs) for name, pipe in pipes.items()}
+        for name, pipe in pipes.items():
+            no_faults(f"{tag} {name} default streams", pipe)
             pipe.close()
         print(f"{tag}: launches per shard {per_shard}; engines "
               f"{sorted(pipes['mesh']._engines)}; pairs served per tier "
@@ -1641,17 +1637,20 @@ def phase_dp(card: str, recs) -> None:
                 if shard.get(counter, {}).get(mode, 0) <= 0:
                     fail(f"{tag}: shard {i} launched {counter} ({mode}) no "
                          "time")
-        for i, (a, b) in enumerate(zip(results["one"], results["mesh"])):
-            if (a.score, a.final_s) != (b.score, b.final_s) or not (
-                    torch.equal(torch.from_numpy(full_tokens(a)),
-                                torch.from_numpy(full_tokens(b)))):
-                fail(f"{tag}: pair {i} differs from the single-device run")
+        for got in (results, shipped):
+            for i, (a, b) in enumerate(zip(got["one"], got["mesh"])):
+                if (a.score, a.final_s) != (b.score, b.final_s) or not (
+                        torch.equal(torch.from_numpy(full_tokens(a)),
+                                    torch.from_numpy(full_tokens(b)))):
+                    fail(f"{tag}: pair {i} differs from the single-device "
+                         "run")
         rates = {k: [round(n / t, 1) for t in v] for k, v in secs.items()}
         print(f"{tag}: all {n} results equal the single-device run token "
-              f"stream for token stream; aln/s in turns (one, mesh, mesh, "
+              f"stream for token stream, full and default streams; aln/s in "
+              f"turns (one, mesh, mesh, "
               f"one) {rates['one'][0]}, {rates['mesh'][0]}, "
               f"{rates['mesh'][1]}, {rates['one'][1]} on {card}")
-        del pipes, results
+        del pipes, results, shipped
         if length == 50000:
             continue  # the plain K1-long takes ~100 s a cap: DP_LONG_LENGTH
         check_shard_batches(seen, ga, length, recs, mesh.size, pen=pen,
@@ -1663,7 +1662,8 @@ def phase_dp_procs(card: str, recs) -> None:
     one), each a mesh of one shard on its card (``dp_worker``), on
     N_DP_PROC pairs of global l=1000: each must return every result, equal
     to a single-process run's
-    (score, final score and full token stream), with no fault and no
+    (score, final score and full token stream; the processes and the
+    single-process run all ship full streams), with no fault and no
     pair served by the oracle, each shard launching K1 and K2.  Each
     process holds K1 and K2 to their plain versions on its own shard of
     the first batch at each (k_win, s_cap); their max_abs_err folds into
@@ -1695,6 +1695,7 @@ def phase_dp_procs(card: str, recs) -> None:
         [sys.executable, os.path.abspath(__file__), "--dp-worker", str(r),
          str(world), init], stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, WFA_EDIT_TOKENS="0"),
         cwd=os.path.dirname(os.path.abspath(__file__)))
         for r in range(world)]
     got = []

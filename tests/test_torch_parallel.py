@@ -1,10 +1,12 @@
-"""The port's data parallelism against :mod:`wfa_tpu.parallel`, on the CPU.
+"""The port's data parallelism against the JAX package, on the CPU.
 
 The JAX side runs ``engine="jax"`` (the XLA lockstep path, bit-exact to
-the Pallas path by ``tests/test_pallas_engine.py``) under the 8 virtual
-XLA devices of ``tests/conftest.py``; the port runs the same number of
-virtual shards of the CPU (a mesh whose device repeats), where its kernel
-wrappers run their plain PyTorch versions.  Every comparison is integer:
+the Pallas path by ``tests/test_pallas_engine.py``): each mesh shard's
+outputs are held to ``wfa_tpu.engine._align_full2`` on that shard's rows,
+and the scores-only steps to :mod:`wfa_tpu.parallel` under the 8 virtual
+XLA devices of ``tests/conftest.py``; the port runs virtual shards of the
+CPU (a mesh whose device repeats), where its kernel wrappers run their
+plain PyTorch versions.  Every comparison is integer:
 the tolerance is exact equality.  The counterparts of
 ``tests/test_parallel.py``'s cases, the KW mode under a mesh
 (``tests/test_rebase_aux.py::test_rebase_aux_under_shard_map``), and two
@@ -56,38 +58,16 @@ def _padded(pairs, n):
     return pairs + [(b"A", b"A")] * ((-len(pairs)) % n)
 
 
-@pytest.mark.parametrize("shift", [12, 28], ids=["int16", "int32"])
-def test_compact_tokens_matches_jax(shift):
-    """The 2-D compaction (a prefix sum and a scatter) against JAX's
-    stable sort, token for token, at both token widths."""
-    from wfa_tpu.device_backtrace import compact_tokens as jct
-
-    from wfa_tpu_torch.device_backtrace import compact_tokens
-
-    rng = np.random.default_rng(shift)
-    B, it = 9, 23
-    dt = np.int16 if shift == 12 else np.int32
-    hi = (5 << shift) - 1
-
-    def sparse(shape):
-        a = rng.integers(1, hi, shape)
-        return np.where(rng.random(shape) < 0.4, a, 0).astype(dt)
-
-    tok0, buf, tail = sparse((B,)), sparse((it, B, 2)), sparse((B, 4))
-    buf[:, 3] = 0  # a pair whose loop emitted nothing
-    jt, jn = jct(tok0, buf, tail, shift)
-    tt, tn = compact_tokens(*map(torch.from_numpy, (tok0, buf, tail)), shift)
-    assert tt.dtype == (torch.int16 if shift == 12 else torch.int32)
-    assert np.array_equal(np.asarray(jt), tt.numpy())
-    assert np.array_equal(np.asarray(jn), tn.numpy())
-
-
 def _dp_full_case(n_pairs, shards, layout):
-    """(pairs padded to the mesh, JAX's packed batch, port cfg) for the
-    compact ("mt") or raw layout."""
-    if layout == "mt":
+    """(pairs padded to the mesh, JAX's aligner, port cfg) for the compact
+    stream, the raw layout, or the compact stream at 28-bit tokens."""
+    if layout == "compact":
         pen, ada, k_win, s_cap = PEN, ADA, 128, 128
         pairs = generate_pairs(n_pairs, 48, 0.15, seed=3)
+    elif layout == "long":  # one pair past 4096 bases, in the last shard
+        pen, ada, k_win, s_cap = PEN, ADA, 128, 256
+        pairs = (generate_pairs(n_pairs - 1, 60, 0.1, seed=8)
+                 + generate_pairs(1, 4200, 0.0, seed=8))
     else:  # past 2**16 token slots: the raw layout (k_win 32 keeps it small)
         pen, ada, k_win, s_cap = Penalties(8, 6, 1), None, 32, 65536
         pairs = generate_pairs(n_pairs, 20, 0.1, seed=4)
@@ -98,42 +78,52 @@ def _dp_full_case(n_pairs, shards, layout):
 
 
 @pytest.mark.parametrize("layout,shards,n", [
-    ("mt", 2, 13), ("mt", 4, 13), ("mt", 8, 13), ("raw", 2, 5),
-    ("raw", 4, 5)], ids=["mt-2", "mt-4", "mt-8", "raw-2", "raw-4"])
+    ("compact", 2, 13), ("compact", 4, 13), ("compact", 8, 13),
+    ("raw", 2, 5), ("raw", 4, 5), ("long", 2, 8), ("long", 4, 8)],
+    ids=["compact-2", "compact-4", "compact-8", "raw-2", "raw-4", "long-2",
+         "long-4"])
 def test_dp_align_full_matches_jax(layout, shards, n):
-    """dp_align_full's 2-D outputs against dp_align_full_fn's, tensor for
-    tensor and dtype for dtype, on a ragged batch padded to the mesh."""
-    from wfa_tpu.parallel import dp_align_full as jdp
-    from wfa_tpu.parallel import make_dp_mesh as jmesh
+    """Each shard of a mesh's batch ships what one card's batch of its
+    rows ships: its outputs from ``submit_batch``, tensor for tensor and
+    dtype for dtype, equal JAX's flat ``_align_full2`` and the port's
+    one-device ``align_full2`` on the shard's rows at the batch-wide
+    ``Lq`` / ``Ltb`` (the edit-only stream, the raw layout, and 28-bit
+    tokens that one long pair sets for every shard), on a ragged batch
+    padded to the mesh; the results equal the oracle's."""
+    from wfa_tpu.engine import _align_full2 as jalign
 
-    pairs, jb, cfg = _dp_full_case(n, shards, layout)
-    packed = jb.pack_batch(pairs)
-    qb, tbuf, qlen, tlen, toff, Lq, Ltb = packed
-    want = jax.device_get(jdp(*map(jax.numpy.asarray, packed[:5]),
-                              cfg=jb.cfg, mesh=jmesh(shards), Lq=Lq,
-                              Ltb=Ltb, engine="jax"))
-    got = parallel.dp_align_full(qb, tbuf, qlen, tlen, toff, cfg=cfg,
-                                 mesh=cpu_mesh(shards), Lq=Lq, Ltb=Ltb)
-    assert sorted(got) == sorted(want) == (
-        ["mt"] if layout == "mt" else ["buf", "meta", "tail", "tok0"])
-    for k, w in want.items():
-        assert got[k].numpy().dtype == w.dtype, k
-        assert np.array_equal(got[k].numpy(), w), k
-    # the same outputs from the engine's own 2-D layout on one device
     from wfa_tpu_torch.engine import align_full2
 
-    seq = torch.from_numpy(np.concatenate([qb, tbuf], axis=1))
-    lens = torch.from_numpy(np.stack([qlen, tlen, toff], 1).astype(np.int32))
-    one = align_full2(seq, lens, cfg=cfg, B=len(pairs), Lq=Lq, Ltb=Ltb,
-                      flat=False)
-    if layout == "mt":
-        assert torch.equal(one["mt"], got["mt"])
-    results = BatchAligner(PEN if layout == "mt" else Penalties(8, 6, 1),
-                           Options(True), cfg.adaptive, k_win=cfg.k_win,
-                           s_cap=cfg.s_cap, device="cpu",
-                           mesh=cpu_mesh(shards)).align_batch(pairs)
+    pairs, jb, cfg = _dp_full_case(n, shards, layout)
+    qb, tbuf, qlen, tlen, toff, Lq, Ltb = jb.pack_batch(pairs)
+    seq = np.concatenate([qb, tbuf], axis=1)
+    lens = np.stack([qlen, tlen, toff], 1).astype(np.int32)
+    eng = BatchAligner(cfg.penalties, Options(True), cfg.adaptive,
+                       k_win=cfg.k_win, s_cap=cfg.s_cap, device="cpu",
+                       mesh=cpu_mesh(shards))
+    h = eng.submit_batch(pairs)
+    keys = {"compact": ["lg", "mtb"], "long": ["lg", "mtb"],
+            "raw": ["buf", "meta", "tail", "tok0"]}[layout]
+    lb = len(pairs) // shards
+    assert [len(p.pairs) for _, p in h.parts] == [lb] * shards
+    for g, (_, part) in enumerate(h.parts):
+        rows = slice(g * lb, (g + 1) * lb)
+        want = jax.device_get(jalign(
+            jax.numpy.asarray(seq[rows]), jax.numpy.asarray(lens[rows]),
+            cfg=jb.cfg, B=lb, Lq=Lq, Ltb=Ltb, engine="jax", flat=True))
+        one = align_full2(torch.from_numpy(seq[rows]),
+                          torch.from_numpy(lens[rows]), cfg=cfg, B=lb, Lq=Lq,
+                          Ltb=Ltb)
+        assert sorted(part.out) == sorted(want) == sorted(one) == keys
+        for k, w in want.items():
+            got = part.out[k].numpy()
+            assert got.dtype == w.dtype == one[k].numpy().dtype, k
+            assert np.array_equal(got, w), (g, k)
+            assert np.array_equal(got, one[k].numpy()), (g, k)
+    if layout == "long":
+        assert all(p.out["lg"].dtype == torch.int32 for _, p in h.parts)
     oracle = OracleAligner(cfg.penalties, Options(True), cfg.adaptive)
-    for (q, t), r in zip(pairs, results):
+    for (q, t), r in zip(pairs, eng.finish_batch(h)):
         _same(r, oracle.align(q, t))
 
 
@@ -246,31 +236,18 @@ def test_semi2_pipeline_under_mesh():
 
 def test_longest_pair_in_one_shard():
     """One pair past 4096 bases in the last of 4 shards sets the whole
-    batch's token plan (28-bit tokens): every shard emits int32 rows, and
-    the joined outputs equal JAX's (a shard that packed its own pairs
-    would emit int16 and not join)."""
-    from wfa_tpu.parallel import dp_align_full as jdp
-    from wfa_tpu.parallel import make_dp_mesh as jmesh
-
+    batch's token plan (28-bit tokens): every shard ships int32 long
+    tokens (a shard that packed its own pairs would ship int16), and the
+    results equal the oracle's."""
     long = generate_pairs(1, 4200, 0.0, seed=8)[0]
     pairs = generate_pairs(7, 60, 0.1, seed=8) + [long]
     eng = BatchAligner(PEN, Options(True), ADA, k_win=128, s_cap=256,
                        device="cpu", mesh=cpu_mesh(4))
     h = eng.submit_batch(pairs)
-    assert [p.out["mt"].dtype for _, p in h.parts] == [torch.int32] * 4
+    assert [p.out["lg"].dtype for _, p in h.parts] == [torch.int32] * 4
     oracle = OracleAligner(PEN, Options(True), ADA)
     for (q, t), r in zip(pairs, eng.finish_batch(h)):
         _same(r, oracle.align(q, t))
-    jb = JaxAligner(PEN, Options(True), ADA, k_win=128, s_cap=256,
-                    engine="jax")
-    packed = jb.pack_batch(pairs)
-    Lq, Ltb = packed[5:7]
-    want = jax.device_get(jdp(*map(jax.numpy.asarray, packed[:5]),
-                              cfg=jb.cfg, mesh=jmesh(4), Lq=Lq, Ltb=Ltb,
-                              engine="jax"))
-    got = parallel.dp_align_full(*packed[:5], cfg=eng.cfg,
-                                 mesh=cpu_mesh(4), Lq=Lq, Ltb=Ltb)
-    assert np.array_equal(got["mt"].numpy(), want["mt"])
 
 
 def test_each_shard_runs_on_its_own_device(monkeypatch):
@@ -301,11 +278,13 @@ def test_each_shard_runs_on_its_own_device(monkeypatch):
         def wait_event(self, ev):
             self.waited.append(ev)
 
-    rows = parallel._rows
+    from wfa_tpu_torch import engine as te
 
-    def upload(a, r, dev):
+    upload = te.upload
+
+    def spy(a, dev):
         uploads.append((dev, current[0]))
-        return rows(a, r, torch.device("cpu"))
+        return upload(a, torch.device("cpu"))
 
     for name, fn in (("is_available", lambda: True),
                      ("Stream", CopyStream), ("Event", Event),
@@ -314,7 +293,7 @@ def test_each_shard_runs_on_its_own_device(monkeypatch):
                      ("stream", lambda s: contextlib.nullcontext()),
                      ("device", device)):
         monkeypatch.setattr(torch.cuda, name, fn)
-    monkeypatch.setattr(parallel, "_rows", upload)
+    monkeypatch.setattr(te, "upload", spy)
     cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
     eng = BatchAligner(PEN, Options(True), ADA, mesh=parallel.DpMesh(cards))
     for sub in eng._shard_aligners.values():

@@ -630,7 +630,8 @@ def test_fetch_event_goes_to_the_aligners_card(monkeypatch):
                          {"meta": torch.zeros(2, 8, dtype=torch.int32)}, False)
     assert h.ran.stream == ("stream", card)
     assert eng._copy.waited == [h.ran]
-    monkeypatch.setattr(eng, "_submit", lambda pairs, prepacked: list(entered))
+    monkeypatch.setattr(eng, "_submit", lambda pairs, prepacked, shards: (
+        lambda: [(eng, list(entered))]))
     assert eng.submit_batch([(b"ACGT", b"ACGT")]) == [card]
 
 

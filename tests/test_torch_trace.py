@@ -102,7 +102,7 @@ def test_a_forced_extent_miss_counts_one_refetch():
         assert pipe.served[0] == len(pairs)
         assert trace.records(1)[0]["refetches"] == 0
         for eng in pipe._engines.values():
-            eng._tok_guess = {"mtb": 1, "lg": 1, "buf": 1, "mt": 1}
+            eng._tok_guess = {"mtb": 1, "lg": 1, "buf": 1}
         got = pipe.align_all(pairs)
     finally:
         pipe.close()

@@ -440,26 +440,6 @@ def device_stats(tok0, buf, tail, token_shift: int = 28):
             total(span & is_gap, run), total(region_start, 1))
 
 
-def compact_tokens(tok0, buf, tail, token_shift: int):
-    """Per-pair token compaction, equal to the JAX ``compact_tokens``
-    (wfa_tpu/device_backtrace.py:199-223): the non-empty tokens of each
-    row move to its front in emission order, the rest is zero.  JAX sorts
-    by position with a stable key; here an exclusive prefix sum of the
-    non-zero mask along the row gives each token its slot, and one scatter
-    places it.
-
-    Returns (toks [B, NS], int16 when ``token_shift <= 12`` else int32,
-    n_tok int32[B])."""
-    toks = _emission_order(tok0, buf, tail)
-    B, NS = toks.shape
-    nz = toks != 0
-    dest = torch.where(nz, torch.cumsum(nz, 1) - 1, NS)
-    out = torch.zeros((B, NS + 1), dtype=torch.int32, device=toks.device)
-    out.scatter_(1, dest, toks)
-    return (out[:, :NS].to(_tok_dtype(token_shift)),
-            nz.sum(1, dtype=torch.int32))
-
-
 def compact_tokens_flat_u8(tok0, buf, tail, token_shift: int,
                            drop_m: bool = False):
     """Cross-pair byte-stream token compaction, equal to the JAX

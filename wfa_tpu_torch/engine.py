@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 import os
 import threading
@@ -187,8 +188,8 @@ def upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     returns, and the launches on the thread's current stream then read
     the tensor (``record_stream`` keeps the allocator from reusing it
     before they have run).  Every upload of the port goes through here:
-    a batch's rows (:meth:`BatchAligner._upload`) and a mesh shard's
-    (``parallel._rows``)."""
+    a batch's rows, or a mesh shard's (:meth:`BatchAligner._upload`), and
+    the rows of ``parallel``'s scores-only steps."""
     t = torch.from_numpy(a)
     if dev.type != "cuda":
         return t.to(dev)
@@ -1099,10 +1100,9 @@ def canonical_kw(res):
 def _finish_outputs(aux, start_cell, k0, start_s, start_k, qlen, tlen, done,
                     overflow, *, cfg: EngineConfig, Lq: int, Ltb: int,
                     edit: bool, aux_base=None, aux_old=None, k0_old=None,
-                    s_split: int = 0, aux_sbase=None, flat: bool = True,
-                    stride: int = 1):
+                    s_split: int = 0, aux_sbase=None, stride: int = 1):
     """Backtrace (kernel K2), token compaction and the meta header, equal
-    to ``wfa_tpu.engine._finish_outputs(..., flat=flat)``.  A score loop
+    to ``wfa_tpu.engine._finish_outputs`` on its flat branch.  A score loop
     run at ``stride`` (:func:`score_stride`) hands over its aux in rows of
     ``loop_config(cfg, stride)`` and ``start_s`` in those rows: K2 walks
     them at that config, the meta's scores are ``start_s * stride``, and
@@ -1117,21 +1117,18 @@ def _finish_outputs(aux, start_cell, k0, start_s, start_k, qlen, tlen, done,
 
     When ``_token_plan`` calls the stream compact: ``{"mtb": uint8,
     "lg": int16/int32}``, byte-identical to JAX's ``compact and flat``
-    branch, edit-only when ``edit``, else full; with ``flat=False`` (the
-    layout whose shards concatenate along the batch axis) ``{"mt":
-    [B, 4 + NS]}``, the meta columns in front of each pair's compacted
-    full token row (engine.py:1376-1385).  Otherwise the raw
+    branch, edit-only when ``edit``, else full.  Otherwise the raw
     ``{"meta", "tok0", "buf", "tail"}`` (engine.py:1386-1388): a full
     stream, never edit-only (engine.py:1324), whose meta trim column is
     the chase's iteration count; :func:`assemble_raw` joins it on the
     host."""
-    from .device_backtrace import (compact_tokens, compact_tokens_flat_u8,
-                                   device_backtrace, iter_capacity)
+    from .device_backtrace import (compact_tokens_flat_u8, device_backtrace,
+                                   iter_capacity)
 
     S = cfg.s_cap
     K = cfg.aux_kw if aux_sbase is not None else cfg.k_win
     token_shift, compact = _token_plan(S, cfg.penalties, Lq, Ltb)
-    edit = edit and compact and flat  # the 2-D layout is never edit-only
+    edit = edit and compact  # the raw layout is never edit-only
     lcfg = loop_config(cfg, stride)
     it_cap = iter_capacity(S, cfg.penalties)
     bt = device_backtrace(
@@ -1154,15 +1151,6 @@ def _finish_outputs(aux, start_cell, k0, start_s, start_k, qlen, tlen, done,
                             zeros + it_used, zeros], dim=1)
         return {"meta": meta.to(torch.int16) if meta16 else meta,
                 "tok0": tok0, "buf": buf, "tail": tail}
-    if not flat:
-        toks, n_tok = compact_tokens(tok0, buf, tail, token_shift)
-        meta = torch.stack([start_s.to(_I32), overflow.to(_I32), n_tok,
-                            torch.zeros_like(n_tok)], dim=1)
-        # int16 tokens imply meta16 in the pipeline's configs; a direct
-        # s_cap past 32000 widens the tokens instead
-        if toks.dtype == torch.int16 and not meta16:
-            toks = toks.to(_I32)
-        return {"mt": torch.cat([meta.to(toks.dtype), toks], dim=1)}
     # an edit-only stream drops the match runs; the host rebuilds them
     bytes_flat, longs_flat, n_tok, n_long = compact_tokens_flat_u8(
         tok0, buf, tail, token_shift, drop_m=edit)
@@ -1179,17 +1167,16 @@ def _finish_outputs(aux, start_cell, k0, start_s, start_k, qlen, tlen, done,
 
 def align_full2(seq, lens, *, cfg: EngineConfig, B: int, Lq: int, Ltb: int,
                 packed: bool = False, edit: Optional[bool] = None,
-                engine: str = "auto", flat: bool = True):
+                engine: str = "auto"):
     """Full alignment of an uploaded batch, the port of
-    ``wfa_tpu.engine._align_full2(..., flat=flat)``: ``seq`` is the query
+    ``wfa_tpu.engine._align_full2``, flat: ``seq`` is the query
     and target byte matrices side by side (2-bit packed when ``packed``),
     ``lens`` is int32[B, 3] (qlen, tlen, toff).  Score loop -> backtrace
     (K2) from the end the score loop reports -> compaction; returns
     :func:`_finish_outputs`' dict, plus ``"final_s"`` (int32[B]) in
     semi-global mode: the score at which each pair reached its global end,
     where K1 stops, which lies above its semi-global score.  ``edit``
-    picks the token stream (default :func:`edit_only`); ``flat=False``
-    gives the 2-D layout of a data-parallel shard, whose streams are full.
+    picks the token stream (default :func:`edit_only`).
 
     ``engine`` "auto" runs K1; "long" runs K1-long (global only, JAX's
     ``engine="pallas_long"``, engine.py:1247-1266) and K2 over its
@@ -1219,19 +1206,19 @@ def align_full2(seq, lens, *, cfg: EngineConfig, B: int, Lq: int, Ltb: int,
         return _finish_outputs(aux, term_cell, -toff, final_s, tlen - qlen,
                                qlen, tlen, done, overflow, cfg=cfg, Lq=Lq,
                                Ltb=Ltb, edit=edit, aux_base=aux_base,
-                               flat=flat, stride=g)
+                               stride=g)
     if engine == "kw":
         final_s, done, overflow, term_cell, aux, sbase = run_batch_kw(
             *args, cfg=lcfg, Lq=Lq, Ltb=Ltb)
         return _finish_outputs(aux, term_cell, -toff, final_s, tlen - qlen,
                                qlen, tlen, done, overflow, cfg=cfg, Lq=Lq,
                                Ltb=Ltb, edit=edit, aux_sbase=sbase,
-                               flat=flat, stride=g)
+                               stride=g)
     final_s, done, overflow, _, aux, (end_s, end_k, end_cell) = run_batch(
         *args, cfg=lcfg, Lq=Lq, Ltb=Ltb)
     out = _finish_outputs(aux, end_cell, -toff, end_s, end_k, qlen, tlen,
                           done, overflow, cfg=cfg, Lq=Lq, Ltb=Ltb, edit=edit,
-                          flat=flat, stride=g)
+                          stride=g)
     if not cfg.global_alignment:
         out["final_s"] = final_s
     return out
@@ -1432,11 +1419,12 @@ class BatchAligner:
     size passes 1; ``device`` is then its first device) shards each batch
     over its devices and processes: the batch is padded to a multiple of
     the mesh size with ``(b"A", b"A")`` pairs whose results are dropped,
-    packed whole, and each shard runs ``align_full2(..., flat=False)`` (or
-    both two-phase phases) on its device; each shard's outputs are fetched
-    by an aligner of that device, as above.  Across processes a submit
-    also waits for its shards, fetches them and gathers every process's
-    (``DpMesh.exchange``), so that every process returns every result.
+    packed whole, and each shard runs what one card's batch runs, on its
+    rows and its device, and ships the same outputs, fetched by an aligner
+    of that device, as above (:meth:`submit_batch`).  Across processes a
+    submit also waits for its shards, fetches them and gathers every
+    process's (``DpMesh.exchange``), so that every process returns every
+    result.
     """
 
     def __init__(self, penalties: Penalties = Penalties(),
@@ -1476,9 +1464,8 @@ class BatchAligner:
         # full spans phase 1 ran at ("semi2")
         self.spans = set()
         # speculative fetch extents by output ("mtb" token bytes, "lg"
-        # long tokens, "buf" raw rows, "mt" token columns); None until a
-        # batch calibrates them
-        self._tok_guess = {"mtb": None, "lg": None, "buf": None, "mt": None}
+        # long tokens, "buf" raw rows); None until a batch calibrates them
+        self._tok_guess = {"mtb": None, "lg": None, "buf": None}
         # the aligner that fetches the shards of each mesh device
         self._shard_aligners = {} if self.mesh is None else {
             d: BatchAligner(penalties, options, adaptive, k_win=k_win,
@@ -1529,157 +1516,46 @@ class BatchAligner:
         the handle for :meth:`finish_batch`.  ``prepacked`` (the tuple
         :func:`_pack_all` gives for the same pairs at this aligner's window
         and mode) skips the pack, so that one thread may pack while
-        another submits; a mesh ignores it (its batch is padded first)."""
-        if self.mesh is not None:
-            return self._submit_mesh(list(pairs))
-        trace.count(trace.AUX_ROWS, self.cfg.s_cap * len(pairs))
-        with self._on_device():
-            return self._submit(list(pairs), prepacked)
+        another submits; a mesh ignores it (its batch is padded first).
 
-    def _submit(self, pairs, prepacked) -> Submitted:
-        """:meth:`submit_batch` on this aligner's device."""
-        ga = self.cfg.global_alignment
-        if self.engine in ("long", "kw") and not ga:
+        One body serves a card and a mesh (wfa_tpu/engine.py:1640-1690,
+        1786-1892): the batch is packed whole, so that its shapes and
+        token plan are batch-wide, and each shard, ``(aligner, rows,
+        context)``, uploads its rows and launches on its aligner's device
+        inside its context.  One card is one shard of every row, in no
+        span of its own; a mesh pads the batch to a multiple of its size
+        and runs this process's shards, each inside its ``shard`` span
+        (``DpMesh.on``).  Once every shard has launched, each shard's
+        fetch is queued on its aligner.  Across processes a submit also
+        waits for its shards, fetches them and gathers every process's,
+        in one exchange."""
+        if self.engine in ("long", "kw") and not self.cfg.global_alignment:
             # as pallas_longread.supports and pallas_run_batch's aux_kw
             # assert refuse semi-global
             raise ValueError(f"engine={self.engine!r} runs global alignment "
                              "only")
-        if self.engine == "semi2":
-            return self._submit_semi2(pairs, prepacked)
-        with trace.span(trace.PACK):
-            seq, lens, packed, Lq, Ltb = _seq_lens(
-                prepacked if prepacked is not None
-                else self._pack_all(pairs, need_raw=False))
-        edit = edit_only(self.cfg)  # fixed here; the decode follows it
-        seq, lens = self._upload(seq), self._upload(lens)
-        with trace.span(trace.LAUNCH):
-            out = align_full2(seq, lens, cfg=self.cfg, B=len(pairs), Lq=Lq,
-                              Ltb=Ltb, packed=packed, edit=edit,
-                              engine=self.engine)
-            return self._queue_fetch(pairs, out, edit)
-
-    def _submit_semi2(self, pairs, prepacked=None) -> Submitted:
-        """The two-phase semi-global submit (wfa_tpu/engine.py:1774-1892):
-        pack -> K3 at the full span -> fetch meta1 (the one mid-point
-        sync) -> re-place each target for its window -> upload -> K4 ->
-        K2 over both aux tensors -> compaction.  Returns the same handle
-        as :meth:`submit_batch`."""
-        from .semi2 import M1_K02, phase2, prefix_export
-
-        exports = {}
-
-        def phase1(seq, lens, pcfg, Lq, Ltb, packed):
-            seq, lens = self._upload(seq), self._upload(lens)
-            with trace.span(trace.LAUNCH):
-                exports.update(prefix_export(
-                    seq, lens, cfg=pcfg, Lq=Lq, Ltb=Ltb, S0=self.s_switch,
-                    K2=self.cfg.k_win, packed=packed))
-            with trace.span(trace.WAIT):
-                return exports["meta1"][:, M1_K02].cpu().numpy()
-
-        def run2(seq2, lens2, Lq, Ltb, Ltb2, packed2):
-            seq2, lens2 = self._upload(seq2), self._upload(lens2)
-            with trace.span(trace.LAUNCH):
-                return phase2(
-                    seq2, lens2,
-                    *(exports[k] for k in ("win_m", "win_i", "win_d",
-                                           "ainit", "b_m", "b_ie", "meta1",
-                                           "aux_old")),
-                    cfg=self.cfg, Lq=Lq, Ltb_full=Ltb, Ltb2=Ltb2,
-                    S0=self.s_switch, packed=packed2)
-
-        out = self._two_phase(pairs, prepacked, phase1, run2)
-        with trace.span(trace.LAUNCH):
-            return self._queue_fetch(pairs, out, False)
-
-    def _two_phase(self, pairs, prepacked, phase1, phase2):
-        """The host steps of the two-phase route, on one device or a mesh:
-        pack the whole batch, take its full span, run ``phase1(seq, lens,
-        pcfg, Lq, Ltb, packed)`` (K3; it returns every pair's ``meta1``
-        k0-to-diagonal column on the host), re-place each target for its
-        window (``Ltb2`` batch-wide) and return ``phase2(seq2, lens2, Lq,
-        Ltb, Ltb2, packed2)`` (K4, K2)."""
-        from .semi2 import prefix_span, replace_targets
-
-        # the raw query rows go with a re-placed target that is not ACGT
-        with trace.span(trace.PACK):
-            batch = (prepacked if prepacked is not None
-                     else self._pack_all(pairs))
-            qb, _, qlen, tlen, _, _, _, qp, _ = batch
-            seq, lens, packed, Lq, Ltb = _seq_lens(batch)
-            Kf = prefix_span(qlen, tlen)
-        self.spans.add(Kf)
-        k02 = phase1(seq, lens, dataclasses.replace(self.cfg, k_win=Kf), Lq,
-                     Ltb, packed)
-        with trace.span(trace.PACK):
-            t2raw, t2p, toff2, Ltb2 = replace_targets(
-                [t for _, t in pairs], k02)
-            packed2 = packed and t2p is not None
-            seq2 = np.concatenate([qp, t2p] if packed2 else [qb, t2raw],
-                                  axis=1)
-            lens2 = np.stack([qlen, tlen, toff2], axis=1).astype(np.int32)
-        return phase2(seq2, lens2, Lq, Ltb, Ltb2, packed2)
-
-    def _submit_mesh(self, pairs) -> Submitted:
-        """:meth:`submit_batch` under a mesh (wfa_tpu/engine.py:1640-1690,
-        1786-1892): pad the batch to a multiple of the mesh size, pack it
-        whole (so that its shapes and token plan are batch-wide), run each
-        of this process's shards on its device and queue its fetch on that
-        device's aligner.  Across processes, fetch the shards and gather
-        every process's, in one exchange."""
-        from .parallel import (dp_align_full_fn, dp_semi2_phase2_fn,
-                               dp_semi2_prefix_fn)
-        from .semi2 import M1_K02
-
-        mesh = self.mesh
-        if self.engine in ("long", "kw") and not self.cfg.global_alignment:
-            raise ValueError(f"engine={self.engine!r} runs global alignment "
-                             "only")
-        padded = pairs + [(b"A", b"A")] * ((-len(pairs)) % mesh.size)
-        B = len(padded)
-        trace.count(trace.AUX_ROWS, self.cfg.s_cap * B)
-        if self.engine == "semi2":
-            # K3 on each shard, the mid-point on the whole batch (meta1
-            # from every shard of every process), K4 and K2 on each shard
-            exports = []
-
-            def phase1(seq, lens, pcfg, Lq, Ltb, packed):
-                def k02():
-                    exports.extend(dp_semi2_prefix_fn(
-                        pcfg, mesh, B, Lq, Ltb, self.s_switch,
-                        self.cfg.k_win, packed)(seq, lens))
-                    with trace.span(trace.WAIT):
-                        return [ex["meta1"][:, M1_K02].cpu().numpy()
-                                for ex in exports]
-
-                return np.concatenate([m for got in mesh.exchange(k02)
-                                       for m in got])
-
-            def run2(seq2, lens2, Lq, Ltb, Ltb2, packed2):
-                fn = dp_semi2_phase2_fn(self.cfg, mesh, B, Lq, Ltb, Ltb2,
-                                        self.s_switch, packed2)
-                return lambda: fn(seq2, lens2, exports)
-
-            run = self._two_phase(padded, None, phase1, run2)
+        pairs, mesh = list(pairs), self.mesh
+        if mesh is None:
+            batch = pairs
+            shards = [(self, slice(0, len(pairs)), contextlib.nullcontext)]
         else:
-            with trace.span(trace.PACK):
-                seq, lens, packed, Lq, Ltb = _seq_lens(
-                    self._pack_all(padded, need_raw=False))
-            fn = dp_align_full_fn(self.cfg, mesh, B, Lq, Ltb, self.engine,
-                                  packed)
-
-            def run():
-                return fn(seq, lens)
+            batch = pairs + [(b"A", b"A")] * ((-len(pairs)) % mesh.size)
+            prepacked = None
+            shards = [(self._shard_aligners[dev], rows,
+                       functools.partial(mesh.on, i))
+                      for i, dev, rows in mesh.shards(len(batch))]
+        trace.count(trace.AUX_ROWS, self.cfg.s_cap * len(batch))
+        submit = (self._submit_semi2 if self.engine == "semi2"
+                  else self._submit)
+        if mesh is None:
+            with self._on_device():
+                return submit(batch, prepacked, shards)()[0][1]
+        run = submit(batch, prepacked, shards)
+        if mesh.world == 1:
+            return Submitted(pairs, {}, False, parts=run())
 
         def local():
-            parts = []
-            for (_, dev, rows), out in zip(mesh.shards(B), run()):
-                eng = self._shard_aligners[dev]
-                with eng._on_device(), trace.span(trace.LAUNCH):
-                    parts.append((eng, eng._queue_fetch(padded[rows], out,
-                                                        False)))
-            if mesh.world == 1:
-                return parts
+            parts = run()
             got = []
             for eng, h in parts:
                 eng._fetch_rest(h)
@@ -1690,13 +1566,114 @@ class BatchAligner:
                 trace.count(trace.REFETCHES)
             return got
 
-        if mesh.world == 1:
-            return Submitted(pairs, {}, False, parts=local())
-        lb = B // mesh.size
-        shards = [t for got in mesh.exchange(local) for t in got]
+        lb = len(batch) // mesh.size
+        tokens = [t for got in mesh.exchange(local) for t in got]
         return Submitted(pairs, {}, False, parts=[
-            (self, Submitted(padded[g * lb:(g + 1) * lb], {}, False,
-                             tokens=t)) for g, t in enumerate(shards)])
+            (self, Submitted(batch[g * lb:(g + 1) * lb], {}, False,
+                             tokens=t)) for g, t in enumerate(tokens)])
+
+    @staticmethod
+    def _launch(shards, seq, lens, kernels) -> list:
+        """Each shard's rows of the host arrays ``seq`` and ``lens``
+        uploaded to its aligner's device (:meth:`_upload`) and
+        ``kernels(seq, lens, i)`` launched there, for shard i, all inside
+        the shard's context: the outputs, in shard order."""
+        outs = []
+        for i, (eng, rows, on) in enumerate(shards):
+            with on():
+                s, n = eng._upload(seq[rows]), eng._upload(lens[rows])
+                with trace.span(trace.LAUNCH):
+                    outs.append(kernels(s, n, i))
+        return outs
+
+    def _launch_fetch(self, batch, shards, seq, lens, kernels,
+                      edit: bool) -> list:
+        """:meth:`_launch`, and each shard's fetch queued on its aligner
+        (:meth:`_queue_fetch`): [(aligner, handle)], in shard order.  One
+        card queues its fetch in its launch span; a mesh once every shard
+        has launched, outside the shards' spans, each in a launch span of
+        its own, so that no shard's launch waits for another's fetch."""
+        if self.mesh is None:
+            return self._launch(shards, seq, lens, lambda s, n, i: (
+                self, self._queue_fetch(batch, kernels(s, n, i), edit)))
+        parts = []
+        for (eng, rows, _), out in zip(
+                shards, self._launch(shards, seq, lens, kernels)):
+            with eng._on_device(), trace.span(trace.LAUNCH):
+                parts.append((eng, eng._queue_fetch(batch[rows], out, edit)))
+        return parts
+
+    def _submit(self, batch, prepacked, shards):
+        """The global routes' submit: pack the batch and return the step
+        that runs ``align_full2`` on each shard and queues the fetches
+        (:meth:`submit_batch`)."""
+        with trace.span(trace.PACK):
+            seq, lens, packed, Lq, Ltb = _seq_lens(
+                prepacked if prepacked is not None
+                else self._pack_all(batch, need_raw=False))
+        edit = edit_only(self.cfg)  # fixed here; the decode follows it
+
+        def kernels(s, n, _):
+            return align_full2(s, n, cfg=self.cfg, B=n.shape[0], Lq=Lq,
+                               Ltb=Ltb, packed=packed, edit=edit,
+                               engine=self.engine)
+
+        return lambda: self._launch_fetch(batch, shards, seq, lens, kernels,
+                                          edit)
+
+    def _submit_semi2(self, batch, prepacked, shards):
+        """The two-phase semi-global submit (wfa_tpu/engine.py:1774-1892):
+        pack the whole batch and take its full span; K3 at the full span
+        on each shard; the mid-point on the whole batch: every shard's
+        ``meta1`` k0-to-diagonal column fetched (the one mid-point sync)
+        and gathered from every process, and each target re-placed for its
+        window (``Ltb2`` batch-wide); returns the step that runs K4 and K2
+        over both aux tensors on each shard and queues the fetches
+        (:meth:`submit_batch`)."""
+        from .semi2 import (M1_K02, phase2, prefix_export, prefix_span,
+                            replace_targets)
+
+        # the raw query rows go with a re-placed target that is not ACGT
+        with trace.span(trace.PACK):
+            packed_batch = (prepacked if prepacked is not None
+                            else self._pack_all(batch))
+            qb, _, qlen, tlen, _, _, _, qp, _ = packed_batch
+            seq, lens, packed, Lq, Ltb = _seq_lens(packed_batch)
+            Kf = prefix_span(qlen, tlen)
+        self.spans.add(Kf)
+        pcfg = dataclasses.replace(self.cfg, k_win=Kf)
+        exports = []
+
+        def phase1():
+            exports.extend(self._launch(shards, seq, lens, lambda s, n, _: (
+                prefix_export(s, n, cfg=pcfg, Lq=Lq, Ltb=Ltb,
+                              S0=self.s_switch, K2=self.cfg.k_win,
+                              packed=packed))))
+            with trace.span(trace.WAIT):
+                return [ex["meta1"][:, M1_K02].cpu().numpy()
+                        for ex in exports]
+
+        got = ([phase1()] if self.mesh is None
+               else self.mesh.exchange(phase1))  # every process's
+        k02 = np.concatenate([m for part in got for m in part])
+        with trace.span(trace.PACK):
+            t2raw, t2p, toff2, Ltb2 = replace_targets(
+                [t for _, t in batch], k02)
+            packed2 = packed and t2p is not None
+            seq2 = np.concatenate([qp, t2p] if packed2 else [qb, t2raw],
+                                  axis=1)
+            lens2 = np.stack([qlen, tlen, toff2], axis=1).astype(np.int32)
+
+        def kernels(s, n, i):
+            return phase2(
+                s, n, *(exports[i][k] for k in (
+                    "win_m", "win_i", "win_d", "ainit", "b_m", "b_ie",
+                    "meta1", "aux_old")),
+                cfg=self.cfg, Lq=Lq, Ltb_full=Ltb, Ltb2=Ltb2,
+                S0=self.s_switch, packed=packed2)
+
+        return lambda: self._launch_fetch(batch, shards, seq2, lens2,
+                                          kernels, False)
 
     # -- the split fetch (wfa_tpu/engine.py:1698-1772, 1899-2064) ----------
 
@@ -1731,16 +1708,15 @@ class BatchAligner:
     def _queue_fetch(self, pairs, out: dict, edit: bool) -> Submitted:
         """Queue the host copies of a launched batch's outputs: the small
         ones whole, and the token streams at the guessed extent ("mtb": the
-        meta bytes and, cold, 64 token bytes a pair; "mt": the meta columns
-        and the guessed token columns; "lg" and the raw "buf" once a batch
-        has calibrated them)."""
+        meta bytes and, cold, 64 token bytes a pair; "lg" and the raw "buf"
+        once a batch has calibrated them)."""
         h = Submitted(pairs, out, edit)
         if self._copy is not None:
             h.ran = torch.cuda.Event()
             # on the stream the launches went to (``_build.stream_ptr``)
             h.ran.record(torch.cuda.current_stream(self.device))
             self._copy.wait_event(h.ran)
-        streams = ("mtb", "lg", "buf", "mt")
+        streams = ("mtb", "lg", "buf")
         with self._on_copy():
             h.host = {k: self._host(a) for k, a in out.items()
                       if k not in streams}
@@ -1751,9 +1727,6 @@ class BatchAligner:
                 h.host["mtb"] = self._host(out["mtb"][:hd + gb])
                 if guess["lg"]:
                     h.host["lg"] = self._host(out["lg"][:guess["lg"]])
-            elif "mt" in out:
-                cols = len(META_COLS) + (guess["mt"] or 0)
-                h.host["mt"] = self._host(out["mt"][:, :cols])
             elif guess["buf"]:
                 h.host["buf"] = self._host(out["buf"][:guess["buf"]])
             h.copied = self._copied()
@@ -1813,18 +1786,6 @@ class BatchAligner:
             have_l = host["lg"].shape[0] if "lg" in host else 0
             if have_l < tot_l:
                 rest["lg_rest"] = out["lg"][have_l:tot_l]
-        elif "mt" in out:
-            # 2-D layout: the guess is the most token columns a pair
-            # used (wfa_tpu/engine.py:1982-1992)
-            nm = len(META_COLS)
-            head = host["mt"].numpy()
-            h.meta = head[:, :nm].astype(np.int32)
-            n = int(h.meta[:, M_TRIM].max()) if len(h.pairs) else 0
-            self._tok_guess["mt"] = _coarse(max(n, 1) * 5 // 4, 64)
-            cols = min(out["mt"].shape[1] - nm, _coarse(max(n, 1), 64))
-            have = head.shape[1] - nm
-            if have < cols:
-                rest["mt_rest"] = out["mt"][:, nm + have:nm + cols]
         else:
             # raw layout: the trim column is the chase's iteration
             # count, the same for every pair; buf's rows past it are 0
@@ -1901,12 +1862,6 @@ class BatchAligner:
                 0, np.int16 if h.out["lg"].dtype == torch.int16
                 else np.int32))
             toks = _split_tokens(meta, b, longs)
-        elif "mt" in h.out:
-            # a copy: the rows must not hold the pinned buffers
-            toks = list(np.concatenate(
-                [host[k] if k == "mt_rest" else host[k][:, len(META_COLS):]
-                 for k in ("mt", "mt_rest") if k in host], axis=1))
-            edit = False  # the 2-D layout's full streams
         else:
             rows = int(meta[:, M_TRIM].max())
             parts = [host[k] for k in ("buf", "buf_rest") if k in host]

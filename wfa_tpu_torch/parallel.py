@@ -6,11 +6,10 @@ parallelism: a batch is packed once, as a whole (so that ``Lq``, ``Ltb``
 and the token plan they set are batch-wide, as ``shard_map`` sees them),
 split into equal shards along the batch axis, and each shard runs the whole
 device path on its own device, with that device current and the launches
-on its current stream.  The outputs are the 2-D layout of
-``engine.align_full2(..., flat=False)``, which concatenates along the
-batch axis as JAX's ``P("dp")`` specs do: ``mt`` (or the raw ``meta``,
-``tok0``, ``tail``, ``final_s``) along axis 0, the raw ``buf`` along
-axis 1.
+on its current stream.  ``engine.BatchAligner.submit_batch`` runs a mesh's
+shards with the body that runs one card's batch: each shard uploads,
+launches and ships exactly what one card's batch of its rows would, and an
+aligner of its device fetches it.  No output is joined on a device.
 
 A :class:`DpMesh` holds this process's shard devices.  A device may
 repeat: shards that share a card (or the CPU) stand in for the virtual
@@ -62,7 +61,7 @@ class DpMesh:
     count, the counterpart of ``mesh.devices.size``.
 
     ``launches[i]`` tallies the kernel launches of local shard i, by
-    (wrapper, mode) as :func:`shard_launches` names them."""
+    (wrapper, mode), the wrappers as :func:`launch_tallies` names them."""
 
     def __init__(self, devices: Sequence, rank: int = 0, world: int = 1):
         self.devices = [torch.device(d) for d in devices]
@@ -241,19 +240,26 @@ def make_dp_mesh(n_devices: Optional[int] = None, devices=None,
     return mesh
 
 
-def shard_launches(mesh: DpMesh) -> List[dict]:
-    """Each local shard's kernel launches so far, as {wrapper: {mode: n}}
-    with the wrappers named as ``chip_smoke.py`` names their counts."""
+def launch_tallies() -> dict:
+    """Every kernel wrapper's launch tally ({mode: n}, counted by
+    ``_build.count``), by the wrapper's name: the package's one table of
+    those names."""
     from .device_backtrace import device_backtrace
     from .kernel_engine import (run_batch, run_batch_kw, run_batch_long,
                                 run_prefix, run_resume)
 
-    names = {id(run_batch.launches): "score_loop",
-             id(run_batch_kw.launches): "score_loop_kw",
-             id(run_batch_long.launches): "score_loop_long",
-             id(run_prefix.launches): "score_loop_prefix",
-             id(run_resume.launches): "score_loop_resume",
-             id(device_backtrace.launches): "backtrace"}
+    return {"score_loop": run_batch.launches,
+            "score_loop_kw": run_batch_kw.launches,
+            "score_loop_long": run_batch_long.launches,
+            "score_loop_prefix": run_prefix.launches,
+            "score_loop_resume": run_resume.launches,
+            "backtrace": device_backtrace.launches}
+
+
+def shard_launches(mesh: DpMesh) -> List[dict]:
+    """Each local shard's kernel launches so far, as {wrapper: {mode: n}}
+    with the wrappers named as :func:`launch_tallies` names them."""
+    names = {id(t): name for name, t in launch_tallies().items()}
     out = []
     for tally in mesh.launches:
         per = {}
@@ -263,125 +269,23 @@ def shard_launches(mesh: DpMesh) -> List[dict]:
     return out
 
 
-def _rows(a, rows: slice, dev: torch.device) -> torch.Tensor:
-    """Rows of a host array (or CPU tensor) of the whole batch on ``dev``
-    (``engine.upload``: on the card's upload stream)."""
-    from .engine import upload
-
-    a = a.numpy() if isinstance(a, torch.Tensor) else a
-    with trace.span(trace.UPLOAD):
-        a = np.ascontiguousarray(a[rows])
-        trace.count(trace.BYTES_UP, a.nbytes)
-        return upload(a, dev)
-
-
-def dp_align_full_fn(cfg, mesh: DpMesh, B: int, Lq: int, Ltb: int,
-                     engine: str = "auto", packed: bool = False):
-    """The data-parallel full-alignment step, the counterpart of JAX's
-    ``shard_map`` step (which JAX caches; here there is nothing costly to
-    build).  It takes the whole batch's ``seq`` and ``lens`` on the host
-    (as ``engine.align_full2`` takes them) and returns this process's
-    shards' outputs, ``align_full2(..., flat=False)`` on each shard's
-    device, in shard order."""
-    from .engine import align_full2
-
-    def fn(seq, lens):
-        outs = []
-        for i, dev, rows in mesh.shards(B):
-            with mesh.on(i):
-                s, n = _rows(seq, rows, dev), _rows(lens, rows, dev)
-                with trace.span(trace.LAUNCH):
-                    outs.append(align_full2(
-                        s, n, cfg=cfg, B=rows.stop - rows.start, Lq=Lq,
-                        Ltb=Ltb, packed=packed, engine=engine, flat=False))
-        return outs
-
-    return fn
-
-
 def _gathered(mesh: DpMesh, outs: Sequence[dict]) -> dict:
     """This process's shards' outputs, fetched and joined with every
     other process's: the whole batch's outputs on the CPU, each along the
-    batch axis (axis 1 for the raw ``buf``, as JAX's ``P(None, "dp",
-    None)``)."""
+    batch axis."""
     def fetch():
         with trace.span(trace.WAIT):
             return [{k: v.cpu() for k, v in o.items()} for o in outs]
 
     outs = [o for part in mesh.exchange(fetch) for o in part]
-    return {k: torch.cat([o[k] for o in outs], dim=1 if k == "buf" else 0)
-            for k in outs[0]}
-
-
-def dp_align_full(qb, tbuf, qlen, tlen, toff, *, cfg, mesh: DpMesh, Lq: int,
-                  Ltb: int, engine: str = "auto", packed: bool = False
-                  ) -> dict:
-    """Full data-parallel alignment (score loop, backtrace, compaction) of
-    a packed batch (``packed``: ``qb``/``tbuf`` 2-bit packed): the whole
-    batch's 2-D outputs on the CPU, from every process's shards."""
-    seq = np.concatenate([np.asarray(qb), np.asarray(tbuf)], axis=1)
-    lens = np.stack([np.asarray(a, np.int32) for a in (qlen, tlen, toff)],
-                    axis=1)
-    fn = dp_align_full_fn(cfg, mesh, seq.shape[0], Lq, Ltb, engine, packed)
-    return _gathered(mesh, fn(seq, lens))
-
-
-def dp_semi2_prefix_fn(cfg, mesh: DpMesh, B: int, Lq: int, Ltb: int, S0: int,
-                       K2: int, packed: bool):
-    """The two-phase route's phase 1, data-parallel: K3 on each shard at
-    the whole batch's shapes (``cfg.k_win`` the batch's full span); takes
-    the whole batch's ``seq`` and ``lens`` and returns each local shard's
-    export dict (``semi2.prefix_export``) on its device.  The mid-point
-    (the ``meta1`` fetch and the targets' re-placement) runs on the whole
-    batch, in the caller.  JAX's ``use_kernel`` / ``old_lanes`` (pairs on
-    the lanes of a Mosaic tile) are not carried over."""
-    from .semi2 import prefix_export
-
-    def fn(seq, lens):
-        outs = []
-        for i, dev, rows in mesh.shards(B):
-            with mesh.on(i):
-                s, n = _rows(seq, rows, dev), _rows(lens, rows, dev)
-                with trace.span(trace.LAUNCH):
-                    outs.append(prefix_export(
-                        s, n, cfg=cfg, Lq=Lq, Ltb=Ltb, S0=S0, K2=K2,
-                        packed=packed))
-        return outs
-
-    return fn
-
-
-def dp_semi2_phase2_fn(cfg, mesh: DpMesh, B: int, Lq: int, Ltb_full: int,
-                       Ltb2: int, S0: int, packed: bool):
-    """The two-phase route's phase 2, data-parallel: K4 and K2 over both
-    aux tensors on each shard, from the whole batch's re-placed ``seq2`` /
-    ``lens2`` (``Ltb2`` batch-wide) and each local shard's exports;
-    returns each shard's ``semi2.phase2(..., flat=False)`` outputs, the
-    layout of :func:`dp_align_full_fn`."""
-    from .semi2 import phase2
-
-    names = ("win_m", "win_i", "win_d", "ainit", "b_m", "b_ie", "meta1",
-             "aux_old")
-
-    def fn(seq2, lens2, exports: Sequence[dict]):
-        outs = []
-        for (i, dev, rows), ex in zip(mesh.shards(B), exports):
-            with mesh.on(i):
-                s, n = _rows(seq2, rows, dev), _rows(lens2, rows, dev)
-                with trace.span(trace.LAUNCH):
-                    outs.append(phase2(
-                        s, n, *(ex[k] for k in names), cfg=cfg, Lq=Lq,
-                        Ltb_full=Ltb_full, Ltb2=Ltb2, S0=S0, packed=packed,
-                        flat=False))
-        return outs
-
-    return fn
+    return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
 
 def _scores_by_shard(qb, tbuf, qlen, tlen, toff, cfg, mesh: DpMesh, Lq: int,
                      Ltb: int) -> list:
     """K1 (``kernel_engine.run_batch``) on each local shard of a packed
     batch of raw rows: each shard's result tuple, on the CPU."""
+    from .engine import upload
     from .kernel_engine import run_batch
 
     host = [np.asarray(a) for a in (qb, tbuf)] + [
@@ -390,8 +294,8 @@ def _scores_by_shard(qb, tbuf, qlen, tlen, toff, cfg, mesh: DpMesh, Lq: int,
     for i, dev, rows in mesh.shards(host[0].shape[0]):
         with mesh.on(i):
             final_s, done, overflow, term_cell, aux, end = run_batch(
-                *(_rows(a, rows, dev) for a in host), cfg=cfg, Lq=Lq,
-                Ltb=Ltb)
+                *(upload(np.ascontiguousarray(a[rows]), dev) for a in host),
+                cfg=cfg, Lq=Lq, Ltb=Ltb)
         outs.append({"final_s": final_s, "done": done, "overflow": overflow,
                      "term_cell": term_cell, "aux": aux, "end_s": end[0],
                      "end_k": end[1], "end_cell": end[2]})

@@ -238,9 +238,9 @@ def replace_targets(targets: Sequence[bytes], k02: np.ndarray
 
 def phase2(seq2, lens2, win_m, win_i, win_d, ainit, b_m, b_ie, meta1,
            aux_old, *, cfg: EngineConfig, Lq: int, Ltb_full: int, Ltb2: int,
-           S0: int, packed: bool, flat: bool = True) -> dict:
+           S0: int, packed: bool) -> dict:
     """Narrow resume (K4), dual-aux backtrace (K2) and output packing, the
-    port of ``wfa_tpu.semi2._phase2_impl(..., flat=flat)``.
+    port of ``wfa_tpu.semi2._phase2_impl``'s flat outputs.
 
     ``cfg`` is the phase-2 config (k_win the narrow window, s_cap the
     total score cap).  ``seq2`` holds the query and the re-placed target
@@ -264,6 +264,6 @@ def phase2(seq2, lens2, win_m, win_i, win_d, ainit, b_m, b_ie, meta1,
     out = _finish_outputs(
         aux2, end_cell, -toff2, end_s, end_k, qlen, tlen, done, overflow,
         cfg=cfg, Lq=Lq, Ltb=Ltb_full, edit=False, aux_old=aux_old,
-        k0_old=-(qlen - 1), s_split=S0, flat=flat)
+        k0_old=-(qlen - 1), s_split=S0)
     out["final_s"] = final_s
     return out
